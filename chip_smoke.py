@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port's ensemble transport.
+"""On-card smoke run of the PyTorch port: the ensemble transport and the
+large-N exact GP.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -8,29 +9,49 @@ Run from the repository root on a machine with one CUDA card and nvcc:
 Phases, one line each on stdout:
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. the build of the CUDA kernel from ``csrc/`` (seconds);
-3. the kernel ``spd_inverse_elast_fused`` against its plain PyTorch twin on
-   the card, n in {8, 20, 24, 32, 64}, E a full and a ragged block, f32 to
-   2e-5 (and K^-1 to 1e-4 against numpy's f64 inverse), one f64 case to
-   1e-10;
-4. the main path ``fit_and_transport_batched`` at the bench size (E=16384
-   targets of n=20 points, a Q=400 demo, C(10)*RBF(4)+White(0.01), f32):
-   finite fields, exactly one kernel launch, and three members against the
-   port's own f64 run on the CPU to err/max|X| < 1e-3;
-5. times: median of 5 CUDA-event timed runs after a warm-up, of the kernel
-   and its twin at n=20, E=16384, and of the whole main path (reported as
-   transported trajectories per second), plus its peak device memory;
-   on stderr, the main path's steps timed one by one and a
-   ``torch.profiler`` table of one call.
+2. the build of the ``spd_inverse_elast`` kernel from ``csrc/`` (seconds;
+   all three kernel sources start building together here, one nvcc each);
+3. ``spd_inverse_elast_fused`` against its plain PyTorch twin on the card,
+   n in {8, 20, 24, 32, 64}, E a full and a ragged block, f32 to 2e-5 (and
+   K^-1 to 1e-4 against numpy's f64 inverse), one f64 case to 1e-10;
+4. the ensemble transport ``fit_and_transport_batched`` at the bench size
+   (E=16384 targets of n=20 points, a Q=400 demo, C(10)*RBF(4)+White(0.01),
+   f32): finite fields, exactly one kernel launch, and three members
+   against the port's own f64 run on the CPU to err/max|X| < 1e-3;
+5. times of phase 3's kernel and twin and of phase 4's path (median of 5
+   CUDA-event timed runs after a warm-up), and peak device memory;
+6. the builds of ``factor_panel`` and ``stationary_gram`` (seconds; ptxas
+   registers and spills to stderr);
+7. those kernels against their twins on the card: ``factor_panel`` at
+   B in {128, 256, 512} against numpy's f64 factor, ``stationary_gram``
+   for the four families at ragged sizes, the fused predicts at the grid
+   size and a ragged one (tolerances and reasons in ``check_*``);
+8. the large-N solve ``gram_cholesky_solve`` at N=10240 (the bench's
+   inputs): 20 panel launches, alpha against an f64 solve on the card,
+   TFLOP/s beside the card's f32 matmul rate, and cuSOLVER's dense
+   Cholesky at N in {4096, 10240};
+9. the slice's main path, the 3-D ensemble transport at the original
+   project's surface scale (E=16 members of n=2500 points, Q=1000, D=3):
+   80 panel launches, members 0 and 15 against the port's f64 dense run on
+   the CPU;
+10. the dense-grid predicts (a 100x100 grid, N=2048): one launch of each
+    fused kernel, the result against the f64 dense path on the card;
+11. times of each kernel at the path's shapes, its twin and the nearest
+    library call, each as the device time of the kernels the call launched
+    (torch.profiler, mean of 5 after a warm-up) and as the CUDA-event time
+    of the call (median of 5), and of phases 8-10 end to end (CUDA events).
+    The kernels' record carries the device times.
 
-Then one JSON line with the kernels' record and, last, the JSON status
-line.  Any failed check raises, and the exit code is not 0.  With no CUDA
-card it exits at once with a non-zero code.
+Each path is driven with every launch count set to 0 just before and read
+just after.  Then one JSON line with the kernels' record and, last, the
+JSON status line.  Any failed check raises, and the exit code is not 0.
+With no CUDA card it exits at once with a non-zero code.
 """
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -39,6 +60,18 @@ E_MAIN, Q_MAIN, N_MAIN = 16384, 400, 20
 F32_ATOL, F32_INV_TOL, F64_ATOL, TRAJ_TOL = 2e-5, 1e-4, 1e-10, 1e-3
 KERNEL_CASES = [(n, E) for n in (8, 20, 24, 32, 64) for E in (E_MAIN, E_MAIN + 37)]
 REPS = 5
+SOURCES = ("spd_inverse_elast", "factor_panel", "stationary_gram")
+
+N_SOLVE, D_SOLVE, BLOCK = 10240, 3, 512
+E_3D, N_3D, Q_3D = 16, 2500, 1000
+NQ_GRID, N_GRID = 100, 2048
+FAMILIES = ("rbf", "matern12", "matern32", "matern52")
+
+# published H100 SXM peaks (NVIDIA data sheet), for the kernels' bounds
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
+
+PKG = "gaussian_process_transportation_tpu_torch"
+TPU_PKG = "gaussian_process_transportation_tpu"
 
 
 def card_line() -> str:
@@ -47,6 +80,15 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def timed_build(name: str):
+    """Build ``csrc/<name>.cu`` (or find its build); (path, seconds)."""
+    from gaussian_process_transportation_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    path = _cuda.build(name)
+    return path, time.perf_counter() - t0
 
 
 def spd_batch(n: int, E: int, seed: int = 0) -> np.ndarray:
@@ -109,6 +151,32 @@ def cuda_ms(fn, reps=REPS):
     return float(np.median(times)), times
 
 
+def device_ms(fn, reps=REPS):
+    """Device time of every CUDA kernel that one call of ``fn`` launches
+    (torch.profiler, CUPTI), in milliseconds: the mean over ``reps`` calls
+    traced in one session after a warm-up; the card's own time, without the
+    host's launch gaps.  A session that records no kernel time is traced
+    again, and twice empty raises."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / reps / 1e3
+    raise AssertionError("torch.profiler recorded no device time")
+
+
+def timed(kernel, twin, library=None):
+    """(device ms, CUDA-event ms) of a kernel's wrapper call, its twin and
+    the library call (None where there is none)."""
+    return {role: None if fn is None else (device_ms(fn), cuda_ms(fn)[0])
+            for role, fn in (("ms", kernel), ("plain_ms", twin), ("library_ms", library))}
+
+
 def layer_ms(kernel, S, targets, X, dX) -> dict:
     """The batched transport's steps, as ``fit_and_transport_batched`` runs
     them for n <= 64, each timed with CUDA events; medians over REPS runs
@@ -148,30 +216,197 @@ def layer_ms(kernel, S, targets, X, dX) -> dict:
     return {name: float(t) for name, t in zip(names, med)}
 
 
+def counted():
+    """The kernel wrappers, each with its ``launches`` count."""
+    from gaussian_process_transportation_tpu_torch.ops.batched_linalg import (
+        spd_inverse_elast_fused,
+    )
+    from gaussian_process_transportation_tpu_torch.ops.blocked_chol import factor_panel
+    from gaussian_process_transportation_tpu_torch.ops.pallas_gram import (
+        fused_gp_predict_mean, fused_gp_predict_mean_var, stationary_gram,
+    )
+
+    return {f.__name__: f for f in (spd_inverse_elast_fused, factor_panel, stationary_gram,
+                                    fused_gp_predict_mean, fused_gp_predict_mean_var)}
+
+
+def drive(path):
+    """Run ``path`` once with every launch count set to 0 just before;
+    returns its result and the counts read just after."""
+    wrappers = counted()
+    torch.cuda.synchronize()
+    for f in wrappers.values():
+        f.launches = 0
+    out = path()
+    torch.cuda.synchronize()
+    return out, {name: f.launches for name, f in wrappers.items()}
+
+
+def expect_launches(what, counts, want):
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} times, expected {n}")
+
+
+def bound(bytes_moved, flops):
+    """(bound_ms, bound_by): the larger of the memory and f32 compute times."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gram_flops(rows, cols, D):
+    """Operations of one stationary-kernel entry: D differences, squares and
+    sums, the profile (an exp and a few products) and the amplitude."""
+    return rows * cols * (3 * D + 6)
+
+
+# ---- phase 7: the new kernels against their twins -------------------------
+
+def check_factor_panel(device, B):
+    """L and L⁻¹ against numpy's f64 factor to 5e-6 relative (the JAX
+    kernel's bound, tests/test_blocked_chol.py:28-29), exact zeros above the
+    diagonal; returns |kernel − f32 twin| on the card."""
+    from gaussian_process_transportation_tpu_torch.ops.blocked_chol import (
+        factor_panel, factor_panel_plain,
+    )
+
+    rng = np.random.default_rng(B)
+    A = rng.standard_normal((B, B))
+    K = (A @ A.T + B * np.eye(B)).astype(np.float32)
+    Kd = torch.as_tensor(K, device=device)
+    L, Linv = factor_panel(Kd)
+    L0, Linv0 = factor_panel_plain(Kd)
+    torch.cuda.synchronize()
+    L64 = np.linalg.cholesky(K.astype(np.float64))
+    Linv64 = np.linalg.inv(L64)
+    Ln, Linvn = L.double().cpu().numpy(), Linv.double().cpu().numpy()
+    rel = (np.abs(Ln - L64).max() / np.abs(L64).max(),
+           np.abs(Linvn - Linv64).max() / np.abs(Linv64).max())
+    upper = max(np.abs(np.triu(Ln, 1)).max(), np.abs(np.triu(Linvn, 1)).max())
+    if max(rel) >= 5e-6 or upper != 0.0:
+        raise AssertionError(f"factor_panel B={B}: rel err L {rel[0]:.3g}, L^-1 {rel[1]:.3g} "
+                             f"(tol 5e-6), max above diagonal {upper:.3g}")
+    return max((L - L0).abs().max().item(), (Linv - Linv0).abs().max().item()), max(rel)
+
+
+def check_gram(device, N, M, D, family, amp=2.0):
+    """Kernel against twin to 1e-5·amp: the same per-dimension d² in
+    another rounding order (fma) and expf against torch.exp, a few f32
+    ulps of values ≤ amp."""
+    from gaussian_process_transportation_tpu_torch.ops.pallas_gram import (
+        stationary_gram, stationary_gram_plain,
+    )
+
+    rng = np.random.default_rng(N + M)
+    X = torch.as_tensor(rng.standard_normal((N, D)), dtype=torch.float32, device=device)
+    Z = torch.as_tensor(rng.standard_normal((M, D)), dtype=torch.float32, device=device)
+    ls = torch.linspace(0.8, 1.5, D, device=device)
+    err = (stationary_gram(X, Z, ls, amp, family)
+           - stationary_gram_plain(X, Z, ls, amp, family)).abs().max().item()
+    if err >= 1e-5 * amp:
+        raise AssertionError(f"stationary_gram {family} ({N}, {M}): |kernel-twin| {err:.3g}")
+    return err
+
+
+def check_predicts(device, Xq, X, alpha, K_inv, ls, amp, prior, family):
+    """The fused predicts against their twins.  Mean to 1e-5 of Σ_n|k α|
+    (f32 sums of N terms in another order); variance to 1e-6 of
+    max_q Σ_ab |k_a K⁻¹_ab k_b|, the size of the terms whose f32 sum
+    cancels down to it.  Returns the largest differences."""
+    from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
+
+    k = pg.stationary_gram_plain(Xq, X, ls, amp, family)
+    m0 = k @ alpha
+    m0v, v0 = pg.fused_gp_predict_mean_var_plain(Xq, X, alpha, K_inv, ls, amp, prior, family)
+    m = pg.fused_gp_predict_mean(Xq, X, alpha, ls, amp, family)
+    mv, v = pg.fused_gp_predict_mean_var(Xq, X, alpha, K_inv, ls, amp, prior, family)
+    kd = k.double()
+    mean_scale = (kd.abs() @ alpha.double().abs()).max().item()
+    var_scale = ((kd.abs() @ K_inv.double().abs()) * kd.abs()).sum(1).max().item()
+    em = max((m - m0).abs().max().item(), (mv - m0v).abs().max().item())
+    ev = (v - v0).abs().max().item()
+    if em >= 1e-5 * mean_scale or ev >= 1e-6 * var_scale:
+        raise AssertionError(f"fused predicts {family} Nq={Xq.shape[0]} N={X.shape[0]}: "
+                             f"mean {em:.3g} (tol {1e-5 * mean_scale:.3g}), "
+                             f"var {ev:.3g} (tol {1e-6 * var_scale:.3g})")
+    return em, ev
+
+
+# ---- workloads of phases 8-10 ----------------------------------------------
+
+def solve_inputs(device, n=N_SOLVE):
+    """bench.py's Cholesky stage inputs (bench.py:237-246): X, Y (n, 3)
+    standard normal f32 from seed 0."""
+    rng = np.random.default_rng(0)
+    X = torch.as_tensor(rng.standard_normal((n, D_SOLVE)).astype(np.float32), device=device)
+    Y = torch.as_tensor(rng.standard_normal((n, D_SOLVE)).astype(np.float32), device=device)
+    return X, Y
+
+
+def ensemble_3d_inputs():
+    """scripts/bench_ensemble_3d.py:45-54: surfaces of N=2500 points in 3-D,
+    E targets shifted and jittered, a Q=1000 demo; float32 numpy."""
+    rng = np.random.default_rng(0)
+    S = rng.standard_normal((N_3D, 3)).astype(np.float32) * 2.0
+    shifts = np.linspace(0.0, 1.0, E_3D, dtype=np.float32)
+    targets = (S[None] + shifts[:, None, None]
+               + 0.05 * rng.standard_normal((E_3D, N_3D, 3)).astype(np.float32))
+    X = rng.standard_normal((Q_3D, 3)).astype(np.float32) * 2.0
+    dX = np.zeros_like(X)
+    dX[:-1] = np.diff(X, axis=0)
+    return S, targets, X, dX
+
+
+def grid_inputs():
+    """The dense-grid predict: N=2048 training points (standard normal,
+    seed 0) with targets sin(X), and a 100x100 query grid on [-3, 3]^2."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((N_GRID, 2)).astype(np.float32)
+    g = np.linspace(-3, 3, NQ_GRID, dtype=np.float32)
+    Xq = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    return X, np.sin(X), Xq
+
+
+def f64_gram(X, amp, noise):
+    """amp·exp(−½‖x−x′‖²) + noise·I in float64, per-dimension differences."""
+    Xd = X.double()
+    d2 = sum((Xd[:, None, d] - Xd[None, :, d]) ** 2 for d in range(X.shape[1]))
+    return amp * torch.exp(-0.5 * d2) + noise * torch.eye(X.shape[0], dtype=torch.float64,
+                                                          device=X.device)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
 
     from gaussian_process_transportation_tpu_torch import kernels as K
+    from gaussian_process_transportation_tpu_torch.models import exact_gp as gp_core
     from gaussian_process_transportation_tpu_torch.ops import _cuda
+    from gaussian_process_transportation_tpu_torch.ops import blocked_chol as bc
+    from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
     from gaussian_process_transportation_tpu_torch.ops.batched_linalg import (
         spd_inverse_elast, spd_inverse_elast_fused,
     )
     from gaussian_process_transportation_tpu_torch.transport import gpt
 
+    if any(m == "jax" or m.startswith(("jax.", TPU_PKG + ".")) or m == TPU_PKG
+           for m in sys.modules):
+        raise AssertionError("the port's smoke run imported JAX or the JAX package")
+
     device = torch.device("cuda", 0)
+    kernels_json = {}
 
     # 1. device
     card = card_line()
     print(card, flush=True)
     tag = f"[{card}]"
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib_path = _cuda.build("spd_inverse_elast")
+    # 2. build: every source starts now, one nvcc each
+    pool = ThreadPoolExecutor(len(SOURCES))
+    builds = {name: pool.submit(timed_build, name) for name in SOURCES}
+    lib_path, build_s = builds["spd_inverse_elast"].result()
     _cuda.library("spd_inverse_elast")
-    print(f"build: spd_inverse_elast in {time.perf_counter() - t0:.2f} s ({lib_path.name}) {tag}",
-          flush=True)
+    print(f"build: spd_inverse_elast in {build_s:.2f} s ({lib_path.name}) {tag}", flush=True)
     print(lib_path.with_suffix(".log").read_text(), file=sys.stderr)
 
     # 3. kernel against twin
@@ -185,7 +420,7 @@ def main() -> None:
     print("kernel vs twin: max|diff| " + ", ".join(f"{k}: {v:.3g}" for k, v in errs.items())
           + f"; all within tolerance {tag}", flush=True)
 
-    # 4. main path
+    # 4. ensemble transport
     X, dX, S, S1 = make_workload()
     f32 = dict(dtype=torch.float32, device=device)
     kernel = K.Constant(10.0) * K.RBF(4.0 * torch.ones(2, **f32)) + K.White(0.01)
@@ -198,13 +433,11 @@ def main() -> None:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    spd_inverse_elast_fused.launches = 0
-    res = main_path()
-    torch.cuda.synchronize()
-    launches = spd_inverse_elast_fused.launches
+    res, counts4 = drive(main_path)
+    launches = counts4["spd_inverse_elast_fused"]
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-    if launches != 1:
-        raise AssertionError(f"main path launched the kernel {launches} times, expected 1")
+    expect_launches("ensemble transport", counts4, {
+        "spd_inverse_elast_fused": 1, "factor_panel": 0, "stationary_gram": 0})
     fields = {name: getattr(res, name) for name in res._fields if getattr(res, name) is not None}
     for name, value in fields.items():
         if not torch.isfinite(value).all():
@@ -231,12 +464,14 @@ def main() -> None:
           f"kernel launches {launches}, err/max|X| vs f64 CPU "
           + ", ".join(f"{k}: {v:.3g}" for k, v in rel.items())
           + f" (< {TRAJ_TOL}) {tag}", flush=True)
+    del res, ref
 
     # 5. times
     K_main = spd_batch(N_MAIN, E_MAIN)
     Ke = torch.from_numpy(np.transpose(K_main, (1, 2, 0))).to(**f32).contiguous()
     kernel_ms, kernel_all = cuda_ms(lambda: spd_inverse_elast_fused(Ke))
     plain_ms, plain_all = cuda_ms(lambda: spd_inverse_elast(Ke))
+    Kb = torch.from_numpy(K_main).to(**f32)  # the same matrices, (E, n, n)
     path_ms, path_all = cuda_ms(main_path)
     rate = E_MAIN / (path_ms / 1e3)
     print(f"times (median of {REPS}, CUDA events): spd_inverse_elast_fused n={N_MAIN} "
@@ -244,7 +479,6 @@ def main() -> None:
           f"{plain_all}; fit_and_transport_batched E={E_MAIN} {path_ms:.4f} ms {path_all} = "
           f"transported_trajectories_per_s_per_chip {rate:.1f}; "
           f"peak memory {peak_gib:.3f} GiB {tag}", flush=True)
-
     print(f"layers of fit_and_transport_batched E={E_MAIN} (ms, median of {REPS}, "
           f"CUDA events): {layer_ms(kernel, Sd, targets, Xd, dXd)} {tag}", file=sys.stderr)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -252,17 +486,242 @@ def main() -> None:
         main_path()
         torch.cuda.synchronize()
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30), file=sys.stderr)
+    n, E = N_MAIN, E_MAIN
+    kernels_json["spd_inverse_elast_fused"] = dict(
+        source=f"{PKG}/csrc/spd_inverse_elast.cu",
+        replaces=f"{TPU_PKG}/ops/batched_linalg.py:80", launches=launches, max_abs_err=main_err,
+        bound=bound(3 * n * n * E * 4, n**3 * E), shape=f"n={n} E={E}",
+        calls=(lambda: spd_inverse_elast_fused(Ke), lambda: spd_inverse_elast(Ke),
+               lambda: torch.cholesky_inverse(torch.linalg.cholesky(Kb))))
 
-    print(json.dumps({"kernels": [{
-        "name": "spd_inverse_elast_fused",
-        "route": "cuda",
-        "source": "gaussian_process_transportation_tpu_torch/csrc/spd_inverse_elast.cu",
-        "replaces": "gaussian_process_transportation_tpu/ops/batched_linalg.py:80",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # 6. build of the large-N kernels (started in phase 2)
+    for name in ("factor_panel", "stationary_gram"):
+        path, build_s = builds[name].result()
+        _cuda.library(name)
+        log = path.with_suffix(".log").read_text()
+        print(log, file=sys.stderr)
+        print(f"build: {name} in {build_s:.2f} s, beside the others ({path.name}; ptxas: "
+              + "; ".join(line.split(":", 1)[-1].strip() for line in log.splitlines()
+                          if "registers" in line or "spill" in line)
+              + f") {tag}", flush=True)
+    pool.shutdown()
+
+    # 7. the new kernels against their twins
+    fp_errs = {B: check_factor_panel(device, B) for B in (128, 256, 512)}
+    gram_errs = {(fam, N, M): check_gram(device, N, M, 3, fam)
+                 for fam in FAMILIES for (N, M) in ((1037, 531), (10240, 512))}
+    Xg, Yg, Xqg = (torch.as_tensor(a, **f32) for a in grid_inputs())
+    kern_grid = K.Constant(2.0) * K.RBF(torch.ones(2, **f32)) + K.White(0.1)
+    gp_grid = gp_core.condition(kern_grid, Xg, Yg, cache_k_inv=True)
+    ones2 = torch.ones(2, **f32)
+    pred_errs = {}
+    for fam in FAMILIES:
+        pred_errs[(fam, NQ_GRID**2, N_GRID)] = check_predicts(
+            device, Xqg, Xg, gp_grid.alpha, gp_grid.K_inv, ones2, 2.0, 2.1, fam)
+    rng = np.random.default_rng(7)
+    Xr = torch.as_tensor(rng.standard_normal((301, 2)), **f32)
+    Ar = torch.as_tensor(rng.standard_normal((301, 2)), **f32)
+    Br = rng.standard_normal((301, 301))
+    Kr = torch.as_tensor((Br @ Br.T / 301 + np.eye(301)) * 0.1, **f32)
+    Xqr = torch.as_tensor(rng.standard_normal((777, 2)), **f32)
+    for fam in FAMILIES:
+        pred_errs[(fam, 777, 301)] = check_predicts(device, Xqr, Xr, Ar, Kr, ones2, 2.0, 2.1, fam)
+    print("new kernels vs twins: factor_panel |kernel-twin| (rel err vs f64) "
+          + ", ".join(f"B={B}: {e:.3g} ({r:.3g})" for B, (e, r) in fp_errs.items())
+          + "; stationary_gram max " + f"{max(gram_errs.values()):.3g} over "
+          + f"{len(gram_errs)} cases; fused mean/var max "
+          + ", ".join(f"{f} {nq}x{nn}: {a:.3g}/{b:.3g}" for (f, nq, nn), (a, b) in pred_errs.items())
+          + f"; all within tolerance {tag}", flush=True)
+
+    # 8. large-N solve
+    Xs, Ys = solve_inputs(device)
+    ls3 = torch.ones(D_SOLVE, **f32)
+
+    def solve_path(X_=Xs, Y_=Ys):
+        return bc.gram_cholesky_solve(X_, Y_, ls3, 2.0, 0.1, block=BLOCK)[0]
+
+    alpha, counts8 = drive(solve_path)
+    panels = -(-N_SOLVE // BLOCK)
+    expect_launches("gram_cholesky_solve", counts8, {"factor_panel": panels,
+                                                     "stationary_gram": panels})
+    K64 = f64_gram(Xs, 2.0, 0.1)
+    a64 = torch.cholesky_solve(Ys.double(), torch.linalg.cholesky(K64))
+    del K64
+    solve_err = ((alpha.double() - a64).abs().max() / a64.abs().max()).item()
+    if not solve_err < 5e-3:
+        raise AssertionError(f"gram_cholesky_solve alpha rel err {solve_err:.3g} >= 5e-3")
+    solve_ms, solve_all = cuda_ms(solve_path)
+    n = N_SOLVE
+    tflops = (2 * n * n * 3 + n**3 / 3 + 4 * n * n * 3) / (solve_ms / 1e3) / 1e12
+    m = 8192
+    Am = torch.ones(m, m, **f32) * 1e-3
+    mm_ms, _ = cuda_ms(lambda: Am @ Am)
+    del Am
+    mm_tflops = 2 * m**3 / (mm_ms / 1e3) / 1e12
+
+    def cusolver_path(X_, Y_):
+        Kd = pg.stationary_gram_plain(X_, X_, ls3, 2.0)
+        Kd.diagonal().add_(0.1)
+        return torch.cholesky_solve(Y_, torch.linalg.cholesky(Kd))
+
+    lib_ms = {}
+    for nn in (4096, N_SOLVE):
+        Xn, Yn = solve_inputs(device, nn)
+        lib_ms[nn] = (cuda_ms(lambda: solve_path(Xn, Yn))[0],
+                      cuda_ms(lambda: cusolver_path(Xn, Yn))[0])
+    print(f"large-N solve: gram_cholesky_solve N={n} D={D_SOLVE} block={BLOCK}: factor_panel "
+          f"launches {counts8['factor_panel']}, stationary_gram {counts8['stationary_gram']}; "
+          f"alpha rel err vs f64 {solve_err:.3g} (< 5e-3); {solve_ms:.4f} ms {solve_all} = "
+          f"{tflops:.3f} TFLOP/s; f32 matmul 8192^2 {mm_tflops:.3f} TFLOP/s (TF32 off); "
+          "blocked vs torch.linalg.cholesky+cholesky_solve (dense Gram included): "
+          + ", ".join(f"N={k}: {a:.4f} vs {b:.4f} ms" for k, (a, b) in lib_ms.items())
+          + f" {tag}", flush=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        solve_path()
+        torch.cuda.synchronize()
+    print(f"profile of gram_cholesky_solve N={n} {tag}\n"
+          + prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), file=sys.stderr)
+
+    # 9. the 3-D ensemble transport (the slice's main path)
+    S3, T3, X3, dX3 = ensemble_3d_inputs()
+    S3d, T3d, X3d, dX3d = (torch.as_tensor(a, **f32) for a in (S3, T3, X3, dX3))
+    kern3 = K.Constant(2.0) * K.RBF(2.0 * torch.ones(3, **f32)) + K.White(0.01)
+
+    def ensemble_3d():
+        return gpt.fit_and_transport_batched(kern3, S3d, T3d, X3d, dX3d)
+
+    res3, counts9 = drive(ensemble_3d)
+    per_member = -(-N_3D // gpt.BLOCKED_PANEL)
+    expect_launches("3-D ensemble", counts9, {"factor_panel": E_3D * per_member,
+                                              "stationary_gram": E_3D * per_member,
+                                              "spd_inverse_elast_fused": 0})
+    for name in ("traj", "std", "delta", "delta_var", "min_abs_det"):
+        if not torch.isfinite(getattr(res3, name)).all():
+            raise AssertionError(f"3-D ensemble field {name} has non-finite values")
+    if res3.traj.shape != (E_3D, Q_3D, 3):
+        raise AssertionError(f"3-D ensemble traj shape {tuple(res3.traj.shape)}")
+    kern3_64 = K.Constant(2.0) * K.RBF(2.0 * torch.ones(3, **f64)) + K.White(0.01)
+    scale3 = float(np.abs(X3).max())
+    rel3 = {}
+    for e in (0, E_3D - 1):
+        one = gpt.fit_and_transport(kern3_64, *(torch.as_tensor(a, **f64)
+                                                for a in (S3, T3[e], X3, dX3)))
+        for name in ("traj", "std", "delta"):
+            got = getattr(res3, name)[e].double().cpu()
+            rel3[f"{name}[{e}]"] = (got - getattr(one, name)).abs().max().item() / scale3
+    if max(rel3.values()) >= TRAJ_TOL:
+        raise AssertionError(f"3-D ensemble differs from the f64 dense CPU run: {rel3}")
+    del res3
+    ens_ms, ens_all = cuda_ms(ensemble_3d)
+    print(f"3-D ensemble: fit_and_transport_batched E={E_3D} n={N_3D} Q={Q_3D} D=3 f32, fields "
+          f"finite, factor_panel launches {counts9['factor_panel']}, stationary_gram "
+          f"{counts9['stationary_gram']}; err/max|X| vs f64 dense CPU "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in rel3.items())
+          + f" (< {TRAJ_TOL}); {ens_ms:.4f} ms/ensemble {ens_all} (median of {REPS}) = "
+          f"{E_3D / (ens_ms / 1e3):.3f} members/s {tag}", flush=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ensemble_3d()
+        torch.cuda.synchronize()
+    print(f"profile of the 3-D ensemble {tag}\n"
+          + prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), file=sys.stderr)
+
+    # 10. dense-grid predicts
+    mean, counts_m = drive(lambda: gp_core.predict(gp_grid, Xqg))
+    expect_launches("predict", counts_m, {"fused_gp_predict_mean": 1,
+                                          "fused_gp_predict_mean_var": 0})
+    (mean_s, std), counts_v = drive(lambda: gp_core.predict(gp_grid, Xqg, return_std=True))
+    expect_launches("predict(return_std)", counts_v, {"fused_gp_predict_mean": 0,
+                                                      "fused_gp_predict_mean_var": 1})
+    kern_grid64 = K.Constant(2.0) * K.RBF(torch.ones(2, dtype=torch.float64, device=device)) \
+        + K.White(0.1)
+    gp64 = gp_core.condition(kern_grid64, Xg.double(), Yg.double())
+    mean64, std64 = gp_core.predict(gp64, Xqg.double(), return_std=True)
+    m_err = max((mean - mean64).abs().max().item(),
+                (mean_s - mean64).abs().max().item()) / mean64.abs().max().item()
+    s_err = (std - std64).abs().max().item()
+    s_tol = 5e-3 * std64.abs().max().item() + 1e-3
+    if not (m_err < 5e-3 and s_err < s_tol):
+        raise AssertionError(f"dense-grid predict vs f64: mean rel {m_err:.3g} (tol 5e-3), "
+                             f"std {s_err:.3g} (tol {s_tol:.3g})")
+    print(f"dense-grid predict: Nq={NQ_GRID}x{NQ_GRID} N={N_GRID} C(2)*RBF(1)+White(0.1) f32: "
+          f"fused_gp_predict_mean launches {counts_m['fused_gp_predict_mean']}, "
+          f"fused_gp_predict_mean_var {counts_v['fused_gp_predict_mean_var']}; vs f64 dense "
+          f"path: mean rel {m_err:.3g} (< 5e-3), std {s_err:.3g} (< {s_tol:.3g}) {tag}",
+          flush=True)
+
+    # 11. times at the path's shapes
+    panels = bc.stationary_gram_panels(Xs, ls3, 2.0, 0.1, BLOCK)[0]
+    A512 = panels[0][:BLOCK].contiguous()  # the first diagonal block of phase 8
+    del panels
+    L_k, Linv_k = bc.factor_panel(A512)
+    L_0, Linv_0 = bc.factor_panel_plain(A512)
+    eye512 = torch.eye(BLOCK, **f32)
+    B = BLOCK
+    kernels_json["factor_panel"] = dict(
+        source=f"{PKG}/csrc/factor_panel.cu", replaces=f"{TPU_PKG}/ops/blocked_chol.py:282",
+        launches=counts9["factor_panel"],
+        max_abs_err=max((L_k - L_0).abs().max().item(), (Linv_k - Linv_0).abs().max().item()),
+        bound=bound(3 * B * B * 4, 2 * B**3 / 3), shape=f"B={B}",
+        calls=(lambda: bc.factor_panel(A512), lambda: bc.factor_panel_plain(A512),
+               lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(A512), eye512,
+                                                     upper=False)))
+    Z = Xs / ls3  # the first panel of phase 8: (10240, 512)
+    kernels_json["stationary_gram"] = dict(
+        source=f"{PKG}/csrc/stationary_gram.cu", replaces=f"{TPU_PKG}/ops/pallas_gram.py:268",
+        launches=counts9["stationary_gram"], max_abs_err=gram_errs[("rbf", N_SOLVE, B)],
+        bound=bound(N_SOLVE * B * 4 + (N_SOLVE + B) * D_SOLVE * 4,
+                    gram_flops(N_SOLVE, B, D_SOLVE)), shape=f"({N_SOLVE}, {B}) D={D_SOLVE}",
+        calls=(lambda: pg.stationary_gram(Z, Z[:B], 1.0, 2.0),
+               lambda: pg.stationary_gram_plain(Z, Z[:B], 1.0, 2.0), None))
+
+    a_g, Ki_g = gp_grid.alpha, gp_grid.K_inv
+    Nq, N, P, D = Xqg.shape[0], Xg.shape[0], a_g.shape[1], 2
+
+    def dense_mean_var():
+        k_star = kern_grid(Xqg, Xg)
+        return k_star @ a_g, kern_grid.diag(Xqg) - ((k_star @ Ki_g) * k_star).sum(-1)
+
+    kernels_json["fused_gp_predict_mean"] = dict(
+        source=f"{PKG}/csrc/stationary_gram.cu", replaces=f"{TPU_PKG}/ops/pallas_gram.py:43",
+        launches=counts_m["fused_gp_predict_mean"], max_abs_err=pred_errs[("rbf", Nq, N)][0],
+        bound=bound((Nq * D + N * D + N * P + Nq * P) * 4, gram_flops(Nq, N, D) + 2 * Nq * N * P),
+        shape=f"Nq={Nq} N={N} P={P}",
+        calls=(lambda: pg.fused_gp_predict_mean(Xqg, Xg, a_g, ones2, 2.0),
+               lambda: pg.fused_gp_predict_mean_plain(Xqg, Xg, a_g, ones2, 2.0),
+               lambda: kern_grid(Xqg, Xg) @ a_g))
+    kernels_json["fused_gp_predict_mean_var"] = dict(
+        source=f"{PKG}/csrc/stationary_gram.cu", replaces=f"{TPU_PKG}/ops/pallas_gram.py:123",
+        launches=counts_v["fused_gp_predict_mean_var"],
+        max_abs_err=max(pred_errs[("rbf", Nq, N)]),
+        bound=bound((Nq * D + N * D + N * P + N * N + Nq * P + Nq) * 4,
+                    2 * gram_flops(Nq, N, D) + 2 * Nq * N * N + 2 * Nq * N * (P + 1)),
+        shape=f"Nq={Nq} N={N} P={P}",
+        calls=(lambda: pg.fused_gp_predict_mean_var(Xqg, Xg, a_g, Ki_g, ones2, 2.0, 2.1),
+               lambda: pg.fused_gp_predict_mean_var_plain(Xqg, Xg, a_g, Ki_g, ones2, 2.0, 2.1),
+               dense_mean_var))
+    for v in kernels_json.values():
+        v.update(timed(*v.pop("calls")))
+
+    pm_ms = cuda_ms(lambda: gp_core.predict(gp_grid, Xqg))[0]
+    pv_ms = cuda_ms(lambda: gp_core.predict(gp_grid, Xqg, return_std=True))[0]
+    fmt = lambda t: "-" if t is None else f"{t[0]:.4f}/{t[1]:.4f}"
+    print(f"times (device ms from CUPTI, mean of {REPS} / CUDA-event ms of the call, median of "
+          f"{REPS}): "
+          + "; ".join(f"{name} {v['shape']}: kernel {fmt(v['ms'])}, twin {fmt(v['plain_ms'])}, "
+                      f"library {fmt(v['library_ms'])}, bound {v['bound'][0]:.4f} by "
+                      f"{v['bound'][1]}" for name, v in kernels_json.items())
+          + f"; end to end (CUDA events): phase 8 gram_cholesky_solve N={N_SOLVE} "
+          f"{solve_ms:.4f} ms, phase 9 3-D ensemble {ens_ms:.4f} ms, phase 10 predict "
+          f"{pm_ms:.4f} ms, predict(return_std) {pv_ms:.4f} ms {tag}", flush=True)
+
+    # the record's times are the kernels' device times (CUPTI)
+    dev = lambda t: None if t is None else t[0]
+    record = [{"name": name, "route": "cuda", "source": v["source"], "replaces": v["replaces"],
+               "launches": v["launches"], "max_abs_err": v["max_abs_err"], "ms": dev(v["ms"]),
+               "plain_ms": dev(v["plain_ms"]), "bound_ms": v["bound"][0],
+               "bound_by": v["bound"][1], "library_ms": dev(v["library_ms"])}
+              for name, v in kernels_json.items()]
+    print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

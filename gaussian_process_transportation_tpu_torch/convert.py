@@ -7,7 +7,7 @@ a test hands both packages the same parameters.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -15,6 +15,7 @@ import torch
 from . import kernels as K
 from .models.affine import AffineParams
 from .models.exact_gp import ExactGP
+from .ops.blocked_chol import BlockedCholesky
 
 
 def _tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
@@ -50,6 +51,19 @@ def affine_from_numpy(
     })
 
 
+def blocked_cholesky_from_numpy(
+    panels: Sequence[np.ndarray],
+    linvs: np.ndarray,
+    n: int,
+    dtype: torch.dtype = torch.float64,
+    device=None,
+) -> BlockedCholesky:
+    """BlockedCholesky from a panel factor's arrays: the column panels,
+    the stacked diagonal-block inverses and the logical size."""
+    return BlockedCholesky([_tensor(p, dtype, device) for p in panels],
+                           _tensor(linvs, dtype, device), int(n))
+
+
 def exact_gp_from_numpy(
     state: Mapping[str, Optional[np.ndarray]],
     kernel: K.Kernel,
@@ -57,14 +71,20 @@ def exact_gp_from_numpy(
     device=None,
     jitter: float = 1e-10,
 ) -> ExactGP:
-    """ExactGP from arrays keyed X, Y, alpha and optionally L and K_inv."""
+    """ExactGP from arrays keyed X, Y, alpha and optionally L and K_inv,
+    and optionally ``chol``: a panel factor with ``panels``, ``linvs`` and
+    ``n`` (the JAX ``BlockedCholesky`` or the port's)."""
     opt = lambda key: None if state.get(key) is None else _tensor(state[key], dtype, device)
+    chol = state.get("chol")
+    if chol is not None:
+        chol = blocked_cholesky_from_numpy(chol.panels, chol.linvs, chol.n, dtype, device)
     return ExactGP(
         kernel=kernel,
         X=_tensor(state["X"], dtype, device),
         Y=_tensor(state["Y"], dtype, device),
         alpha=_tensor(state["alpha"], dtype, device),
         L=opt("L"),
+        chol=chol,
         K_inv=opt("K_inv"),
         jitter=jitter,
     )

@@ -1,0 +1,287 @@
+"""Blocked Cholesky on a hand-written panel kernel: the large-N exact GP.
+
+Port of ``gaussian_process_transportation_tpu/ops/blocked_chol.py``.  A
+symmetric positive-definite K (N, N) is held as lower-triangle column
+panels, ``panels[k]`` (Np − k·B, B), Np = N rounded up to the block B.
+Each panel's (B, B) diagonal block is factored by ``factor_panel``, which
+returns L_kk **and** L_kk⁻¹ — the CUDA kernel ``csrc/factor_panel.cu`` for
+a CUDA tensor, the plain twin ``factor_panel_plain`` for a CPU one.  With
+the inverses in hand everything else is a matrix product (``torch.matmul``,
+full float32: TF32 stays off, see the package ``__init__``):
+
+* the history correction of panel k, one (Np−kB, kB)·(kB, B) product;
+* the sub-diagonal part of panel k (a triangular solve), one product
+  against L_kk⁻ᵀ;
+* forward and backward substitution, one product per panel and sweep.
+
+The JAX package works in float32 throughout and has a ``precision``
+argument for its TPU matrix passes; the port has neither: the kernels take
+float32, and the twins (hence CPU runs) keep the dtype they are given.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Sequence, Tuple
+
+import torch
+from torch import Tensor
+
+from . import _cuda
+from .pallas_gram import STATIONARY_FAMILIES, stationary_from_sqdist, stationary_gram
+
+__all__ = [
+    "BlockedCholesky", "STATIONARY_FAMILIES", "blocked_cholesky", "cholesky_panels",
+    "factor_panel", "factor_panel_plain", "gram_cholesky_solve", "stationary_from_sqdist",
+    "stationary_gram_panels", "symmetric_matvec_panels",
+]
+
+SUB_BLOCK = 128  # factor_panel's sub-block edge; a panel is a multiple of it
+
+
+def factor_panel_plain(A: Tensor) -> Tuple[Tensor, Tensor]:
+    """(L, L⁻¹) of one SPD block by ``torch.linalg``; any dtype."""
+    L = torch.linalg.cholesky(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = _cuda.library("factor_panel").factor_panel_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def factor_panel(A: Tensor) -> Tuple[Tensor, Tensor]:
+    """(L, L⁻¹) of one (B, B) SPD block, B a multiple of 128.
+
+    A CUDA tensor goes to one launch of the panel kernel (float32 only;
+    counted in ``factor_panel.launches``); both outputs are exactly
+    lower-triangular.  A CPU tensor goes to :func:`factor_panel_plain`."""
+    if A.dim() != 2 or A.shape[0] != A.shape[1] or A.shape[0] % SUB_BLOCK or not A.shape[0]:
+        raise ValueError(f"factor_panel takes a (B, B) block, B a positive multiple of "
+                         f"{SUB_BLOCK}, got {tuple(A.shape)}")
+    if A.device.type != "cuda":
+        return factor_panel_plain(A)
+    if A.dtype != torch.float32:
+        raise TypeError(f"factor_panel takes float32 on the card, got {A.dtype}")
+    A = A.contiguous()
+    L = torch.empty_like(A)
+    Linv = torch.empty_like(A)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = _entry()(A.data_ptr(), L.data_ptr(), Linv.data_ptr(), A.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"factor_panel kernel launch failed: CUDA error {err}")
+    factor_panel.launches += 1
+    return L, Linv
+
+
+factor_panel.launches = 0
+
+
+class BlockedCholesky:
+    """Lower Cholesky factor as column panels plus diagonal-block inverses.
+
+    ``panels[k]`` is the (Np − k·B, B) slice of L below and including the
+    k-th diagonal block; ``linvs`` (P, B, B) holds L_kk⁻¹.  ``n`` is the
+    logical dimension: rows past it factor a padding block and are dropped
+    by the solves."""
+
+    def __init__(self, panels: Sequence[Tensor], linvs: Tensor, n: int):
+        self.panels = tuple(panels)
+        self.linvs = linvs
+        self.n = n
+
+    @property
+    def block(self) -> int:
+        return self.panels[0].shape[1]
+
+    @property
+    def padded_n(self) -> int:
+        return self.panels[0].shape[0]
+
+    def dense(self) -> Tensor:
+        """The dense (n, n) lower factor (tests and small N only)."""
+        Np, B = self.padded_n, self.block
+        p0 = self.panels[0]
+        L = torch.zeros(Np, Np, dtype=p0.dtype, device=p0.device)
+        for k, p in enumerate(self.panels):
+            L[k * B:, k * B:(k + 1) * B] = p
+        return L[: self.n, : self.n]
+
+    def logdet(self) -> Tensor:
+        """log det K = 2 Σ log diag(L), padding excluded."""
+        B = self.block
+        diag = torch.cat([torch.diagonal(p[:B]) for p in self.panels])[: self.n]
+        return 2.0 * torch.log(diag).sum()
+
+    def _pad_rhs(self, b: Tensor) -> Tuple[Tensor, bool]:
+        squeeze = b.dim() == 1
+        if squeeze:
+            b = b[:, None]
+        pad = self.padded_n - b.shape[0]
+        if pad:
+            b = torch.cat([b, b.new_zeros(pad, b.shape[1])], dim=0)
+        return b.to(self.linvs.dtype), squeeze
+
+    def _forward(self, b: Tensor) -> List[Tensor]:
+        """y = L⁻¹ b, right-looking: one shrinking product per panel."""
+        B = self.block
+        ys = []
+        rest = b
+        for k, p in enumerate(self.panels):
+            yk = self.linvs[k] @ rest[:B]
+            ys.append(yk)
+            if p.shape[0] > B:
+                rest = rest[B:] - p[B:] @ yk
+        return ys
+
+    def solve(self, b: Tensor) -> Tensor:
+        """(L Lᵀ)⁻¹ b by blocked substitution, 2P products."""
+        B = self.block
+        b, squeeze = self._pad_rhs(b)
+        ys = self._forward(b)
+        below = b.new_zeros(0, b.shape[1])
+        for j in reversed(range(len(self.panels))):
+            s = ys[j]
+            if below.shape[0]:
+                s = s - self.panels[j][B:].T @ below
+            below = torch.cat([self.linvs[j].T @ s, below], dim=0)
+        x = below[: self.n]
+        return x[:, 0] if squeeze else x
+
+    def solve_lower(self, b: Tensor) -> Tensor:
+        """L⁻¹ b (forward substitution only)."""
+        b, squeeze = self._pad_rhs(b)
+        y = torch.cat(self._forward(b), dim=0)[: self.n]
+        return y[:, 0] if squeeze else y
+
+
+def _split_panels(K: Tensor, B: int, n: int, diag_pad: float = 1.0) -> List[Tensor]:
+    """Lower column panels of K padded to a multiple of B; the padding is
+    ``diag_pad`` times the identity, so it never couples to real rows."""
+    Np = -(-n // B) * B
+    pad = Np - n
+    if pad:
+        Kp = K.new_zeros(Np, Np)
+        Kp[:n, :n] = K
+        idx = torch.arange(n, Np, device=K.device)
+        Kp[idx, idx] = diag_pad
+        K = Kp
+    return [K[k * B:, k * B:(k + 1) * B] for k in range(Np // B)]
+
+
+def cholesky_panels(panels: Sequence[Tensor], n: int, group=None) -> BlockedCholesky:
+    """Left-looking blocked Cholesky over lower-triangle column panels.
+
+    Each panel applies its whole history correction as one product against
+    the dense lower factor accumulated so far, then ``factor_panel`` on its
+    diagonal block and one product against L_kk⁻ᵀ for the rest.
+
+    ``group`` is accepted and ignored: the JAX package's grouped form
+    (``cholesky_panels_grouped``) exists only to bound the TPU compiler's
+    per-call-site cost, which a CUDA kernel launched from Python does not
+    have."""
+    B = panels[0].shape[1]
+    P = len(panels)
+    Np = panels[0].shape[0]
+    p0 = panels[0]
+    # One preallocated (Np, Np) accumulator of the finished panels, written
+    # in place slice by slice; the history products read from it, and the
+    # returned panels are views of it.
+    Ldense = torch.zeros(Np, Np, dtype=p0.dtype, device=p0.device)
+    L_panels: List[Tensor] = []
+    linvs: List[Tensor] = []
+    for k in range(P):
+        pk = panels[k]
+        if k:
+            hist = Ldense[k * B:, : k * B]
+            pk = pk - hist @ hist[:B].T
+        Lkk, Linv = factor_panel(pk[:B])
+        linvs.append(Linv)
+        Lk = Ldense[k * B:, k * B:(k + 1) * B]
+        Lk[:B] = Lkk
+        if pk.shape[0] > B:
+            Lk[B:] = pk[B:] @ Linv.T  # the triangular solve as a product
+        L_panels.append(Lk)
+    return BlockedCholesky(L_panels, torch.stack(linvs), n)
+
+
+def blocked_cholesky(K: Tensor, block: int = 512) -> BlockedCholesky:
+    """Blocked Cholesky of a dense SPD K (N, N); N need not divide block."""
+    n = K.shape[0]
+    B = min(block, -(-n // SUB_BLOCK) * SUB_BLOCK)
+    return cholesky_panels(_split_panels(K, B, n), n)
+
+
+def stationary_gram_panels(X: Tensor, lengthscale, amplitude, noise, block: int,
+                           family: str = "rbf") -> Tuple[List[Tensor], int]:
+    """Lower-triangle column panels of amp·k((x−x′)/ℓ) + noise·I, built
+    panel by panel with ``stationary_gram`` (the kernel on the card); the
+    full (N, N) Gram is never formed.
+
+    Padding rows are far-away pseudo-points, so their kernel values with
+    every other point underflow to 0 and their diagonal is amp + noise: a
+    positive block that the factorization consumes and the solves drop."""
+    n, D = X.shape
+    Np = -(-n // block) * block
+    ls = torch.as_tensor(lengthscale, dtype=X.dtype, device=X.device).reshape(-1)
+    Z = X / ls
+    if Np > n:
+        far = 1e6 * (1.0 + torch.arange(Np - n, dtype=X.dtype, device=X.device))[:, None]
+        Z = torch.cat([Z, far.expand(Np - n, D)], 0)
+    panels = []
+    for k in range(Np // block):
+        p = stationary_gram(Z[k * block:], Z[k * block:(k + 1) * block], 1.0, amplitude, family)
+        p[:block].diagonal().add_(noise)
+        panels.append(p)
+    return panels, n
+
+
+def symmetric_matvec_panels(panels: Sequence[Tensor], x: Tensor, n: int) -> Tensor:
+    """K @ x from the lower-triangle column panels of a symmetric K: panel
+    k adds P_k·x_k to rows k·B… and its mirrored upper part P_k[B:]ᵀ·x_below
+    to the rows of block k."""
+    B = panels[0].shape[1]
+    Np = panels[0].shape[0]
+    squeeze = x.dim() == 1
+    if squeeze:
+        x = x[:, None]
+    pad = Np - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_zeros(pad, x.shape[1])], dim=0)
+    x = x.to(panels[0].dtype)
+    y = torch.zeros_like(x)
+    for k, p in enumerate(panels):
+        y[k * B:] += p @ x[k * B:(k + 1) * B]
+        if p.shape[0] > B:
+            y[k * B:(k + 1) * B] += p[B:].T @ x[(k + 1) * B:]
+    y = y[:n]
+    return y[:, 0] if squeeze else y
+
+
+# From this many panels the refinement takes two steps (the JAX rule: the
+# error of the left-looking history product grows with its depth).
+_TWO_REFINE_MIN_PANELS = 32
+
+
+def gram_cholesky_solve(X: Tensor, Y: Tensor, lengthscale, amplitude, noise,
+                        block: int = 512, refine_iters=None, family: str = "rbf",
+                        group=None) -> Tuple[Tensor, BlockedCholesky]:
+    """K = amp·k(X, X) + noise·I → blocked Cholesky → α = K⁻¹Y, followed by
+    ``refine_iters`` steps of iterative refinement α ← α + K⁻¹(Y − Kα)
+    with the residual from the panels (None: 1 below 32 panels, 2 from 32
+    up).  ``group`` is ignored, as in :func:`cholesky_panels`."""
+    panels, n = stationary_gram_panels(X, lengthscale, amplitude, noise, block, family)
+    if refine_iters is None:
+        refine_iters = 1 if len(panels) < _TWO_REFINE_MIN_PANELS else 2
+    chol = cholesky_panels(panels, n)
+    squeeze = Y.dim() == 1
+    Y2 = (Y[:, None] if squeeze else Y).to(panels[0].dtype)
+    alpha = chol.solve(Y2)
+    for _ in range(refine_iters):
+        alpha = alpha + chol.solve(Y2 - symmetric_matvec_panels(panels, alpha, n))
+    return (alpha[:, 0] if squeeze else alpha), chol

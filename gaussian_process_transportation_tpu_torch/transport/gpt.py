@@ -6,7 +6,10 @@ source point set onto a target one and Ψ the GP on the residuals:
 
 * ``fit_and_transport`` does it for one target;
 * ``fit_and_transport_batched`` for E targets at once (the ensemble
-  workload), with one Cholesky/inverse kernel launch for all E Grams.
+  workload): members of n ≤ 64 points with one Cholesky/inverse kernel
+  launch for all E Grams, members of n ≥ 768 points (stationary kernels)
+  one by one through the blocked Cholesky, the sizes between one by one
+  through the dense path.
 
 ``transport_apply`` accepts a GP and affine fit with or without a leading
 ensemble axis, so both entry points share it.  The public shapes are the
@@ -15,8 +18,7 @@ and ``min_abs_det`` is () or (E,).
 
 Not here yet: the ``GaussianProcessTransportation`` façade and the
 per-member hyperparameter fit (``fit_and_transport_batched_opt``), which
-need the hyperparameter part of the port, and members of n ≥ 768 points,
-which need the blocked Cholesky.
+need the hyperparameter part of the port.
 """
 from __future__ import annotations
 
@@ -31,12 +33,15 @@ from ..models import exact_gp as gp_core
 from ..models.affine import AffineParams
 from ..ops import quaternion as quat
 from ..ops.batched_linalg import spd_inverse_elast_auto
+from ..ops.linalg import tri_solve_lower
 
 
 def default_transport_kernel(
-    d: int = 1, dtype: torch.dtype = torch.float32, device=None
+    d: int = 1, dtype: torch.dtype = torch.float32, device="cuda"
 ) -> K.Kernel:
-    """C(0.1)·RBF(0.1) + White(1e-4), the original project's default."""
+    """C(0.1)·RBF(0.1) + White(1e-4), the original project's default, with
+    its lengthscale on ``device`` (the card unless the caller asks for the
+    CPU)."""
     return K.Constant(0.1) * K.RBF(0.1 * torch.ones(d, dtype=dtype, device=device)) + K.White(1e-4)
 
 
@@ -95,12 +100,13 @@ def transport_apply(
     positions, epistemic std, velocities and their variance, min|det J_Φ|,
     and with ``ori`` (Q, 4) (3-D only) the orientations, rotated by the
     closest rotation to J_Φ.  ``aff`` and ``gp`` may carry a leading
-    ensemble axis; the results then do too.  Needs ``gp.K_inv``.
+    ensemble axis; the results then do too.
 
     Intermediates are query-last, (…, N, Q) and (…, D, N, Q), so the
-    contractions against K⁻¹ and α are batched matmuls over Q columns."""
-    if gp.K_inv is None:
-        raise ValueError("transport_apply needs a GP conditioned with cache_k_inv=True")
+    contractions against K⁻¹ and α are batched matmuls over Q columns.
+    Without a cached K⁻¹ the variances come from forward substitution with
+    the GP's factor, dense or blocked; the blocked one takes the Jacobian's
+    D directions as one (N, D·Q) right-hand side."""
     kernel = gp.kernel
     pos = affine_core.predict(aff, traj)  # (..., Q, D)
     Jg = aff.scale[..., None, None] * aff.rotation  # J_γ = s·R, (..., D, D)
@@ -108,7 +114,11 @@ def transport_apply(
     # posterior mean and epistemic std
     kT = kernel(gp.X, pos)  # (..., N, Q)
     meanT = gp.alpha.transpose(-1, -2) @ kT  # (..., P, Q)
-    var = kernel.diag(pos) - ((gp.K_inv @ kT) * kT).sum(-2)  # (..., Q)
+    if gp.K_inv is not None:
+        var = kernel.diag(pos) - ((gp.K_inv @ kT) * kT).sum(-2)  # (..., Q)
+    else:
+        V = gp_core._solve_lower_any(gp, kT)  # (..., N, Q)
+        var = kernel.diag(pos) - (V * V).sum(-2)
     std_q = torch.sqrt(torch.clamp(var, min=0.0)) - gp_core._noise_std(kernel, var)
     traj_new = pos + meanT.transpose(-1, -2)
     std = std_q[..., None].expand(traj_new.shape)
@@ -116,7 +126,15 @@ def transport_apply(
     # Jacobian posterior
     dkT = kernel.dxT(pos, gp.X)  # (..., D, N, Q)
     JpsiT = torch.einsum("...np,...dnq->...pdq", gp.alpha, dkT)  # (..., P, D, Q)
-    quadT = ((gp.K_inv[..., None, :, :] @ dkT) * dkT).sum(-2)  # (..., D, Q)
+    if gp.K_inv is not None:
+        quadT = ((gp.K_inv[..., None, :, :] @ dkT) * dkT).sum(-2)  # (..., D, Q)
+    elif gp.chol is not None:
+        D_, N_, Q_ = dkT.shape
+        Vd = gp.chol.solve_lower(dkT.transpose(0, 1).reshape(N_, D_ * Q_))  # (N, D·Q)
+        quadT = (Vd * Vd).reshape(N_, D_, Q_).sum(0)
+    else:
+        Vd = tri_solve_lower(gp.L[..., None, :, :], dkT)  # (..., D, N, Q)
+        quadT = (Vd * Vd).sum(-2)
     JvarT = kernel.dxdz_diag(pos).transpose(-1, -2) - quadT  # (..., D, Q)
 
     # J_Φ = J_γ + J_Ψ J_γ, and the diffeomorphism diagnostic min|det J_Φ|
@@ -163,9 +181,10 @@ def fit_and_transport(
 
 # Largest member size that the batched kernel route takes.
 BATCHED_MAX_N = 64
-# From this member size the JAX package conditions through its blocked
-# Cholesky (stationary kernels only), which the port does not have yet.
+# From this member size (stationary kernels) each member is conditioned
+# through the blocked Cholesky, as in the JAX package.
 BLOCKED_MIN_N = 768
+BLOCKED_PANEL = 512
 
 
 def fit_and_transport_batched(
@@ -187,22 +206,28 @@ def fit_and_transport_batched(
     in 2-D), E Grams in one call, one launch of the Cholesky/inverse
     kernel over all of them (the plain twin for CPU tensors), and the
     batched ``transport_apply``.  Larger members are transported one by
-    one; n ≥ 768 with a stationary kernel raises ``NotImplementedError``
-    (the blocked Cholesky is not ported yet)."""
+    one: from n = 768 with a stationary kernel each through
+    ``condition_blocked`` (panels of 512, one ``factor_panel`` launch per
+    panel on the card) and ``transport_apply`` without K⁻¹, below that
+    through the dense ``fit_and_transport``."""
     n, d = source_distribution.shape
     if n > BATCHED_MAX_N:
-        if n >= BLOCKED_MIN_N and gp_core.stationary_family_params(kernel) is not None:
-            raise NotImplementedError(
-                f"members of n={n} >= {BLOCKED_MIN_N} points need the blocked "
-                "Cholesky, which the torch port does not have yet"
-            )
-        results = [
-            fit_and_transport(
-                kernel, source_distribution, tgt, traj, delta,
-                do_scale=do_scale, do_rotation=do_rotation, jitter=jitter, ori=ori,
-            )
-            for tgt in target_distributions
-        ]
+        blocked = n >= BLOCKED_MIN_N and gp_core.stationary_family_params(kernel) is not None
+
+        def member(tgt):
+            if not blocked:
+                return fit_and_transport(
+                    kernel, source_distribution, tgt, traj, delta,
+                    do_scale=do_scale, do_rotation=do_rotation, jitter=jitter, ori=ori,
+                )
+            aff = affine_core.fit(source_distribution, tgt,
+                                  do_scale=do_scale, do_rotation=do_rotation)
+            src_al = affine_core.predict(aff, source_distribution)
+            gp = gp_core.condition_blocked(kernel, src_al, tgt - src_al, jitter=jitter,
+                                           block=BLOCKED_PANEL)
+            return transport_apply(aff, gp, traj, delta, ori=ori)
+
+        results = [member(tgt) for tgt in target_distributions]
         return TransportResult(*(
             None if field[0] is None else torch.stack(field) for field in zip(*results)
         ))

@@ -1,0 +1,194 @@
+"""Port parity: the blocked Cholesky (``ops/blocked_chol.py``) against the
+JAX package's, whose panel kernel runs in Pallas interpret mode here.
+
+CPU tensors take ``factor_panel``'s plain twin.  Float32 cases hold the
+port to the JAX tests' own tolerances against float64 (5e-6 relative for
+one panel, 1e-5 for a whole factor, 2e-4 relative for a GP solve) and to
+the JAX result; float64 cases hold the port's algebra to numpy tightly."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gaussian_process_transportation_tpu.ops import blocked_chol as jbc
+from gaussian_process_transportation_tpu_torch.ops import blocked_chol as tbc
+
+FAMILIES = ("rbf", "matern12", "matern32", "matern52")
+
+
+def _spd(n, seed=0):
+    A = np.random.default_rng(seed).standard_normal((n, n))
+    return A @ A.T + n * np.eye(n)
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def _dense_gram(X, ls, amp, family):
+    d2 = (((X[:, None, :] - X[None, :, :]) / ls) ** 2).sum(-1)
+    return amp * np.asarray(jbc.stationary_from_sqdist(jnp.asarray(d2), family))
+
+
+@pytest.mark.parametrize("B", [128, 256])
+def test_factor_panel_matches_jax_kernel(B):
+    K = _spd(B, seed=B).astype(np.float32)
+    jL, jLinv = jbc.factor_panel(jnp.asarray(K), interpret=True)
+    tL, tLinv = tbc.factor_panel(torch.as_tensor(K))
+    L64 = np.linalg.cholesky(K.astype(np.float64))
+    Linv64 = np.linalg.inv(L64)
+    assert _rel(tL, L64) < 5e-6 and _rel(tLinv, Linv64) < 5e-6
+    assert _rel(tL, jL) < 1e-5 and _rel(tLinv, jLinv) < 1e-5
+    assert not np.triu(tL.numpy(), 1).any() and not np.triu(tLinv.numpy(), 1).any()
+
+
+def test_factor_panel_keeps_float64_and_refuses_bad_blocks():
+    K = _spd(128)
+    L, Linv = tbc.factor_panel(torch.as_tensor(K))
+    assert L.dtype == torch.float64
+    np.testing.assert_allclose(L.numpy(), np.linalg.cholesky(K), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose((L @ Linv).numpy(), np.eye(128), atol=1e-12)
+    for shape in ((100, 100), (128, 256), (0, 0)):
+        with pytest.raises(ValueError):
+            tbc.factor_panel(torch.zeros(shape))
+
+
+@pytest.mark.parametrize("n,B", [(500, 128), (300, 256)])
+def test_blocked_cholesky_matches_jax(n, B):
+    K = _spd(n, seed=n).astype(np.float32)
+    want = jbc.blocked_cholesky(jnp.asarray(K), block=B, interpret=True).dense()
+    got = tbc.blocked_cholesky(torch.as_tensor(K), block=B).dense()
+    L64 = np.linalg.cholesky(K.astype(np.float64))
+    assert _rel(got, L64) < 1e-5
+    assert _rel(got, want) < 1e-5
+
+
+def test_blocked_solve_solve_lower_and_logdet_match_numpy():
+    n, B = 500, 128
+    K = _spd(n, seed=1)
+    b = np.random.default_rng(2).standard_normal((n, 3))
+    ch = tbc.blocked_cholesky(torch.as_tensor(K), block=B)
+    assert ch.padded_n == 512 and ch.block == B and len(ch.panels) == 4
+    np.testing.assert_allclose(ch.solve(torch.as_tensor(b)).numpy(), np.linalg.solve(K, b),
+                               rtol=1e-10, atol=1e-12)
+    x1 = ch.solve(torch.as_tensor(b[:, 0]))
+    assert x1.shape == (n,)
+    L = np.linalg.cholesky(K)
+    np.testing.assert_allclose(ch.solve_lower(torch.as_tensor(b)).numpy(),
+                               np.linalg.solve(L, b), rtol=1e-10, atol=1e-12)
+    assert abs(ch.logdet().item() - np.linalg.slogdet(K)[1]) < 1e-8 * abs(np.linalg.slogdet(K)[1])
+
+
+def test_blocked_solve_float32_matches_jax():
+    n, B = 500, 128
+    K = _spd(n, seed=3).astype(np.float32)
+    b = np.random.default_rng(4).standard_normal((n, 3)).astype(np.float32)
+    jch = jbc.blocked_cholesky(jnp.asarray(K), block=B, interpret=True)
+    tch = tbc.blocked_cholesky(torch.as_tensor(K), block=B)
+    x64 = np.linalg.solve(K.astype(np.float64), b)
+    assert _rel(tch.solve(torch.as_tensor(b)), x64) < 1e-4
+    assert _rel(tch.solve(torch.as_tensor(b)), jch.solve(jnp.asarray(b))) < 1e-4
+    assert _rel(tch.solve_lower(torch.as_tensor(b)), jch.solve_lower(jnp.asarray(b))) < 1e-4
+    assert abs(tch.logdet().item() - float(jch.logdet())) < 1e-5 * abs(float(jch.logdet()))
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_stationary_gram_panels_match_jax(family):
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((200, 3)).astype(np.float32)
+    ls = np.array([1.5, 0.8, 1.2], np.float32)
+    jp, jn = jbc.stationary_gram_panels(jnp.asarray(X), jnp.asarray(ls), 2.0, 0.1, 128,
+                                        family=family)
+    tp, tn = tbc.stationary_gram_panels(torch.as_tensor(X), torch.as_tensor(ls), 2.0, 0.1, 128,
+                                        family=family)
+    assert tn == jn == 200 and len(tp) == len(jp) == 2
+    for a, b in zip(tp, jp):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-6)
+    # the padding rows are far pseudo-points: zero coupling, amp+noise diagonal
+    assert not tp[1][72:, :72].any()
+    np.testing.assert_allclose(torch.diagonal(tp[1])[72:].numpy(), 2.1, rtol=1e-6)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_stationary_from_sqdist_matches_jax(family):
+    d2 = np.linspace(0.0, 9.0, 50)
+    np.testing.assert_allclose(tbc.stationary_from_sqdist(torch.as_tensor(d2), family).numpy(),
+                               np.asarray(jbc.stationary_from_sqdist(jnp.asarray(d2), family)),
+                               rtol=1e-13, atol=1e-15)
+
+
+def test_stationary_from_sqdist_refuses_unknown_family():
+    with pytest.raises(ValueError):
+        tbc.stationary_from_sqdist(torch.zeros(3), "cosine")
+
+
+def test_symmetric_matvec_panels_is_k_times_x():
+    K = _spd(300, seed=6)
+    x = np.random.default_rng(7).standard_normal((300, 2))
+    panels = tbc._split_panels(torch.as_tensor(K), 128, 300)
+    np.testing.assert_allclose(tbc.symmetric_matvec_panels(panels, torch.as_tensor(x), 300).numpy(),
+                               K @ x, rtol=1e-12, atol=1e-10)
+    y1 = tbc.symmetric_matvec_panels(panels, torch.as_tensor(x[:, 0]), 300)
+    assert y1.shape == (300,)
+
+
+@pytest.mark.parametrize("family", ["rbf", "matern52"])
+def test_gram_cholesky_solve_matches_jax(family):
+    rng = np.random.default_rng(8)
+    X = rng.standard_normal((300, 3))
+    Y = rng.standard_normal((300, 2))
+    ls = np.array([1.5, 0.8, 1.2])
+    ja, _ = jbc.gram_cholesky_solve(jnp.asarray(X, jnp.float32), jnp.asarray(Y, jnp.float32),
+                                    jnp.asarray(ls, jnp.float32), 2.0, 0.1, block=128,
+                                    interpret=True, family=family)
+    ta, tch = tbc.gram_cholesky_solve(torch.as_tensor(X, dtype=torch.float32),
+                                      torch.as_tensor(Y, dtype=torch.float32),
+                                      torch.as_tensor(ls, dtype=torch.float32), 2.0, 0.1,
+                                      block=128, family=family)
+    a64 = np.linalg.solve(_dense_gram(X, ls, 2.0, family) + 0.1 * np.eye(300), Y)
+    assert ta.dtype == torch.float32 and tch.n == 300
+    assert _rel(ta, a64) < 2e-4
+    assert _rel(ta, ja) < 2e-4
+
+
+def test_gram_cholesky_solve_float64_is_the_dense_solve():
+    rng = np.random.default_rng(9)
+    X, Y = rng.standard_normal((260, 2)), rng.standard_normal(260)
+    alpha, _ = tbc.gram_cholesky_solve(torch.as_tensor(X), torch.as_tensor(Y), 1.3, 1.5, 0.05,
+                                       block=128, family="matern32")
+    assert alpha.shape == (260,)
+    want = np.linalg.solve(_dense_gram(X, 1.3, 1.5, "matern32") + 0.05 * np.eye(260), Y)
+    np.testing.assert_allclose(alpha.numpy(), want, rtol=1e-9, atol=1e-10)
+
+
+@pytest.mark.parametrize("panels,threshold,solves", [(3, 32, 2), (3, 3, 3)])
+def test_refine_iters_auto_rule(monkeypatch, panels, threshold, solves):
+    """1 refinement step below the threshold panel count, 2 from it up."""
+    monkeypatch.setattr(tbc, "_TWO_REFINE_MIN_PANELS", threshold)
+    calls = []
+    real = tbc.BlockedCholesky.solve
+    monkeypatch.setattr(tbc.BlockedCholesky, "solve",
+                        lambda self, b: calls.append(1) or real(self, b))
+    X = np.random.default_rng(10).standard_normal((128 * panels - 5, 2))
+    tbc.gram_cholesky_solve(torch.as_tensor(X), torch.as_tensor(X), 1.0, 1.0, 0.1, block=128)
+    assert len(calls) == solves
+
+
+def test_group_is_accepted_and_ignored():
+    K = torch.as_tensor(_spd(384, seed=11))
+    panels = tbc._split_panels(K, 128, 384)
+    a = tbc.cholesky_panels(panels, 384).dense()
+    b = tbc.cholesky_panels(panels, 384, group=2).dense()
+    assert torch.equal(a, b)
+    X = torch.as_tensor(np.random.default_rng(12).standard_normal((300, 2)))
+    a1, _ = tbc.gram_cholesky_solve(X, X, 1.0, 1.0, 0.1, block=128)
+    a2, _ = tbc.gram_cholesky_solve(X, X, 1.0, 1.0, 0.1, block=128, group=4)
+    assert torch.equal(a1, a2)
+
+
+def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
+    monkeypatch.setattr(tbc.factor_panel, "launches", 0)
+    tbc.blocked_cholesky(torch.as_tensor(_spd(300)), block=128)
+    assert tbc.factor_panel.launches == 0

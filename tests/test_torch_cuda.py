@@ -1,7 +1,8 @@
-"""On-card tests of the torch port's CUDA kernel, marked ``cuda``: the
-kernel against its plain twin on the card (phase 3 of ``chip_smoke.py`` at
-a smaller E) and the batched transport's one launch.  They skip where no
-CUDA card is present.  On a machine with a card and nvcc (and no JAX):
+"""On-card tests of the torch port's CUDA kernels, marked ``cuda``: each
+kernel against its plain twin on the card at small sizes, the wrappers
+refusing what the kernels do not take, and the launch counts of the
+batched transport, the blocked conditioning and the dense-grid predicts.
+They skip where no CUDA card is present.  On a machine with a card and nvcc (and no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 """
@@ -10,7 +11,10 @@ import pytest
 import torch
 
 from gaussian_process_transportation_tpu_torch import kernels as K
+from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
 from gaussian_process_transportation_tpu_torch.ops import batched_linalg as tbl
+from gaussian_process_transportation_tpu_torch.ops import blocked_chol as tbc
+from gaussian_process_transportation_tpu_torch.ops import pallas_gram as tpg
 from gaussian_process_transportation_tpu_torch.transport import gpt
 
 pytestmark = pytest.mark.cuda
@@ -92,3 +96,159 @@ def test_batched_transport_launches_the_kernel_once(device, monkeypatch):
     for name in ("traj", "delta"):
         err = (getattr(got, name).double().cpu() - getattr(ref, name)).abs().max().item()
         assert err / np.abs(X).max() < 1e-3, name
+
+
+# ---- large-N exact GP: factor_panel and the stationary-Gram kernels --------
+
+FAMILIES = ("rbf", "matern12", "matern32", "matern52")
+
+
+@pytest.mark.parametrize("B", [128, 256, 512])
+def test_factor_panel_matches_f64(device, B):
+    """L and L⁻¹ to 5e-6 relative (the JAX panel kernel's bound), exactly
+    lower-triangular."""
+    rng = np.random.default_rng(B)
+    A = rng.standard_normal((B, B))
+    K_ = (A @ A.T + B * np.eye(B)).astype(np.float32)
+    L, Linv = tbc.factor_panel(torch.as_tensor(K_, device=device))
+    torch.cuda.synchronize()
+    L64 = np.linalg.cholesky(K_.astype(np.float64))
+    Linv64 = np.linalg.inv(L64)
+    L, Linv = L.double().cpu().numpy(), Linv.double().cpu().numpy()
+    assert np.abs(L - L64).max() / np.abs(L64).max() < 5e-6
+    assert np.abs(Linv - Linv64).max() / np.abs(Linv64).max() < 5e-6
+    assert not np.triu(L, 1).any() and not np.triu(Linv, 1).any()
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_stationary_gram_matches_twin(device, family):
+    rng = np.random.default_rng(1)
+    X = torch.as_tensor(rng.standard_normal((77, 3)), dtype=torch.float32, device=device)
+    Z = torch.as_tensor(rng.standard_normal((45, 3)), dtype=torch.float32, device=device)
+    ls = torch.tensor([1.5, 0.8, 1.2], device=device)
+    got = tpg.stationary_gram(X, Z, ls, 2.5, family)
+    want = tpg.stationary_gram_plain(X, Z, ls, 2.5, family)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() < 2.5e-6
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_fused_predicts_match_twins(device, family):
+    """Ragged Nq and N (neither a multiple of the 64-wide tiles)."""
+    rng = np.random.default_rng(2)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    Xq, X, alpha = t(rng.standard_normal((300, 2))), t(rng.standard_normal((211, 2))), t(
+        rng.standard_normal((211, 2)))
+    A = rng.standard_normal((211, 211))
+    K_inv = t((A @ A.T / 211 + np.eye(211)) * 0.1)
+    ls = torch.tensor([1.0, 1.5], device=device)
+    m = tpg.fused_gp_predict_mean(Xq, X, alpha, ls, 2.0, family)
+    m0 = tpg.fused_gp_predict_mean_plain(Xq, X, alpha, ls, 2.0, family)
+    mv, var = tpg.fused_gp_predict_mean_var(Xq, X, alpha, K_inv, ls, 2.0, 2.05, family)
+    mv0, var0 = tpg.fused_gp_predict_mean_var_plain(Xq, X, alpha, K_inv, ls, 2.0, 2.05, family)
+    _, var_again = tpg.fused_gp_predict_mean_var(Xq, X, alpha, K_inv, ls, 2.0, 2.05, family)
+    torch.cuda.synchronize()
+    scale = m0.abs().max().item()
+    assert (m - m0).abs().max().item() < 1e-5 * scale
+    assert (mv - m0).abs().max().item() < 1e-5 * scale
+    assert (var - var0).abs().max().item() < 1e-4
+    assert torch.equal(var, var_again)  # no atomics: runs agree bitwise
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(device):
+    A = torch.eye(128, device=device)
+    with pytest.raises(TypeError):
+        tbc.factor_panel(A.double())
+    with pytest.raises(ValueError):
+        tbc.factor_panel(torch.eye(100, device=device))
+    X = torch.zeros(10, 2, device=device)
+    with pytest.raises(TypeError):
+        tpg.stationary_gram(X.double(), X.double(), 1.0, 1.0)
+    with pytest.raises(ValueError):
+        tpg.stationary_gram(X, X.cpu(), 1.0, 1.0)
+    with pytest.raises(ValueError):
+        tpg.stationary_gram(torch.zeros(10, 17, device=device), torch.zeros(3, 17, device=device),
+                            1.0, 1.0)
+    with pytest.raises(ValueError):
+        tpg.stationary_gram(X, X, 1.0, 1.0, family="cosine")
+    with pytest.raises(ValueError):
+        tpg.fused_gp_predict_mean(X, X, torch.zeros(10, 9, device=device), 1.0, 1.0)
+    with pytest.raises(ValueError):
+        tpg.fused_gp_predict_mean_var(X, X, torch.zeros(10, 2, device=device),
+                                      torch.zeros(9, 9, device=device), 1.0, 1.0, 1.0)
+
+
+def _reset_counts(monkeypatch):
+    for fn in (tbc.factor_panel, tpg.stationary_gram, tpg.fused_gp_predict_mean,
+               tpg.fused_gp_predict_mean_var):
+        monkeypatch.setattr(fn, "launches", 0)
+
+
+def test_condition_routes_large_n_through_the_panels(device, monkeypatch):
+    _reset_counts(monkeypatch)
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((4096, 3))
+    Y = np.sin(X[:, :2])
+    kern = K.Constant(2.0) * K.RBF(torch.ones(3, device=device)) + K.White(0.1)
+    gp = tgp.condition(kern, torch.as_tensor(X, dtype=torch.float32, device=device),
+                       torch.as_tensor(Y, dtype=torch.float32, device=device))
+    torch.cuda.synchronize()
+    assert gp.L is None and gp.chol is not None
+    assert tbc.factor_panel.launches == 8 and tpg.stationary_gram.launches == 8
+    d2 = ((X[:, None, :] - X[None, :, :]) ** 2).sum(-1)
+    a64 = np.linalg.solve(2.0 * np.exp(-0.5 * d2) + (0.1 + 1e-6) * np.eye(4096), Y)
+    err = np.abs(gp.alpha.double().cpu().numpy() - a64).max() / np.abs(a64).max()
+    assert err < 5e-3
+
+
+def test_dense_grid_predict_launches_each_fused_kernel_once(device, monkeypatch):
+    """One launch each, and the f64 dense GP's mean and std to the JAX
+    package's on-card bounds (tests/test_blocked_chol.py:315-317).  With
+    White(0.1) the f32 K⁻¹ route holds the std to them; at White(0.01) the
+    f32 sums of k K⁻¹ kᵀ lose it (PERF.md)."""
+    _reset_counts(monkeypatch)
+    rng = np.random.default_rng(4)
+    X, Xq = rng.standard_normal((1024, 2)), rng.standard_normal((2048, 2))
+
+    def gp_of(dtype):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        kern = K.Constant(2.0) * K.RBF(torch.ones(2, dtype=dtype, device=device)) + K.White(0.1)
+        return tgp.condition(kern, t(X), t(np.sin(X)), cache_k_inv=True), t(Xq)
+
+    gp, xq = gp_of(torch.float32)
+    mean = tgp.predict(gp, xq)
+    assert tpg.fused_gp_predict_mean.launches == 1
+    mean_s, std = tgp.predict(gp, xq, return_std=True)
+    assert tpg.fused_gp_predict_mean_var.launches == 1
+    gp64, xq64 = gp_of(torch.float64)
+    mean64, std64 = tgp.predict(gp64, xq64, return_std=True)
+    assert tpg.fused_gp_predict_mean_var.launches == 1  # f64 keeps the dense path
+    scale = mean64.abs().max().item()
+    assert (mean.double() - mean64).abs().max().item() < 5e-3 * scale
+    assert (mean_s.double() - mean64).abs().max().item() < 5e-3 * scale
+    assert (std.double() - std64).abs().max().item() < 5e-3 * std64.abs().max().item() + 1e-3
+
+
+def test_batched_transport_of_large_members_launches_a_panel_each(device, monkeypatch):
+    _reset_counts(monkeypatch)
+    rng = np.random.default_rng(5)
+    n, Q, E = 800, 60, 2
+    S = 2 * rng.standard_normal((n, 3))
+    targets = S[None] + np.linspace(0, 1, E)[:, None, None] + 0.05 * rng.standard_normal((E, n, 3))
+    X = 2 * rng.standard_normal((Q, 3))
+    dX = np.zeros_like(X)
+    dX[:-1] = np.diff(X, axis=0)
+
+    def run(dtype, dev):
+        kern = K.Constant(2.0) * K.RBF(2.0 * torch.ones(3, dtype=dtype, device=dev)) + K.White(0.01)
+        return gpt.fit_and_transport_batched(
+            kern, *(torch.as_tensor(a, dtype=dtype, device=dev) for a in (S, targets, X, dX)))
+
+    got = run(torch.float32, device)
+    torch.cuda.synchronize()
+    assert tbc.factor_panel.launches == 2 * E
+    ref = run(torch.float64, "cpu")
+    scale = np.abs(X).max()
+    for name in ("traj", "std", "delta"):
+        err = (getattr(got, name).double().cpu() - getattr(ref, name)).abs().max().item()
+        assert err / scale < 1e-3, name

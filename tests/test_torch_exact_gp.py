@@ -115,3 +115,122 @@ def test_family_and_noise_helpers():
     assert tgp.stationary_family_params(TK.RBF(1.0) * TK.RBF(2.0)) is None
     assert tgp.white_noise_level(k) == 0.25
     assert tgp.white_noise_level(TK.White(0.5) * TK.RBF(1.0)) == 0.0
+
+
+def test_variance_gradient_matches_jax(pair):
+    jg, tg = pair
+    want = jgp.variance_gradient(jg, jnp.asarray(XQ))
+    got = tgp.variance_gradient(tg, torch.as_tensor(XQ))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+# ---- the blocked (panel-factor) GP ------------------------------------------
+
+BLOCK_TOL = 2e-3  # the JAX package's blocked-vs-dense bound, float32
+rng_b = np.random.default_rng(11)
+XB = rng_b.standard_normal((300, 2))
+YB = rng_b.standard_normal((300, 2))
+XQB = rng_b.standard_normal((40, 2))
+
+
+def _blocked_kernels(name):
+    ls = jnp.asarray([1.5, 0.8], jnp.float32)
+    base = JK.RBF(ls) if name == "rbf" else JK.Matern(ls, nu=2.5)
+    return JK.Constant(2.0) * base + JK.White(0.1)
+
+
+def _queries(mod, gp, x):
+    """Every posterior query of a GP, by name."""
+    jac_mean, jac_var = mod.jacobian(gp, x, return_var=True)
+    return {
+        "predict": mod.predict(gp, x, return_std=True),
+        "predict_cov": mod.predict_cov(gp, x),
+        "jacobian": (jac_mean, jac_var),
+        "variance_gradient": (mod.variance_gradient(gp, x),),
+    }
+
+
+@pytest.fixture(scope="module", params=["rbf", "matern52"])
+def blocked(request):
+    jk = _blocked_kernels(request.param)
+    jg = jgp.condition_blocked(jk, jnp.asarray(XB, jnp.float32), jnp.asarray(YB, jnp.float32),
+                               block=128, interpret=True)
+    f32 = dict(dtype=torch.float32)
+    tg32 = tgp.condition_blocked(kernel_from_tree(jk, torch.float32),
+                                 torch.as_tensor(XB, **f32), torch.as_tensor(YB, **f32), block=128)
+    tk64 = kernel_from_tree(jk)
+    tg64 = tgp.condition_blocked(tk64, torch.as_tensor(XB), torch.as_tensor(YB), block=128)
+    dense64 = tgp.condition(tk64, torch.as_tensor(XB), torch.as_tensor(YB))
+    return jg, tg32, tg64, dense64
+
+
+def test_condition_blocked_matches_jax(blocked):
+    jg, tg32, tg64, _ = blocked
+    assert tg32.L is None and tg32.chol is not None and tg32.K_inv is None
+    assert len(tg32.chol.panels) == 3 and tg32.chol.n == 300
+    scale = np.abs(np.asarray(jg.alpha)).max()
+    assert np.abs(tg32.alpha.numpy() - np.asarray(jg.alpha)).max() / scale < 2e-4
+    np.testing.assert_allclose(tg32.chol.dense().numpy(), np.asarray(jg.chol.dense()),
+                               atol=1e-5 * np.abs(np.asarray(jg.chol.dense())).max())
+    assert tg64.alpha.dtype == torch.float64
+
+
+@pytest.mark.parametrize("query", ["predict", "predict_cov", "jacobian", "variance_gradient"])
+def test_blocked_gp_answers_like_the_dense_gp(blocked, query):
+    """The panel factor reproduces every dense-path posterior query."""
+    _, _, tg64, dense64 = blocked
+    x = torch.as_tensor(XQB)
+    for got, want in zip(_queries(tgp, tg64, x)[query], _queries(tgp, dense64, x)[query]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("query", ["predict", "predict_cov", "jacobian", "variance_gradient"])
+def test_blocked_gp_queries_match_jax(blocked, query):
+    jg, tg32, _, _ = blocked
+    got = _queries(tgp, tg32, torch.as_tensor(XQB, dtype=torch.float32))[query]
+    want = _queries(jgp, jg, jnp.asarray(XQB, jnp.float32))[query]
+    for g, w in zip(got, want):
+        assert np.abs(g.numpy() - np.asarray(w)).max() < BLOCK_TOL
+
+
+def test_exact_gp_from_numpy_carries_a_blocked_factor(blocked):
+    """A JAX condition_blocked state crosses over and predicts alike, f32:
+    to 1e-6 of Σ_n |k α_n| (float32 sums of N terms, which JAX, with x64
+    on, partly takes in float64)."""
+    jg = blocked[0]
+    state = {k: np.asarray(getattr(jg, k)) for k in ("X", "Y", "alpha")}
+    state["chol"] = jg.chol
+    tg = exact_gp_from_numpy(state, kernel_from_tree(jg.kernel, torch.float32), torch.float32)
+    assert tg.L is None and tg.chol.n == jg.chol.n and len(tg.chol.panels) == 3
+    jm, js = jgp.predict(jg, jnp.asarray(XQB, jnp.float32), return_std=True)
+    xq = torch.as_tensor(XQB, dtype=torch.float32)
+    tm, ts = tgp.predict(tg, xq, return_std=True)
+    scale = (tg.kernel(xq, tg.X).abs() @ tg.alpha.abs()).max().item()
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=1e-6 * scale)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-5)
+
+
+def test_condition_routes_on_the_tensors_device(monkeypatch):
+    """Large N on a CPU tensor keeps the dense factor: the blocked route is
+    for CUDA tensors, decided by X's device, not a process-wide default."""
+    monkeypatch.setattr(tgp, "BLOCKED_CHOL_MIN_N", 64)
+    k = TK.Constant(2.0) * TK.RBF(torch.ones(2)) + TK.White(0.1)
+    X = torch.as_tensor(XB[:100], dtype=torch.float32)
+    gp = tgp.condition(k, X, X)
+    assert gp.L is not None and gp.chol is None
+
+
+def test_predict_on_cpu_takes_the_dense_path(monkeypatch):
+    from gaussian_process_transportation_tpu_torch.ops import pallas_gram as tpg
+
+    monkeypatch.setattr(tgp, "FUSED_PREDICT_MIN_ELEMS", 1)
+    for fn in (tpg.fused_gp_predict_mean, tpg.fused_gp_predict_mean_var):
+        monkeypatch.setattr(fn, "launches", 0)
+    k = TK.Constant(2.0) * TK.RBF(torch.ones(2)) + TK.White(0.1)
+    X = torch.as_tensor(XB[:50], dtype=torch.float32)
+    gp = tgp.condition(k, X, X, cache_k_inv=True)
+    xq = torch.as_tensor(XQB, dtype=torch.float32)
+    assert tgp._fused_predict_params(gp, xq) is None
+    mean, std = tgp.predict(gp, xq, return_std=True)
+    assert torch.equal(mean, k(xq, X) @ gp.alpha)
+    assert tpg.fused_gp_predict_mean.launches == tpg.fused_gp_predict_mean_var.launches == 0

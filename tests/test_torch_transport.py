@@ -141,15 +141,143 @@ def test_n80_per_member_branch_matches_jax():
     _assert_result(got, want)
 
 
-def test_blocked_sizes_are_not_ported_yet():
-    k = kernel_from_tree(_jax_kernel(2))
-    S = torch.zeros(768, 2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="blocked"):
-        tgpt.fit_and_transport_batched(k, S, S[None], S, S)
+def test_large_members_go_through_the_blocked_factor_like_the_dense_path(monkeypatch):
+    """n >= 768 with a stationary kernel: per member, condition_blocked and
+    transport_apply without K⁻¹, equal to the dense per-member path."""
+    from gaussian_process_transportation_tpu_torch.ops import blocked_chol as tbc
+
+    rng = np.random.default_rng(3)
+    n, Q = 800, 30
+    S = 2.0 * rng.standard_normal((n, 3))
+    targets = S[None] + np.array([0.0, 1.0])[:, None, None] + 0.05 * rng.standard_normal((2, n, 3))
+    X = 2.0 * rng.standard_normal((Q, 3))
+    dX = np.zeros_like(X)
+    dX[:-1] = np.diff(X, axis=0)
+    kern = kernel_from_tree(_jax_kernel(3, amp=2.0, ls=2.0))
+    seen = []
+    real = tgpt.gp_core.condition_blocked
+    monkeypatch.setattr(tgpt.gp_core, "condition_blocked",
+                        lambda *a, **k: seen.append(k["block"]) or real(*a, **k))
+    got = tgpt.fit_and_transport_batched(kern, _t(S), _t(targets), _t(X), _t(dX))
+    assert seen == [tgpt.BLOCKED_PANEL] * 2 and tbc.factor_panel.launches == 0
+    for e in range(2):
+        one = tgpt.fit_and_transport(kern, _t(S), _t(targets[e]), _t(X), _t(dX))
+        for name in FIELDS[:5]:
+            torch.testing.assert_close(getattr(got, name)[e], getattr(one, name),
+                                       rtol=1e-8, atol=1e-8, msg=name)
+
+
+def _blocked_case():
+    """The JAX package's blocked transport case (test_blocked_chol.py:254)."""
+    rng = np.random.default_rng(4)
+    S = rng.standard_normal((200, 2))
+    S1 = S + 0.3 * rng.standard_normal((200, 2))
+    traj = rng.standard_normal((50, 2))
+    delta = 0.1 * rng.standard_normal((50, 2))
+    return S, S1, traj, delta, _jax_kernel(2, amp=2.0, ls=1.0, noise=0.05)
+
+
+def test_transport_apply_with_blocked_gp_matches_dense():
+    from gaussian_process_transportation_tpu_torch.models import affine as taff
+    from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
+
+    S, S1, traj, delta, jk = _blocked_case()
+    kern = kernel_from_tree(jk)
+    aff = taff.fit(_t(S), _t(S1))
+    src = taff.predict(aff, _t(S))
+    gp_b = tgp.condition_blocked(kern, src, _t(S1) - src, block=128)
+    gp_d = tgp.condition(kern, src, _t(S1) - src, cache_k_inv=True)
+    got = tgpt.transport_apply(aff, gp_b, _t(traj), _t(delta))
+    want = tgpt.transport_apply(aff, gp_d, _t(traj), _t(delta))
+    for name in FIELDS[:5]:
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   rtol=1e-8, atol=1e-8, msg=name)
+
+
+def test_transport_apply_with_blocked_gp_matches_jax():
+    """float32, the JAX package's blocked-vs-dense bound (2e-3)."""
+    from gaussian_process_transportation_tpu.models import affine as jaff
+    from gaussian_process_transportation_tpu.models import exact_gp as jgp
+    from gaussian_process_transportation_tpu_torch.convert import affine_from_numpy
+    from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
+
+    S, S1, traj, delta, jk = _blocked_case()
+    f = lambda a: jnp.asarray(a, jnp.float32)
+    aff = jaff.fit(f(S), f(S1))
+    src = jaff.predict(aff, f(S))
+    jg = jgp.condition_blocked(jk, src, f(S1) - src, block=128, interpret=True)
+    want = jgpt.transport_apply(aff, jg, f(traj), f(delta))
+    t32 = lambda a: torch.as_tensor(np.array(a), dtype=torch.float32)
+    taff = affine_from_numpy({k: np.asarray(getattr(aff, k)) for k in (
+        "rotation", "scale", "source_centroid", "target_centroid")}, torch.float32)
+    tg = tgp.condition_blocked(kernel_from_tree(jk, torch.float32), t32(src),
+                               t32(np.asarray(f(S1) - src)), block=128)
+    got = tgpt.transport_apply(taff, tg, t32(traj), t32(delta))
+    for name in ("traj", "std", "delta", "delta_var"):
+        assert np.abs(getattr(got, name).numpy() - np.asarray(getattr(want, name))).max() < 2e-3
+
+
+def test_transport_apply_carried_blocked_state_matches_jax():
+    """convert.exact_gp_from_numpy with a JAX condition_blocked factor: the
+    same transport as the JAX GP, float32 on the CPU."""
+    from gaussian_process_transportation_tpu.models import affine as jaff
+    from gaussian_process_transportation_tpu.models import exact_gp as jgp
+    from gaussian_process_transportation_tpu_torch.convert import (
+        affine_from_numpy, exact_gp_from_numpy,
+    )
+
+    S, S1, traj, delta, jk = _blocked_case()
+    f = lambda a: jnp.asarray(a, jnp.float32)
+    aff = jaff.fit(f(S), f(S1))
+    src = jaff.predict(aff, f(S))
+    jg = jgp.condition_blocked(jk, src, f(S1) - src, block=128, interpret=True)
+    want = jgpt.transport_apply(aff, jg, f(traj), f(delta))
+    state = {k: np.asarray(getattr(jg, k)) for k in ("X", "Y", "alpha")}
+    state["chol"] = jg.chol
+    tg = exact_gp_from_numpy(state, kernel_from_tree(jk, torch.float32), torch.float32)
+    taff = affine_from_numpy({k: np.asarray(getattr(aff, k)) for k in (
+        "rotation", "scale", "source_centroid", "target_centroid")}, torch.float32)
+    t32 = lambda a: torch.as_tensor(np.array(a), dtype=torch.float32)
+    got = tgpt.transport_apply(taff, tg, t32(traj), t32(delta))
+    for name in ("traj", "std", "delta", "delta_var", "min_abs_det"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   atol=1e-4, err_msg=name)
+
+
+def test_transport_apply_without_k_inv_uses_the_dense_factor(case_2d):
+    """A batched GP that carries L but no K⁻¹ takes forward substitution."""
+    from dataclasses import replace
+
+    from gaussian_process_transportation_tpu_torch.models import affine as taff
+    from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
+
+    kern, S, targets, X, dX = case_2d[0]
+    aff = taff.fit_batched(S, targets)
+    src = taff.predict(aff, S)
+    K_b = kern(src) + 1e-10 * torch.eye(S.shape[0], dtype=S.dtype)
+    L = torch.linalg.cholesky(K_b)
+    K_inv = torch.cholesky_inverse(L)
+    alpha = K_inv @ (targets - src)
+    gp = tgp.ExactGP(kernel=kern, X=src, Y=targets - src, alpha=alpha, L=L, K_inv=K_inv)
+    want = tgpt.transport_apply(aff, gp, X, dX)
+    got = tgpt.transport_apply(aff, replace(gp, K_inv=None), X, dX)
+    for name in FIELDS[:5]:
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   rtol=1e-7, atol=1e-7, msg=name)
 
 
 def test_default_transport_kernel_matches_jax():
     x = np.random.default_rng(0).standard_normal((6, 1))
     want = jgpt.default_transport_kernel()(jnp.asarray(x))
-    got = tgpt.default_transport_kernel(dtype=torch.float64)(_t(x))
+    got = tgpt.default_transport_kernel(dtype=torch.float64, device="cpu")(_t(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
+
+
+def test_default_transport_kernel_lives_on_the_card_by_default():
+    """Entry points run on the card unless the caller asks for the CPU:
+    without a card the default refuses rather than falling back."""
+    if torch.cuda.is_available():
+        assert tgpt.default_transport_kernel().k1.k2.lengthscale.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            tgpt.default_transport_kernel()

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gaussian_process_transportation_tpu_torch import kernels as K
 from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
 from gaussian_process_transportation_tpu_torch.ops import batched_linalg as tbl
@@ -134,7 +135,10 @@ def test_stationary_gram_matches_twin(device, family):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_fused_predicts_match_twins(device, family):
-    """Ragged Nq and N (neither a multiple of the 64-wide tiles)."""
+    """Ragged Nq and N (neither a multiple of the 64-wide tiles).  Then,
+    with the K⁻¹ of a conditioned GP so that the variance is a posterior
+    one, per query against the same formula in float64 to
+    ``chip_smoke.py``'s bounds."""
     rng = np.random.default_rng(2)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     Xq, X, alpha = t(rng.standard_normal((300, 2))), t(rng.standard_normal((211, 2))), t(
@@ -153,6 +157,14 @@ def test_fused_predicts_match_twins(device, family):
     assert (mv - m0).abs().max().item() < 1e-5 * scale
     assert (var - var0).abs().max().item() < 1e-4
     assert torch.equal(var, var_again)  # no atomics: runs agree bitwise
+
+    kern = K.Constant(2.0) * K.RBF(ls) + K.White(0.05)
+    gp = tgp.condition(kern, X, torch.sin(X), cache_k_inv=True)
+    m = tpg.fused_gp_predict_mean(Xq, X, gp.alpha, ls, 2.0, family)
+    mv, var = tpg.fused_gp_predict_mean_var(Xq, X, gp.alpha, gp.K_inv, ls, 2.0, 2.05, family)
+    ref = chip_smoke.predict_f64(Xq, X, gp.alpha, gp.K_inv, ls, 2.0, 2.05, family)
+    ex_m, ex_v = chip_smoke.predict_excess(mv, var, ref)
+    assert max(ex_m, chip_smoke.predict_excess(m, var, ref)[0], ex_v) < 1
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(device):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch port: the ensemble transport and the
-large-N exact GP.
+"""On-card smoke run of the PyTorch port: the ensemble transport, the
+large-N exact GP, and the hyperparameter fits and HMC hyperposterior.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -44,7 +44,26 @@ Phases, one line each on stdout:
     (torch.profiler, mean of 5 after a warm-up) and as the CUDA-event time
     of the call (median of 5), and of phases 8-10 end to end (CUDA events).
     The kernels' record carries the device times (``"timing":
-    "cupti_device"``) and the calls' CUDA-event times beside them.
+    "cupti_device"``) and the calls' CUDA-event times beside them;
+12. the fused small-LML kernels #2 and #3 (``csrc/fused_lml.cu``, built in
+    phase 6) against their twins and, per lane, against the same formula in
+    float64 (error over the bound of ``lml_f64``): four families × n in
+    {8, 20, 32} × D in {2, 3} × p in {1, 3} × both lengthscale forms × noise
+    or not at a ragged E, and the paths' own E; two planted faults (the
+    amplitude gradient negated, two lanes' datasets swapped) must be
+    rejected;
+13. the per-member-hyperopt transport ``fit_and_transport_batched_opt`` at
+    E=4096, Q=400, n=20 (6 restarts, 30 L-BFGS iterations: 28,672 lanes,
+    211 launches of #3, one of #1): every member's fitted LML (f64) at
+    least its initial one, three members against the f64 CPU transport at
+    their fitted kernels, fits/s and traj/s, peak memory;
+14. ``sample_gp_posterior`` at ``bench.py``'s hmc workload (256 chains,
+    48+48 steps of 16 leapfrog: 1,537 launches of #2): finite samples, #2 at
+    the final positions against the f64 formula, posterior means against a
+    run through the twin, ``hmc_samples_per_s`` (median of 3);
+15. the ``GaussianProcessTransportation`` façade on the card with the
+    default L-BFGS-B fit: finite fields, a positive std, the fitted LML at
+    least the initial one, its wall time; then the times of #2 and #3.
 
 Each path is driven with every launch count set to 0 just before and read
 just after.  Then one JSON line with the kernels' record and, last, the
@@ -52,6 +71,7 @@ JSON status line.  Any failed check raises, and the exit code is not 0.
 With no CUDA card it exits at once with a non-zero code.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -64,7 +84,7 @@ E_MAIN, Q_MAIN, N_MAIN = 16384, 400, 20
 F32_ATOL, F32_INV_TOL, F64_ATOL, TRAJ_TOL = 2e-5, 1e-4, 1e-10, 1e-3
 KERNEL_CASES = [(n, E) for n in (8, 20, 24, 32, 64) for E in (E_MAIN, E_MAIN + 37)]
 REPS = 5
-SOURCES = ("spd_inverse_elast", "factor_panel", "stationary_gram")
+SOURCES = ("spd_inverse_elast", "factor_panel", "stationary_gram", "fused_lml")
 
 N_SOLVE, D_SOLVE, BLOCK = 10240, 3, 512
 E_3D, N_3D, Q_3D = 16, 2500, 1000
@@ -78,6 +98,25 @@ FAMILIES = ("rbf", "matern12", "matern32", "matern52")
 # f32 evaluations (the kernel and its dense twin; PERF.md), and phase 7 shows
 # that it rejects planted faults.
 MEAN_REL, VAR_REL, VAR_FLOOR = 1e-5, 2e-2, 5e-4
+
+# phases 12-14: the fused small-LML kernels #2 (shared data) and #3 (per lane).
+# Per lane against the same formula in float64 on the same float32 inputs.
+# A value or gradient entry sums terms (½y·α and ½log pivots; W_ij ∂K_ij/∂θ
+# with W = ½(ααᵀ − p K⁻¹)): its bound is LML_REL of the terms' absolute sum,
+# for the f32 rounding of the sum, plus LML_COND·κ(K)·ε32 of the unsigned
+# sizes the Cholesky's error scales with (|y||α|, |α_i α_j| + p|K⁻¹_ij|),
+# for the f32 factorization of a Gram of condition number κ.  LML_FLOOR
+# keeps terms of 1e-207 in f64, 0 in f32, from reading as errors.  Set from
+# the readings of sound f32 evaluations (the twin on the CPU reads below
+# half of it, tests/test_torch_smoke_checks.py); phase 12 shows that it
+# rejects planted faults.
+LML_VAL_REL, LML_GRAD_REL, LML_COND, LML_FLOOR = 1e-4, 1e-3, 4.0, 1e-30
+F32_EPS = 2.0**-24
+LML_CASES = [(fam, n, D, p, n_ls, noise) for fam in FAMILIES for n in (8, 20, 32)
+             for D in (2, 3) for p in (1, 3) for n_ls in (1, D) for noise in (True, False)]
+E_LML_SMALL = 37  # ragged against the kernel's four lanes a block
+E_FIT, RESTARTS, MAXITER = 4096, 6, 30  # fit_and_transport_batched_opt (JAX's defaults)
+HMC_CHAINS, HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 256, 48, 48, 16  # bench.py:327-352
 
 # published H100 SXM peaks (NVIDIA data sheet), for the kernels' bounds
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
@@ -182,6 +221,32 @@ def device_ms(fn, reps=REPS):
     raise AssertionError("torch.profiler recorded no device time")
 
 
+def path_breakdown(fn, kernel_key):
+    """One call of ``fn`` traced (torch.profiler, CUDA activity): (wall ms
+    of the call, device ms of all its kernels, device ms and launches of
+    those whose name holds ``kernel_key``, launches of all kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    mine = [e for e in rows if kernel_key in e.key]
+    return dict(wall_ms=wall, device_ms=sum(e.self_device_time_total for e in rows) / 1e3,
+                kernel_ms=sum(e.self_device_time_total for e in mine) / 1e3,
+                kernel_launches=sum(e.count for e in mine),
+                all_launches=sum(e.count for e in rows))
+
+
+def fmt_breakdown(b):
+    return (f"one traced call {b['wall_ms']:.1f} ms wall, {b['device_ms']:.1f} ms of device "
+            f"kernels in {b['all_launches']} launches ({100 * (1 - b['device_ms'] / b['wall_ms']):.1f}% "
+            f"of the wall idle), of which the fused LML kernel {b['kernel_ms']:.1f} ms in "
+            f"{b['kernel_launches']} launches")
+
+
 def timed(kernel, twin, library=None):
     """(device ms, CUDA-event ms) of a kernel's wrapper call, its twin and
     the library call (None where there is none)."""
@@ -234,12 +299,16 @@ def counted():
         spd_inverse_elast_fused,
     )
     from gaussian_process_transportation_tpu_torch.ops.blocked_chol import factor_panel
+    from gaussian_process_transportation_tpu_torch.ops.fused_lml import (
+        small_lml_value_grad, small_lml_value_grad_md,
+    )
     from gaussian_process_transportation_tpu_torch.ops.pallas_gram import (
         fused_gp_predict_mean, fused_gp_predict_mean_var, stationary_gram,
     )
 
     return {f.__name__: f for f in (spd_inverse_elast_fused, factor_panel, stationary_gram,
-                                    fused_gp_predict_mean, fused_gp_predict_mean_var)}
+                                    fused_gp_predict_mean, fused_gp_predict_mean_var,
+                                    small_lml_value_grad, small_lml_value_grad_md)}
 
 
 def drive(path):
@@ -424,6 +493,161 @@ def f64_gram(X, amp, noise):
                                                           device=X.device)
 
 
+# ---- phases 12-15: the fused small-LML kernels and their paths -----------
+
+def lml_jitter(has_noise):
+    """Without a noise term a jitter keeps the f32 Gram definite."""
+    return 1e-8 if has_noise else 1e-2
+
+
+def lml_inputs(device, E, n, D, p, n_ls, has_noise, per_lane, seed=0):
+    """float32 (X, Y, theta): X standard normal ((E,) n, D), Y = sin(x0) +
+    0.1·noise, theta (T, E) uniform in (−1, 1), as the JAX tests draw them."""
+    rng = np.random.default_rng(seed)
+    lead = (E,) if per_lane else ()
+    X = rng.standard_normal(lead + (n, D)).astype(np.float32)
+    Y = (np.sin(X[..., :1]) + 0.1 * rng.standard_normal(lead + (n, p))).astype(np.float32)
+    th = rng.uniform(-1.0, 1.0, (1 + n_ls + int(has_noise), E)).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=device) for a in (X, Y, th))
+
+
+def lml_f64(Xe, Ye, theta, family, n_ls, has_noise, jitter):
+    """The fused LML's value and gradient per lane in float64 from the same
+    inputs, written out here (Cholesky, solves, the trace identity), and
+    the bound a sound float32 evaluation keeps to: (val, grad (T, E),
+    val_bound (E,), grad_bound (T, E)).  Xe (E or 1, n, D), Ye (E or 1, n, p)."""
+    from gaussian_process_transportation_tpu_torch.ops import fused_lml as fl
+    from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
+
+    th = theta.double().T
+    E, (n, D), p = th.shape[0], Xe.shape[-2:], Ye.shape[-1]
+    Xd, Yd = Xe.double(), Ye.double().expand(E, n, p)
+    eye = torch.eye(n, dtype=th.dtype, device=th.device)
+    amp = torch.exp(th[:, 0])[:, None, None]
+    inv_ls2 = torch.exp(-2.0 * th[:, 1:1 + n_ls]).expand(E, D)
+    noise = torch.exp(th[:, 1 + n_ls]) if has_noise else th.new_zeros(E)
+    d2 = (Xd[:, :, None, :] - Xd[:, None, :, :]) ** 2  # (E|1, n, n, D)
+    s = (d2 * inv_ls2[:, None, None, :]).sum(-1)
+    ph, dph = pg.stationary_from_sqdist(s, family), fl._dphi(s, family)
+    K = amp * ph + (noise + jitter)[:, None, None] * eye
+    L = torch.linalg.cholesky(K)
+    alpha = torch.cholesky_solve(Yd, L)
+    K_inv = torch.cholesky_inverse(L)
+    eig = torch.linalg.eigvalsh(K.cpu()).to(K.device)  # cuSOLVER's batched form refuses E=28,675
+    cond_eps = LML_COND * F32_EPS * (eig[:, -1] / eig[:, 0])  # (E,)
+    logpiv = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
+    ya = Yd * alpha
+    val = -0.5 * ya.sum((1, 2)) - p * (0.5 * logpiv.sum(1) + 0.5 * n * math.log(2 * math.pi))
+    val_terms = 0.5 * ya.abs().sum((1, 2)) + 0.5 * p * logpiv.abs().sum(1) + n * p
+    val_bound = (LML_VAL_REL * val_terms
+                 + cond_eps * (0.5 * (Yd.abs() * alpha.abs()).sum((1, 2)) + 0.5 * p * n)
+                 + LML_FLOOR)
+    W = 0.5 * (alpha @ alpha.transpose(1, 2) - p * K_inv)
+    U = 0.5 * (alpha.abs() @ alpha.abs().transpose(1, 2) + p * K_inv.abs())
+    dK_ls = (amp * dph)[..., None] * d2 * (-2.0 * inv_ls2[:, None, None, :])  # (E, n, n, D)
+    parts = [(amp * ph)[..., None], dK_ls if n_ls > 1 else dK_ls.sum(-1, keepdim=True)]
+    if has_noise:
+        parts.append((noise[:, None, None] * eye)[..., None])
+    dK = torch.cat(parts, -1)  # (E, n, n, T)
+    grad = (W[..., None] * dK).sum((1, 2)).T
+    grad_bound = (LML_GRAD_REL * (W[..., None] * dK).abs().sum((1, 2)).T
+                  + cond_eps[None, :] * (U[..., None] * dK.abs()).sum((1, 2)).T + LML_FLOOR)
+    return val, grad, val_bound, grad_bound
+
+
+def lml_excess(val, grad, ref):
+    """The largest error over the bound of a value and a gradient against
+    ``lml_f64``'s: a sound kernel reads below 1."""
+    v64, g64, vb, gb = ref
+    return ((val.double() - v64).abs() / vb).max().item(), ((grad.double() - g64).abs() / gb).max().item()
+
+
+def check_lml_case(device, case, E, seed=0):
+    """Kernels #2 and #3 on one case against their twins and the f64
+    formula; returns (|kernel − twin| max, error/bound max) per kernel."""
+    from gaussian_process_transportation_tpu_torch.ops import fused_lml as fl
+
+    fam, n, D, p, n_ls, noise = case
+    jit = lml_jitter(noise)
+    out = {}
+    for name, per_lane in (("small_lml_value_grad", False), ("small_lml_value_grad_md", True)):
+        X, Y, th = lml_inputs(device, E, n, D, p, n_ls, noise, per_lane, seed)
+        kern, twin = getattr(fl, name), getattr(fl, name + "_ref")
+        v, g = kern(X, Y, th, fam, n_ls, noise, jit)
+        v0, g0 = twin(X, Y, th, fam, n_ls, noise, jit)
+        ref = lml_f64(X if per_lane else X[None], Y if per_lane else Y[None], th, fam, n_ls, noise,
+                      jit)
+        diff = max((v - v0).abs().max().item(), (g - g0).abs().max().item())
+        out[name] = (diff, max(lml_excess(v, g, ref)))
+        if not out[name][1] < 1:
+            raise AssertionError(f"{name} {case} E={E}: error/bound vs the f64 formula "
+                                 f"{out[name][1]:.3g}")
+    return out
+
+
+def lml_faults(device, E, n=20, D=2, p=2):
+    """The phase-12 bound must reject a wrong kernel: kernel #3's gradient
+    with its amplitude row negated, and kernel #3 run with lanes 0 and 1's
+    datasets swapped.  Returns each fault's error/bound ratio."""
+    from gaussian_process_transportation_tpu_torch.ops import fused_lml as fl
+
+    X, Y, th = lml_inputs(device, E, n, D, p, D, True, True)
+    ref = lml_f64(X, Y, th, "rbf", D, True, 1e-8)
+    v, g = fl.small_lml_value_grad_md(X, Y, th, "rbf", D, True, 1e-8)
+    g_neg = g.clone()
+    g_neg[0] = -g_neg[0]
+    swap = torch.arange(E, device=X.device)
+    swap[:2] = swap[[1, 0]]
+    v_sw, g_sw = fl.small_lml_value_grad_md(X[swap].contiguous(), Y[swap].contiguous(), th, "rbf",
+                                            D, True, 1e-8)
+    faults = {"amplitude gradient negated": max(lml_excess(v, g_neg, ref)),
+              "lanes 0 and 1 datasets swapped": max(lml_excess(v_sw, g_sw, ref))}
+    for name, ex in faults.items():
+        if not ex >= 1:
+            raise AssertionError(f"the LML check passes a planted fault, {name} "
+                                 f"(error/bound {ex:.3g})")
+    return faults
+
+
+def lml_flops(n, D, p):
+    """Operations of one lane: the Gram (D differences, squares and sums,
+    the profile), the Cholesky n³/3 and the inverse 2n³/3, the two solves
+    for α, and the gradient's row sums (W, φ and ∂φ again, D products)."""
+    return n**3 + n * n * (4 * p + 8 * D + 20)
+
+
+def fit_targets(S1, E):
+    """Phase 13's targets: S1 with a_e·sin(πs) added to its second
+    coordinate, a_e = linspace(0, 2, E), so members fit different residual
+    datasets."""
+    s = np.linspace(0, 1, S1.shape[0], dtype=np.float32)
+    a = np.linspace(0, 2, E, dtype=np.float32)
+    bump = np.stack([0 * s, np.sin(np.pi * s)], 1).astype(np.float32)
+    return S1[None] + a[:, None, None] * bump[None]
+
+
+def fit_kernel(**device):
+    """C(10)·RBF(4)+White(0.01) with the bounds of phase 13's fit: those of
+    the JAX package's fused-fit test for the amplitude and lengthscale
+    (tests/test_fused_lml.py:179-183) and the kernel's own 0.01 as the noise
+    floor.  Under the default (1e-5, 1e5) these smooth, noise-free residuals
+    run every member to ℓ = 1e5 and noise = 1e-5, where the float32 Gram is
+    singular (PERF.md)."""
+    from gaussian_process_transportation_tpu_torch import kernels as K
+
+    return (K.Constant(10.0, bounds=(1e-2, 1e2)) * K.RBF(4.0 * torch.ones(2, **device),
+                                                         bounds=(1e-1, 1e1))
+            + K.White(0.01, bounds=(1e-2, 1e1)))
+
+
+def hmc_inputs():
+    """bench.py's hmc stage data (bench.py:340-345): X (20, 2), Y (20, 1)."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((20, 2)).astype(np.float32)
+    Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((20, 1))).astype(np.float32)
+    return X, Y
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -544,7 +768,7 @@ def main() -> None:
                lambda: torch.cholesky_inverse(torch.linalg.cholesky(Kb))))
 
     # 6. build of the large-N kernels (started in phase 2)
-    for name in ("factor_panel", "stationary_gram"):
+    for name in ("factor_panel", "stationary_gram", "fused_lml"):
         path, build_s = builds[name].result()
         _cuda.library(name)
         log = path.with_suffix(".log").read_text()
@@ -766,6 +990,208 @@ def main() -> None:
           + f"; end to end (CUDA events): phase 8 gram_cholesky_solve N={N_SOLVE} "
           f"{solve_ms:.4f} ms, phase 9 3-D ensemble {ens_ms:.4f} ms, phase 10 predict "
           f"{pm_ms:.4f} ms, predict(return_std) {pv_ms:.4f} ms {tag}", flush=True)
+
+    # 12. the fused small-LML kernels against their twins and the f64 formula
+    lml_errs = {name: [0.0, 0.0] for name in ("small_lml_value_grad", "small_lml_value_grad_md")}
+
+    def note(out):
+        for name, (diff, ex) in out.items():
+            lml_errs[name] = [max(lml_errs[name][0], diff), max(lml_errs[name][1], ex)]
+
+    for case in LML_CASES:
+        note(check_lml_case(device, case, E_LML_SMALL))
+    main_cases = {"small_lml_value_grad": ("rbf", N_MAIN, 2, 1, 2, True),
+                  "small_lml_value_grad_md": ("rbf", N_MAIN, 2, 2, 2, True)}
+    lanes = {"small_lml_value_grad": HMC_CHAINS, "small_lml_value_grad_md": E_FIT * (RESTARTS + 1)}
+    main_errs = {}
+    for name, case in main_cases.items():
+        for E in (lanes[name], lanes[name] + 3):
+            out = check_lml_case(device, case, E, seed=E)
+            note({name: out[name]})
+            main_errs.setdefault(name, out[name][0])
+    lml_fault = lml_faults(device, E_FIT)
+    print(f"fused LML kernels vs twins and the f64 formula (bound {LML_VAL_REL:g}*value terms, "
+          f"{LML_GRAD_REL:g}*gradient terms) over {len(LML_CASES)} cases (4 families, n in "
+          f"8/20/32, D 2/3, p 1/3, both n_ls, noise or not) at E={E_LML_SMALL} and the paths' E "
+          + ", ".join(f"{lanes[k]} and {lanes[k] + 3}" for k in lanes) + ": "
+          + ", ".join(f"{k} |kernel-twin| max {d:.3g}, error/bound max {ex:.3g}"
+                      for k, (d, ex) in lml_errs.items())
+          + "; planted faults rejected, error/bound "
+          + ", ".join(f"{k} {ex:.3g}" for k, ex in lml_fault.items()) + f" {tag}", flush=True)
+
+    # 13. the per-member-hyperopt transport at full width
+    from gaussian_process_transportation_tpu_torch.models import affine as affine_core
+    from gaussian_process_transportation_tpu_torch.parallel import samplers
+
+    T13 = fit_targets(S1, E_FIT)
+    T13d = torch.as_tensor(T13, **f32)
+    kern13 = fit_kernel(**f32)
+    fitted = []
+    real_fit = gp_core.fit_ensemble_fused
+
+    def capture_fit(*args, **kwargs):
+        fitted.append(real_fit(*args, **kwargs))
+        return fitted[-1]
+
+    def opt_path():
+        return gpt.fit_and_transport_batched_opt(
+            kern13, Sd, T13d, Xd, dXd, n_restarts=RESTARTS, maxiter=MAXITER,
+            generator=torch.Generator(device=device).manual_seed(0))
+
+    gp_core.fit_ensemble_fused = capture_fit
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        res13, counts13 = drive(opt_path)
+    finally:
+        gp_core.fit_ensemble_fused = real_fit
+    peak13 = torch.cuda.max_memory_allocated(device) / 2**30
+    thetas13 = fitted[0][0]
+    want13 = 1 + MAXITER * (6 + 1)  # _lbfgs_elast's max_backtrack = 6
+    expect_launches("fit_and_transport_batched_opt", counts13, {
+        "small_lml_value_grad_md": want13, "spd_inverse_elast_fused": 1,
+        "small_lml_value_grad": 0})
+    for name in ("traj", "std", "delta", "delta_var", "min_abs_det"):
+        if not torch.isfinite(getattr(res13, name)).all():
+            raise AssertionError(f"fit_and_transport_batched_opt field {name} has non-finite values")
+    f64d = dict(dtype=torch.float64, device=device)
+    kern13_64 = fit_kernel(**f64d)
+    S64, T64 = torch.as_tensor(S, **f64d), torch.as_tensor(T13, **f64d)
+    aff64 = affine_core.fit_batched(S64, T64)
+    src64 = affine_core.predict(aff64, S64)
+    lml0 = gp_core.log_marginal_likelihood(kern13_64, src64, T64 - src64)
+    lml1 = gp_core.log_marginal_likelihood(kern13_64.with_theta(thetas13.double()), src64,
+                                           T64 - src64)
+    gain = (lml1 - lml0).min().item()
+    if not gain >= -1e-3:
+        raise AssertionError(f"a member's fitted LML is below its initial one by {-gain:.3g}")
+    kern13_cpu = fit_kernel(**f64)
+    rel13 = {}
+    for e in (0, E_FIT // 2, E_FIT - 1):
+        one = gpt.fit_and_transport(kern13_cpu.with_theta(thetas13[e].double().cpu()),
+                                    *(torch.as_tensor(a, **f64) for a in (S, T13[e], X, dX)))
+        for name in ("traj", "std", "delta", "delta_var"):
+            got = getattr(res13, name)[e].double().cpu()
+            rel13[f"{name}[{e}]"] = (got - getattr(one, name)).abs().max().item() / scale
+    if max(rel13.values()) >= TRAJ_TOL:
+        raise AssertionError(f"fit_and_transport_batched_opt differs from the f64 CPU run: {rel13}")
+    del res13
+    src32 = affine_core.predict(affine_core.fit_batched(Sd, T13d), Sd)
+    fit_only = lambda: gp_core.fit_ensemble_fused(
+        kern13, src32, T13d - src32, n_restarts=RESTARTS, maxiter=MAXITER,
+        generator=torch.Generator(device=device).manual_seed(0))
+    fit_ms, fit_all = cuda_ms(fit_only)
+    opt_ms, opt_all = cuda_ms(opt_path)
+    brk13 = path_breakdown(opt_path, "lml_kernel")
+    print(f"per-member hyperopt transport: fit_and_transport_batched_opt E={E_FIT} Q={Q_MAIN} "
+          f"n={N_MAIN} f32, {RESTARTS} restarts, maxiter {MAXITER} ({E_FIT * (RESTARTS + 1)} "
+          f"lanes): small_lml_value_grad_md launches {counts13['small_lml_value_grad_md']}, "
+          f"spd_inverse_elast_fused {counts13['spd_inverse_elast_fused']}; fields finite; fitted "
+          f"LML - initial LML (f64) min {gain:.4g} (>= -1e-3); err/max|X| vs f64 CPU "
+          "fit_and_transport at the fitted kernel "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in rel13.items())
+          + f" (< {TRAJ_TOL}); fit_ensemble_fused {fit_ms:.4f} ms {fit_all} = fits_per_s "
+          f"{E_FIT / (fit_ms / 1e3):.1f}; the path {opt_ms:.4f} ms {opt_all} = traj/s "
+          f"{E_FIT / (opt_ms / 1e3):.1f} (medians of {REPS}, CUDA events); peak memory "
+          f"{peak13:.3f} GiB; {fmt_breakdown(brk13)} {tag}", flush=True)
+
+    # 14. the HMC hyperposterior at bench.py's hmc workload
+    X14, Y14 = (torch.as_tensor(a, **f32) for a in hmc_inputs())
+    kern14 = K.Constant(1.0) * K.RBF(torch.ones(2, **f32)) + K.White(0.01)
+    hmc_kw = dict(num_chains=HMC_CHAINS, num_warmup=HMC_WARMUP, num_samples=HMC_SAMPLES,
+                  num_leapfrog=HMC_LEAPFROG)
+
+    def hmc_path(use_kernel=None):
+        return samplers.sample_gp_posterior(kern14, X14, Y14, seed=0, use_kernel=use_kernel,
+                                            **hmc_kw)
+
+    (s14, d14), counts14 = drive(hmc_path)
+    want14 = 1 + (HMC_WARMUP + HMC_SAMPLES) * HMC_LEAPFROG
+    expect_launches("sample_gp_posterior", counts14, {"small_lml_value_grad": want14,
+                                                      "small_lml_value_grad_md": 0})
+    if s14.shape != (HMC_CHAINS, HMC_SAMPLES, 4) or not torch.isfinite(s14).all():
+        raise AssertionError(f"HMC samples {tuple(s14.shape)} not finite or misshapen")
+    fam14, nls14, noise14, perm14 = gp_core.small_lml_theta_layout(kern14)
+    th_final = s14[:, -1, :][:, torch.as_tensor(perm14, device=device)].T.contiguous()
+    from gaussian_process_transportation_tpu_torch.ops import fused_lml as fl
+
+    v14, g14 = fl.small_lml_value_grad(X14, Y14, th_final, fam14, nls14, noise14, 1e-10)
+    ex14 = lml_excess(v14, g14, lml_f64(X14[None], Y14[None], th_final, fam14, nls14, noise14,
+                                        1e-10))
+    if not max(ex14) < 1:
+        raise AssertionError(f"kernel #2 at the chains' final positions: error/bound {ex14}")
+    s_twin, _ = hmc_path(use_kernel=False)
+    m_k = s14.reshape(-1, 4).double().mean(0)
+    flat_t = s_twin.reshape(-1, 4).double()
+    m_t, sd_t = flat_t.mean(0), flat_t.std(0)
+    if not ((m_k - m_t).abs() < 0.8 * sd_t + 0.3).all():
+        raise AssertionError(f"HMC posterior means {m_k.tolist()} vs the twin run's "
+                             f"{m_t.tolist()} (sd {sd_t.tolist()})")
+    hmc_ms, hmc_all = cuda_ms(hmc_path, reps=3)
+    brk14 = path_breakdown(hmc_path, "lml_kernel")
+    print(f"HMC hyperposterior: sample_gp_posterior {HMC_CHAINS} chains, {HMC_WARMUP}+"
+          f"{HMC_SAMPLES} steps of {HMC_LEAPFROG} leapfrog, n=20 D=2 p=1 f32: "
+          f"small_lml_value_grad launches {counts14['small_lml_value_grad']}; samples finite; "
+          f"kernel at the final positions error/bound vs f64 value {ex14[0]:.3g}, gradient "
+          f"{ex14[1]:.3g}; posterior means {[round(v, 4) for v in m_k.tolist()]} vs the twin "
+          f"run's {[round(v, 4) for v in m_t.tolist()]} (within 0.8*sd+0.3); mean accept "
+          f"{d14['mean_accept'].mean().item():.4f}; {hmc_ms:.4f} ms {hmc_all} (median of 3, "
+          f"CUDA events) = hmc_samples_per_s {HMC_CHAINS * HMC_SAMPLES / (hmc_ms / 1e3):.1f}; "
+          f"{fmt_breakdown(brk14)} {tag}", flush=True)
+
+    # 15. the façade with the default optimizer
+    from gaussian_process_transportation_tpu_torch import GaussianProcessTransportation
+
+    kern15 = K.Constant(10.0) * K.RBF(4.0 * torch.ones(2, **f32)) + K.White(0.01)
+    tr = GaussianProcessTransportation(kernel_transport=kern15)
+    tr.source_distribution, tr.target_distribution = S, S1
+    tr.training_traj, tr.training_delta = X, dX
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.fit_transportation()
+    tr.apply_transportation()
+    torch.cuda.synchronize()
+    wall15 = time.perf_counter() - t0
+    for name in ("training_traj", "std", "training_delta", "var_vel_transported"):
+        value = getattr(tr, name)
+        if value.device.type != "cuda" or not torch.isfinite(value).all():
+            raise AssertionError(f"façade field {name} is not finite on the card")
+    if not tr.std.min().item() > 0:
+        raise AssertionError(f"façade std not positive (min {tr.std.min().item():.3g})")
+    Sa = affine_core.predict(tr.method.affine, Sd).double()  # the fit's own inputs, in f64
+    delta15 = tr.method.delta_distribution.double()
+    l0 = gp_core.log_marginal_likelihood(kern15, Sa, delta15).item()
+    l1 = gp_core.log_marginal_likelihood(tr.method.delta_map.kernel_, Sa, delta15).item()
+    if not l1 >= l0:
+        raise AssertionError(f"façade fitted LML {l1:.6g} below the initial {l0:.6g}")
+    print(f"façade: GaussianProcessTransportation on the card, C(10)*RBF(4)+White(0.01), "
+          f"L-BFGS-B with 5 restarts, Q={Q_MAIN} n={N_MAIN} f32: fields finite, std min "
+          f"{tr.std.min().item():.4g} > 0, LML (f64) {l0:.6g} -> {l1:.6g}, "
+          f"diffeomorphic {tr.method.is_diffeomorphic}; fit + apply {wall15:.3f} s wall {tag}",
+          flush=True)
+
+    # times of kernels #2 and #3 at their paths' shapes
+    for name, case in main_cases.items():
+        fam, n, D, p, n_ls, noise = case
+        per_lane = name.endswith("_md")
+        X_, Y_, th_ = lml_inputs(device, lanes[name], n, D, p, n_ls, noise, per_lane)
+        kern_fn, twin_fn = getattr(fl, name), getattr(fl, name + "_ref")
+        L_ = lanes[name]
+        data_bytes = (n * D + n * p) * 4 * (L_ if per_lane else 1)
+        kernels_json[name] = dict(
+            source=f"{PKG}/csrc/fused_lml.cu",
+            replaces=f"{TPU_PKG}/ops/fused_lml.py:{279 if per_lane else 88}",
+            launches=(counts13 if per_lane else counts14)[name], max_abs_err=main_errs[name],
+            bound=bound(data_bytes + L_ * (2 * th_.shape[0] + 1) * 4, L_ * lml_flops(n, D, p)),
+            shape=f"lanes={L_} n={n} D={D} p={p}",
+            calls=(lambda f=kern_fn, a=(X_, Y_, th_, fam, n_ls, noise): f(*a),
+                   lambda f=twin_fn, a=(X_, Y_, th_, fam, n_ls, noise): f(*a), None))
+        kernels_json[name].update(timed(*kernels_json[name].pop("calls")))
+    print("times of the fused LML kernels (device ms from CUPTI / CUDA-event ms): "
+          + "; ".join(f"{name} {kernels_json[name]['shape']}: kernel "
+                      f"{fmt(kernels_json[name]['ms'])}, twin {fmt(kernels_json[name]['plain_ms'])}"
+                      f", bound {kernels_json[name]['bound'][0]:.4f} by "
+                      f"{kernels_json[name]['bound'][1]}" for name in main_cases)
+          + f" {tag}", flush=True)
 
     # the record's times are the kernels' device times (CUPTI), named so by
     # "timing"; the CUDA-event times of the calls stand beside them

@@ -1,12 +1,15 @@
 """PyTorch + CUDA port of the Gaussian Process Transportation framework.
 
 A second package beside ``gaussian_process_transportation_tpu`` (the JAX
-reference, which it never imports).  Plain tensor code is PyTorch; the one
-TPU kernel on the ensemble-transport path
-(``ops/batched_linalg.py::spd_inverse_elast_fused``) is a CUDA kernel
-written for Hopper (``csrc/spd_inverse_elast.cu``), built with ``nvcc`` at
-first use.  Every function dispatches on the device of the tensors it is
-given: CPU tensors take the plain PyTorch twins, CUDA tensors the kernels.
+reference, which it never imports).  Plain tensor code is PyTorch; each of
+the JAX package's seven TPU kernels is a CUDA kernel written for Hopper
+under ``csrc/`` (the batched small Cholesky/inverse, the panel factor of
+the blocked Cholesky, the Gram tile and fused predicts, the fused
+small-N LML value and gradient), built with ``nvcc`` at first use.  Every
+function dispatches on the device of the tensors it is given: CPU tensors
+take the plain PyTorch twins, CUDA tensors the kernels.  The entry points
+that make tensors (``GaussianProcessTransportation``, ``convert``) put
+them on the card unless asked for the CPU.
 """
 
 import torch as _torch
@@ -21,8 +24,9 @@ _torch.set_float32_matmul_precision("highest")
 
 from . import kernels
 from .transport import gpt
+from .transport.gpt import GaussianProcessTransportation
 from .utils.resample import resample
 
-__all__ = ["kernels", "gpt", "resample"]
+__all__ = ["kernels", "gpt", "resample", "GaussianProcessTransportation"]
 
 __version__ = "0.1.0"

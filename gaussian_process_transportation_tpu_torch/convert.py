@@ -4,6 +4,9 @@ The JAX objects are read duck-typed, by class name and field names, with
 ``np.asarray`` on every array leaf, so this module never imports JAX.
 Plain numpy dictionaries work the same way, which is how saved state or
 a test hands both packages the same parameters.
+
+Like the port's other entry points, every function puts its tensors on the
+card unless the caller asks for another device (``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -22,26 +25,28 @@ def _tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(value), dtype=dtype, device=device)
 
 
-def kernel_from_tree(k, dtype: torch.dtype = torch.float64, device=None) -> K.Kernel:
+def kernel_from_tree(k, dtype: torch.dtype = torch.float64, device="cuda") -> K.Kernel:
     """The port's kernel equal to a JAX kernel expression ``k``
-    (Constant, White, RBF, Matern, Sum, Product)."""
+    (Constant, White, RBF, Matern, Sum, Product), every node's ``bounds``
+    (and a Matérn's ``nu``) carried over."""
     name = type(k).__name__
     if name in ("Sum", "Product"):
         cls = K.Sum if name == "Sum" else K.Product
         return cls(kernel_from_tree(k.k1, dtype, device), kernel_from_tree(k.k2, dtype, device))
+    bounds = tuple(float(b) for b in getattr(k, "bounds", K.DEFAULT_BOUNDS))
     if name == "Constant":
-        return K.Constant(_tensor(k.constant_value, dtype, device))
+        return K.Constant(_tensor(k.constant_value, dtype, device), bounds=bounds)
     if name == "White":
-        return K.White(_tensor(k.noise_level, dtype, device))
+        return K.White(_tensor(k.noise_level, dtype, device), bounds=bounds)
     if name == "RBF":
-        return K.RBF(_tensor(k.lengthscale, dtype, device))
+        return K.RBF(_tensor(k.lengthscale, dtype, device), bounds=bounds)
     if name == "Matern":
-        return K.Matern(_tensor(k.lengthscale, dtype, device), nu=float(k.nu))
+        return K.Matern(_tensor(k.lengthscale, dtype, device), nu=float(k.nu), bounds=bounds)
     raise TypeError(f"no torch counterpart for kernel {name}")
 
 
 def affine_from_numpy(
-    params: Mapping[str, np.ndarray], dtype: torch.dtype = torch.float64, device=None
+    params: Mapping[str, np.ndarray], dtype: torch.dtype = torch.float64, device="cuda"
 ) -> AffineParams:
     """AffineParams from arrays keyed rotation, scale, source_centroid and
     target_centroid (optionally with a leading ensemble axis)."""
@@ -56,7 +61,7 @@ def blocked_cholesky_from_numpy(
     linvs: np.ndarray,
     n: int,
     dtype: torch.dtype = torch.float64,
-    device=None,
+    device="cuda",
 ) -> BlockedCholesky:
     """BlockedCholesky from a panel factor's arrays: the column panels,
     the stacked diagonal-block inverses and the logical size."""
@@ -68,7 +73,7 @@ def exact_gp_from_numpy(
     state: Mapping[str, Optional[np.ndarray]],
     kernel: K.Kernel,
     dtype: torch.dtype = torch.float64,
-    device=None,
+    device="cuda",
     jitter: float = 1e-10,
 ) -> ExactGP:
     """ExactGP from arrays keyed X, Y, alpha and optionally L and K_inv,

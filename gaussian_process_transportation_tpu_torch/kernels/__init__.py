@@ -1,4 +1,5 @@
 from .stationary import (
+    DEFAULT_BOUNDS,
     Kernel,
     RBF,
     Matern,
@@ -9,6 +10,7 @@ from .stationary import (
 )
 
 __all__ = [
+    "DEFAULT_BOUNDS",
     "Kernel",
     "RBF",
     "Matern",

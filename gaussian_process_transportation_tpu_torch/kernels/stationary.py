@@ -15,32 +15,72 @@ Shapes, for points x (..., N, D) and Z (..., M, D):
 * ``dxT(x, Z)`` → (..., D, M, N), the same values query-last;
 * ``dxdz_diag(x)`` → (..., N, D) = ∂²k(a, b)/∂a_d∂b_d at a = b = x_i.
 
-The hyperparameter vector (``theta``/``with_theta``/bounds) belongs to the
-hyperparameter-fitting part of the port and is not here yet.
+Hyperparameters with a leading ensemble axis give one kernel for E
+members: a scalar hyperparameter (amplitude, noise) of shape (E,) and a
+lengthscale of shape (E, D) or (E, 1) are per member, and the kernel then
+evaluates points (E, …, N, D) as E separate kernels would (points (N, D)
+without the E axis are shared by the members).  A 0-d scalar and a 1-D
+lengthscale are shared by every member.
+
+The hyperparameter vector follows the JAX package: ``theta`` is the log
+of the leaves in declaration order (Sum/Product: ``k1`` then ``k2``), an
+ARD lengthscale contributing one entry per dimension; ``with_theta``
+rebuilds the tree from such a vector, or from (E, T) of them for a
+per-member kernel; ``theta_bounds`` is (T, 2) in log space from each
+leaf's ``bounds``.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Optional, Union
+from dataclasses import dataclass, replace
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import Tensor
 
 Param = Union[float, Tensor]
 
-
-def _vec(value: Param, like: Tensor) -> Tensor:
-    """A hyperparameter as a 1-D tensor in ``like``'s dtype and device."""
-    return torch.as_tensor(value, dtype=like.dtype, device=like.device).reshape(-1)
+DEFAULT_BOUNDS = (1e-5, 1e5)
 
 
-def _scalar(value: Param, like: Tensor) -> Param:
-    """A scalar hyperparameter ready to multiply ``like``: a float stays a
-    float, a tensor moves to ``like``'s dtype and device."""
+def _ls(value: Param, like: Tensor) -> Tensor:
+    """A lengthscale in the dtype and on the device of points ``like``
+    ((E, …, N, D), or (N, D) shared by every member), shaped to divide
+    them: (D,) when shared, (E, 1, …, 1, D) when per member."""
+    ls = torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    if ls.dim() >= 2:
+        lead = ls.shape[:-1]
+        return ls.reshape(lead + (1,) * max(like.dim() - ls.dim(), 1) + ls.shape[-1:])
+    return ls.reshape(-1)
+
+
+def _ls_dim(value: Param, like: Tensor) -> Tensor:
+    """The same lengthscale shaped against a derivative (E, …, D, M, N) of
+    points ``like``: (D, 1, 1) when shared, (E, 1, …, D, 1, 1) when per
+    member."""
+    ls = torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    if ls.dim() >= 2:
+        lead = ls.shape[:-1]
+        pad = max(like.dim() - 2 - len(lead), 0)
+        return ls.reshape(lead + (1,) * pad + ls.shape[-1:] + (1, 1))
+    return ls.reshape(-1)[:, None, None]
+
+
+def _scalar(value: Param, like: Tensor, rank: int, point_axes: int) -> Param:
+    """A scalar hyperparameter ready to multiply a result of ``rank`` axes,
+    the last ``point_axes`` of them over points: a float stays a float, a
+    tensor moves to ``like``'s dtype and device, and a per-member (E,) one
+    is shaped (E, 1, …, 1) to lead the result."""
     if isinstance(value, Tensor):
-        return value.to(dtype=like.dtype, device=like.device)
+        value = value.to(dtype=like.dtype, device=like.device)
+        if value.dim():
+            return value.reshape(value.shape + (1,) * max(rank - value.dim(), point_axes))
     return value
+
+
+def _flat_log(value: Param, dtype, device) -> Tensor:
+    """log of a leaf as a flat vector."""
+    return torch.log(torch.as_tensor(value, dtype=dtype, device=device).reshape(-1))
 
 
 def _cross_shape(X: Tensor, Z: Tensor) -> tuple:
@@ -98,6 +138,70 @@ class Kernel:
     def dxdz_diag(self, x: Tensor) -> Tensor:
         raise NotImplementedError(f"{type(self).__name__}.dxdz_diag")
 
+    # ---- the flat log-space hyperparameter vector ------------------------
+    def _leaves(self) -> List["Kernel"]:
+        """The hyperparameter-carrying nodes in declaration order."""
+        return [self]
+
+    def _leaf_value(self) -> Param:
+        raise NotImplementedError
+
+    def _with_leaf_value(self, value: Tensor) -> "Kernel":
+        raise NotImplementedError
+
+    def _leaf_sizes(self) -> List[int]:
+        return [torch.as_tensor(leaf._leaf_value()).numel() for leaf in self._leaves()]
+
+    def _theta_like(self):
+        """(dtype, device) of the vector: the first tensor leaf's, else
+        float64 on the CPU."""
+        for leaf in self._leaves():
+            v = leaf._leaf_value()
+            if isinstance(v, Tensor):
+                return v.dtype, v.device
+        return torch.float64, torch.device("cpu")
+
+    @property
+    def theta(self) -> Tensor:
+        """log of the hyperparameters, (T,)."""
+        dtype, device = self._theta_like()
+        parts = [_flat_log(leaf._leaf_value(), dtype, device) for leaf in self._leaves()]
+        return torch.cat(parts) if parts else torch.zeros(0, dtype=dtype, device=device)
+
+    @property
+    def n_theta(self) -> int:
+        return sum(self._leaf_sizes())
+
+    @property
+    def theta_bounds(self) -> Tensor:
+        """(T, 2) log-space bounds, one row per entry of ``theta``."""
+        rows = []
+        for leaf, size in zip(self._leaves(), self._leaf_sizes()):
+            rows.extend([leaf.bounds] * size)
+        return torch.log(torch.tensor(rows, dtype=torch.float64).reshape(-1, 2))
+
+    def with_theta(self, theta: Tensor) -> "Kernel":
+        """The kernel at exp(theta): theta (T,) gives leaves of the original
+        shapes; theta (E, T) gives per-member leaves, scalars (E,) and
+        lengthscales (E, size).  Leaves are placed on theta's device, in the
+        dtype of a tensor leaf or else theta's."""
+        out, used = self._rebuild(theta, 0)
+        if used != theta.shape[-1]:
+            raise ValueError(f"theta has {theta.shape[-1]} entries, the kernel {used}")
+        return out
+
+    def _rebuild(self, theta: Tensor, offset: int):
+        old = self._leaf_value()
+        shape = tuple(torch.as_tensor(old).shape)
+        size = math.prod(shape)
+        seg = torch.exp(theta[..., offset:offset + size])
+        dtype = old.dtype if isinstance(old, Tensor) else theta.dtype
+        if theta.dim() == 1:
+            seg = seg.reshape(shape)
+        elif not isinstance(self, (RBF, Matern)):
+            seg = seg[..., 0]  # a per-member scalar: (E,)
+        return self._with_leaf_value(seg.to(dtype)), offset + size
+
 
 def _as_kernel(x) -> Kernel:
     return x if isinstance(x, Kernel) else Constant(x)
@@ -106,13 +210,21 @@ def _as_kernel(x) -> Kernel:
 @dataclass(frozen=True)
 class Constant(Kernel):
     constant_value: Param = 1.0
+    bounds: Tuple[float, float] = DEFAULT_BOUNDS
 
     def __call__(self, X, Z=None):
         Z = X if Z is None else Z
-        return X.new_full(_cross_shape(X, Z), 1.0) * _scalar(self.constant_value, X)
+        shape = _cross_shape(X, Z)
+        return X.new_full(shape, 1.0) * _scalar(self.constant_value, X, len(shape), 2)
 
     def diag(self, X):
-        return X.new_full(X.shape[:-1], 1.0) * _scalar(self.constant_value, X)
+        return X.new_full(X.shape[:-1], 1.0) * _scalar(self.constant_value, X, X.dim() - 1, 1)
+
+    def _leaf_value(self):
+        return self.constant_value
+
+    def _with_leaf_value(self, value):
+        return replace(self, constant_value=value)
 
     def dx(self, x, Z):
         return x.new_zeros(_cross_shape(x, Z) + (x.shape[-1],))
@@ -131,9 +243,10 @@ class White(Kernel):
     diagonal, a cross-covariance k(X, Z) with Z given is zero."""
 
     noise_level: Param = 1.0
+    bounds: Tuple[float, float] = DEFAULT_BOUNDS
 
     def __call__(self, X, Z=None):
-        noise = _scalar(self.noise_level, X)
+        noise = _scalar(self.noise_level, X, X.dim() if Z is None else len(_cross_shape(X, Z)), 2)
         if Z is None:
             n = X.shape[-2]
             eye = torch.eye(n, dtype=X.dtype, device=X.device)
@@ -141,7 +254,13 @@ class White(Kernel):
         return X.new_zeros(_cross_shape(X, Z)) * noise
 
     def diag(self, X):
-        return X.new_full(X.shape[:-1], 1.0) * _scalar(self.noise_level, X)
+        return X.new_full(X.shape[:-1], 1.0) * _scalar(self.noise_level, X, X.dim() - 1, 1)
+
+    def _leaf_value(self):
+        return self.noise_level
+
+    def _with_leaf_value(self, value):
+        return replace(self, noise_level=value)
 
     def dx(self, x, Z):
         return x.new_zeros(_cross_shape(x, Z) + (x.shape[-1],))
@@ -159,10 +278,11 @@ class RBF(Kernel):
     """Squared exponential with ARD lengthscales."""
 
     lengthscale: Param = 1.0
+    bounds: Tuple[float, float] = DEFAULT_BOUNDS
 
     def __call__(self, X, Z=None):
         Z = X if Z is None else Z
-        ls = _vec(self.lengthscale, X)
+        ls = _ls(self.lengthscale, X)
         return torch.exp(-0.5 * _sqdist(X / ls, Z / ls))
 
     def diag(self, X):
@@ -171,19 +291,24 @@ class RBF(Kernel):
     def dx(self, x, Z):
         # ∂k/∂x_d = −(x_d − z_d)/ℓ_d² · k(x, z)
         k = self(x, Z)
-        ls = _vec(self.lengthscale, x)
+        ls = _ls(self.lengthscale, x)[..., None, :]
         diff = (Z[..., None, :, :] - x[..., :, None, :]) / ls**2
         return diff * k[..., None]
 
     def dxT(self, x, Z):
         kT = self(Z, x)  # (..., M, N)
-        ls = _vec(self.lengthscale, x)
         diffT = (Z.transpose(-1, -2)[..., :, :, None]
-                 - x.transpose(-1, -2)[..., :, None, :]) / (ls**2)[:, None, None]
+                 - x.transpose(-1, -2)[..., :, None, :]) / _ls_dim(self.lengthscale, x) ** 2
         return diffT * kT[..., None, :, :]
 
     def dxdz_diag(self, x):
-        return torch.ones_like(x) / _vec(self.lengthscale, x) ** 2
+        return torch.ones_like(x) / _ls(self.lengthscale, x) ** 2
+
+    def _leaf_value(self):
+        return self.lengthscale
+
+    def _with_leaf_value(self, value):
+        return replace(self, lengthscale=value)
 
 
 def _matern_of_d(d: Tensor, nu: float) -> Tensor:
@@ -219,10 +344,11 @@ class Matern(Kernel):
 
     lengthscale: Param = 1.0
     nu: float = 1.5
+    bounds: Tuple[float, float] = DEFAULT_BOUNDS
 
     def __call__(self, X, Z=None):
         Z = X if Z is None else Z
-        ls = _vec(self.lengthscale, X)
+        ls = _ls(self.lengthscale, X)
         d2 = _sqdist(X / ls, Z / ls)
         if self.nu == math.inf:
             return torch.exp(-0.5 * d2)
@@ -232,15 +358,15 @@ class Matern(Kernel):
         return X.new_ones(X.shape[:-1])
 
     def dx(self, x, Z):
-        ls = _vec(self.lengthscale, x)
-        diff = (x[..., :, None, :] - Z[..., None, :, :]) / ls**2
+        ls = _ls(self.lengthscale, x)
+        diff = (x[..., :, None, :] - Z[..., None, :, :]) / ls[..., None, :] ** 2
         c = _matern_dcoeff(_sqdist(x / ls, Z / ls), self.nu)
         return -diff * c[..., None]
 
     def dxT(self, x, Z):
-        ls = _vec(self.lengthscale, x)
+        ls = _ls(self.lengthscale, x)
         diffT = (Z.transpose(-1, -2)[..., :, :, None]
-                 - x.transpose(-1, -2)[..., :, None, :]) / (ls**2)[:, None, None]
+                 - x.transpose(-1, -2)[..., :, None, :]) / _ls_dim(self.lengthscale, x) ** 2
         c = _matern_dcoeff(_sqdist(Z / ls, x / ls), self.nu)
         return diffT * c[..., None, :, :]
 
@@ -248,13 +374,27 @@ class Matern(Kernel):
         scale = {math.inf: 1.0, 1.5: 3.0, 2.5: 5.0 / 3.0}.get(self.nu)
         if scale is None:
             raise NotImplementedError(f"dxdz_diag undefined for nu={self.nu}")
-        return scale * torch.ones_like(x) / _vec(self.lengthscale, x) ** 2
+        return scale * torch.ones_like(x) / _ls(self.lengthscale, x) ** 2
+
+    def _leaf_value(self):
+        return self.lengthscale
+
+    def _with_leaf_value(self, value):
+        return replace(self, lengthscale=value)
 
 
 @dataclass(frozen=True)
 class Sum(Kernel):
     k1: Kernel
     k2: Kernel
+
+    def _leaves(self):
+        return self.k1._leaves() + self.k2._leaves()
+
+    def _rebuild(self, theta, offset):
+        k1, offset = self.k1._rebuild(theta, offset)
+        k2, offset = self.k2._rebuild(theta, offset)
+        return Sum(k1, k2), offset
 
     def __call__(self, X, Z=None):
         return self.k1(X, Z) + self.k2(X, Z)
@@ -276,6 +416,14 @@ class Sum(Kernel):
 class Product(Kernel):
     k1: Kernel
     k2: Kernel
+
+    def _leaves(self):
+        return self.k1._leaves() + self.k2._leaves()
+
+    def _rebuild(self, theta, offset):
+        k1, offset = self.k1._rebuild(theta, offset)
+        k2, offset = self.k2._rebuild(theta, offset)
+        return Product(k1, k2), offset
 
     def __call__(self, X, Z=None):
         return self.k1(X, Z) * self.k2(X, Z)

@@ -6,8 +6,10 @@ K⁻¹, large-N conditioning through the blocked Cholesky
 (``condition_blocked``), the posterior mean and epistemic std (with the
 fused dense-grid kernels of ``ops/pallas_gram.py`` on the card), the full
 posterior covariance and samples, the Jacobian posterior and the gradient
-of the predictive variance.  Hyperparameter fitting belongs to a later
-part of the port.
+of the predictive variance; and the hyperparameter fits: the log marginal
+likelihood with its analytic gradient, ``fit`` (scipy L-BFGS-B with
+restarts) and ``fit_ensemble_fused`` (per-lane projected L-BFGS over the
+fused small-LML kernel of ``ops/fused_lml.py``, one launch per candidate).
 
 Conventions follow the original project's sklearn wrapper: the std may
 exclude the White-noise level (``epistemic_only``), and the Jacobian
@@ -17,15 +19,18 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import Tensor
 
 from ..kernels import Constant, Kernel, Matern, Product, RBF, Sum, White
-from ..ops import pallas_gram
+from ..ops import fused_lml, pallas_gram
 from ..ops.blocked_chol import BlockedCholesky, gram_cholesky_solve
-from ..ops.linalg import add_diagonal, cho_solve_lower, tri_solve_lower
+from ..ops.linalg import add_diagonal, cho_solve_lower, log_det_from_chol, tri_solve_lower
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 @dataclass(frozen=True)
@@ -184,8 +189,12 @@ def stationary_family_params(kernel: Kernel):
 
 
 def _noise_std(kernel: Kernel, like: Tensor) -> Tensor:
-    noise = white_noise_level(kernel)
-    return torch.sqrt(torch.as_tensor(noise, dtype=like.dtype, device=like.device))
+    """sqrt of the White-noise level, shaped against a std (E, …, Q) when
+    the kernel carries one noise level per member."""
+    noise = torch.as_tensor(white_noise_level(kernel), dtype=like.dtype, device=like.device)
+    if noise.dim():
+        noise = noise.reshape(noise.shape + (1,) * (like.dim() - noise.dim()))
+    return torch.sqrt(noise)
 
 
 # predict() takes the fused kernels when the (Nq, N) Gram would have this
@@ -311,3 +320,280 @@ def variance_gradient(gp: ExactGP, x: Tensor) -> Tensor:
     else:
         Kinv_k = _cho_solve_any(gp, k_star.T)
     return -2.0 * torch.einsum("qnd,nq->qd", dk, Kinv_k)
+
+
+# ---------------------------------------------------------------------------
+# Marginal likelihood and hyperparameter fitting
+# ---------------------------------------------------------------------------
+
+
+class _SmallLML(torch.autograd.Function):
+    """log p(Y | K) of a Gram K (..., N, N) and targets Y (..., N, P), with
+    the analytic backward dLML/dK = ½(ααᵀ − P·K⁻¹) and dLML/dY = −α: no
+    autograd through the factorization; the caller's autograd pulls dK back
+    through the Gram build.  A K that is not positive definite gives NaN."""
+
+    @staticmethod
+    def forward(ctx, K, Y2):
+        n, p = K.shape[-1], Y2.shape[-1]
+        L, info = torch.linalg.cholesky_ex(K)
+        eye = torch.eye(n, dtype=K.dtype, device=K.device)
+        L = torch.where((info != 0)[..., None, None], eye, L)  # keeps the solves finite
+        alpha = torch.cholesky_solve(Y2, L)
+        val = -0.5 * (Y2 * alpha).sum((-2, -1)) - p * (0.5 * log_det_from_chol(L)
+                                                       + 0.5 * n * _LOG_2PI)
+        ctx.save_for_backward(L, alpha)
+        return torch.where(info != 0, torch.full_like(val, math.nan), val)
+
+    @staticmethod
+    def backward(ctx, g):
+        L, alpha = ctx.saved_tensors
+        p = alpha.shape[-1]
+        W = 0.5 * (alpha @ alpha.transpose(-1, -2) - p * torch.cholesky_inverse(L))
+        g = g[..., None, None]
+        return W * g, -alpha * g
+
+
+def log_marginal_likelihood(kernel: Kernel, X: Tensor, Y: Tensor, jitter: float = 1e-10) -> Tensor:
+    """log p(Y | X, kernel), summed over output columns (sklearn semantics).
+
+    X (..., N, D) and Y (..., N, P) or (..., N) may carry leading ensemble
+    axes, and the kernel per-member hyperparameters; the result is then
+    (...,).  For N ≤ 64 the gradient is the analytic trace identity of
+    :class:`_SmallLML` (the JAX package's ``_lml_small`` custom VJP),
+    pulled back through the Gram build only; larger N differentiate
+    through the Cholesky."""
+    Y2 = Y[..., None] if Y.dim() == X.dim() - 1 else Y
+    K = add_diagonal(kernel(X), jitter)
+    n, p = X.shape[-2], Y2.shape[-1]
+    if n <= 64:
+        return _SmallLML.apply(K, Y2)
+    L = torch.linalg.cholesky(K)
+    alpha = cho_solve_lower(L, Y2)
+    return -0.5 * (Y2 * alpha).sum((-2, -1)) - p * (0.5 * log_det_from_chol(L)
+                                                    + 0.5 * n * _LOG_2PI)
+
+
+def _filter_nan_rows(X: Tensor, Y: Tensor) -> Tuple[Tensor, Tensor]:
+    """Drop the rows whose targets hold a NaN (the original project's GP
+    wrapper does so before fitting)."""
+    Y2 = Y[:, None] if Y.dim() == 1 else Y
+    keep = ~torch.isnan(Y2).any(dim=1)
+    if bool(keep.all()):
+        return X, Y2
+    return X[keep], Y2[keep]
+
+
+def small_lml_theta_layout(kernel: Kernel):
+    """(family, n_ls, has_noise, perm) when ``kernel.theta`` maps onto the
+    canonical fused-LML layout ``[log amp, log ℓ…, log noise]``
+    (``ops/fused_lml.py``); None otherwise.  ``perm[i]`` is the
+    ``kernel.theta`` index of canonical row ``i``."""
+    info = stationary_family_params(kernel)
+    if info is None:
+        return None
+    pos = {}
+    off = 0
+    for leaf in kernel._leaves():
+        if isinstance(leaf, Constant):
+            key, size = "amp", 1
+        elif isinstance(leaf, White):
+            key, size = "noise", 1
+        elif _base_stationary_family(leaf) is not None:
+            key, size = "ls", torch.as_tensor(leaf.lengthscale).numel()
+        else:
+            return None
+        if key in pos:
+            return None  # two amplitudes, noises or lengthscales
+        pos[key] = (off, size)
+        off += size
+    if "amp" not in pos or "ls" not in pos:
+        return None
+    n_ls = pos["ls"][1]
+    perm = [pos["amp"][0], *range(pos["ls"][0], pos["ls"][0] + n_ls)]
+    if "noise" in pos:
+        perm.append(pos["noise"][0])
+    if len(perm) != off:
+        return None
+    return info[0], n_ls, "noise" in pos, np.asarray(perm)
+
+
+def fit(
+    kernel: Kernel,
+    X: Tensor,
+    Y: Tensor,
+    n_restarts: int = 5,
+    generator: Optional[torch.Generator] = None,
+    jitter: float = 1e-10,
+    maxiter: int = 200,
+) -> ExactGP:
+    """sklearn-parity hyperparameter fit: scipy's L-BFGS-B over the negative
+    log marginal likelihood and its gradient (evaluated in X's dtype on
+    X's device), from ``kernel.theta`` and ``n_restarts`` starts uniform in
+    the log-space bounds, then conditioning at the best.  Rows with NaN
+    targets are dropped first; a non-finite value counts as 1e25.  The
+    restarts are drawn from ``generator`` (a CPU generator; seed 0 when
+    None)."""
+    from scipy.optimize import minimize
+
+    Xd, Yd = _filter_nan_rows(X, Y)
+    theta0 = kernel.theta.detach().double().cpu().numpy()
+    if theta0.size == 0:
+        return condition(kernel, Xd, Yd, jitter)
+    bounds = kernel.theta_bounds.numpy()
+
+    def obj(theta_np):
+        theta = torch.tensor(theta_np, dtype=torch.float64, device=Xd.device, requires_grad=True)
+        v = -log_marginal_likelihood(kernel.with_theta(theta), Xd, Yd, jitter)
+        v.backward()
+        val = v.item()
+        g = theta.grad.cpu().numpy()
+        if not np.isfinite(val) or not np.all(np.isfinite(g)):
+            return 1e25, np.zeros_like(g)
+        return val, g
+
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    starts = [theta0]
+    if n_restarts > 0:
+        u = torch.rand((n_restarts, theta0.size), generator=generator, dtype=torch.float64)
+        starts.extend(bounds[:, 0] + u.numpy() * (bounds[:, 1] - bounds[:, 0]))
+    best_val, best_theta = np.inf, theta0
+    for s0 in starts:
+        res = minimize(obj, s0, jac=True, method="L-BFGS-B", bounds=list(map(tuple, bounds)),
+                       options={"maxiter": maxiter})
+        if res.fun < best_val:
+            best_val, best_theta = res.fun, res.x
+    fitted = kernel.with_theta(torch.as_tensor(best_theta, device=Xd.device))
+    return condition(fitted, Xd, Yd, jitter)
+
+
+def _lbfgs_elast(
+    value_and_grad_b: Callable[[Tensor], Tuple[Tensor, Tensor]],
+    x0: Tensor,
+    lower: Tensor,
+    upper: Tensor,
+    maxiter: int,
+    m: int = 8,
+    armijo_c: float = 1e-4,
+    max_backtrack: int = 6,
+) -> Tuple[Tensor, Tensor]:
+    """Per-lane projected L-BFGS (minimization) on (T, L) parameters.
+
+    Every lane optimizes on its own: the two-loop recursion's inner
+    products are per-lane sums over the T rows, the histories are (m, T, L)
+    buffers with ρ = 0 marking empty or degenerate slots, and the Armijo
+    backtracking halves each lane's step by itself.  One batched
+    value-and-gradient call per candidate: 1 + maxiter·(max_backtrack + 1)
+    in all.  Returns (x, value)."""
+    T, L = x0.shape
+
+    def dot(a, b):
+        return (a * b).sum(0)
+
+    def clip(x):
+        return torch.minimum(torch.maximum(x, lower), upper)
+
+    x = x0
+    v, g = value_and_grad_b(x0)
+    S = x0.new_zeros((m, T, L))
+    Yh = x0.new_zeros((m, T, L))
+    rho = x0.new_zeros((m, L))
+    for _ in range(maxiter):
+        q = g
+        alphas = []
+        for kk in range(m):
+            a = rho[kk] * dot(S[kk], q)
+            q = q - a[None, :] * Yh[kk]
+            alphas.append(a)
+        gamma = torch.where(rho[0] > 0.0,
+                            dot(S[0], Yh[0]) / torch.clamp(dot(Yh[0], Yh[0]), min=1e-30),
+                            torch.ones_like(rho[0]))
+        r = gamma[None, :] * q
+        for kk in reversed(range(m)):
+            b = rho[kk] * dot(Yh[kk], r)
+            r = r + S[kk] * (alphas[kk] - b)[None, :]
+        d = -r
+        d = torch.where((dot(d, g) < 0.0)[None, :], d, -g)  # else steepest descent
+        dg = torch.clamp(dot(d, g), max=-1e-30)
+        t = x0.new_ones(L)
+        for _ in range(max_backtrack):
+            v_try, _ = value_and_grad_b(clip(x + t[None, :] * d))
+            t = torch.where(v_try <= v + armijo_c * t * dg, t, 0.5 * t)
+        x_new = clip(x + t[None, :] * d)
+        v_new, g_new = value_and_grad_b(x_new)
+        # keep only steps that decreased (the last halving was not checked)
+        good = v_new <= v
+        x_new = torch.where(good[None, :], x_new, x)
+        g_new = torch.where(good[None, :], g_new, g)
+        v_new = torch.where(good, v_new, v)
+        s, yv = x_new - x, g_new - g
+        sy = dot(s, yv)
+        rho_new = torch.where(sy > 1e-12, 1.0 / torch.where(sy > 1e-12, sy, torch.ones_like(sy)),
+                              torch.zeros_like(sy))
+        S = torch.cat([s[None], S[:-1]], 0)
+        Yh = torch.cat([yv[None], Yh[:-1]], 0)
+        rho = torch.cat([rho_new[None], rho[:-1]], 0)
+        x, v, g = x_new, v_new, g_new
+    return x, v
+
+
+def fit_ensemble_fused(
+    kernel: Kernel,
+    Xe: Tensor,
+    Ye: Tensor,
+    n_restarts: int = 6,
+    generator: Optional[torch.Generator] = None,
+    jitter: float = 1e-10,
+    maxiter: int = 40,
+) -> Tuple[Tensor, Tensor]:
+    """Batched multi-restart hyperparameter fits: member e fits its own
+    dataset (Xe[e] (n, D), Ye[e] (n, p)); all members × (1 + n_restarts)
+    starts optimize as lanes of one :func:`_lbfgs_elast`, whose value and
+    gradient is one call of ``ops.fused_lml.small_lml_value_grad_md`` per
+    candidate: the kernel for CUDA tensors, its plain twin for CPU ones.
+
+    The first start of each member is ``kernel.theta``, the others uniform
+    in the log-space bounds, drawn from ``generator`` (on Xe's device;
+    seed 0 when None).  Work is in float32, as in the kernel.  Returns
+    (thetas (E, n_theta) in ``kernel.theta`` order, LML (E,)).  Needs the
+    C·stationary(+White) family and n ≤ 32."""
+    layout = small_lml_theta_layout(kernel)
+    if layout is None:
+        raise ValueError("fit_ensemble_fused needs the C·stationary(+White) family")
+    family, n_ls, has_noise, perm_np = layout
+    E, n, D = Xe.shape
+    Ye3 = Ye[:, :, None] if Ye.dim() == 2 else Ye
+    device = Xe.device
+    perm = torch.as_tensor(perm_np, device=device)
+    inv_perm = torch.as_tensor(np.argsort(perm_np), device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    bounds = kernel.theta_bounds.to(**f32)
+    lo, hi = bounds[:, 0], bounds[:, 1]
+    T = lo.shape[0]
+    R = n_restarts + 1
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    u = torch.rand((E, n_restarts, T), generator=generator, **f32)
+    starts = torch.cat([kernel.theta.to(**f32).expand(E, 1, T), lo + u * (hi - lo)], 1)
+    x0 = starts.reshape(E * R, T)[:, perm].T.contiguous()  # (T, L), member-major lanes
+
+    Xe_t = Xe.to(torch.float32).repeat_interleave(R, 0).contiguous()
+    Ye_t = Ye3.to(torch.float32).repeat_interleave(R, 0).contiguous()
+
+    def nll_b(th):
+        val, grad = fused_lml.small_lml_value_grad_md(
+            Xe_t, Ye_t, th.contiguous(), family=family, n_ls=n_ls, has_noise=has_noise,
+            jitter=jitter)
+        v = -val
+        bad = ~torch.isfinite(v)
+        v = torch.where(bad, torch.full_like(v, 1e25), v)
+        g = torch.where(torch.isfinite(grad) & ~bad[None, :], -grad, torch.zeros_like(grad))
+        return v, g
+
+    x, v = _lbfgs_elast(nll_b, x0, lo[perm][:, None], hi[perm][:, None], maxiter)
+    v_er = v.reshape(E, R)
+    best = v_er.argmin(1)
+    x_er = x.T.reshape(E, R, T)
+    th_best = x_er[torch.arange(E, device=device), best]
+    return th_best[:, inv_perm], -v_er[torch.arange(E, device=device), best]

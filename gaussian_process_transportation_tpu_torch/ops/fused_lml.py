@@ -1,0 +1,242 @@
+"""Fused small-N GP log marginal likelihood and its gradient, per lane.
+
+Port of ``gaussian_process_transportation_tpu/ops/fused_lml.py``.  For E
+lanes (HMC chains, L-BFGS restarts, ensemble members) of the
+C·stationary(+White) family, each lane evaluates
+
+* K = amp·φ(s) + (noise + jitter)·I, s = Σ_d Δ²_d / ℓ_d²,
+* its Cholesky, α = K⁻¹Y, log|K| and the LML summed over the p columns,
+* the trace-identity gradient ½⟨ααᵀ − p·K⁻¹, ∂K/∂θ⟩ in
+  θ = [log amp, log ℓ (n_ls rows), log noise (if has_noise)].
+
+The layouts are the JAX ones: theta (T, E) lane-last, results ((E,), (T, E)).
+Two wrappers launch the kernels of ``csrc/fused_lml.cu`` for CUDA tensors
+(float32, contiguous; anything else raises) and take the plain twins
+defined beside them for CPU tensors:
+
+* ``small_lml_value_grad``: one (X (n, D), Y (n, p)) shared by every lane
+  (the HMC hyperposterior's chains);
+* ``small_lml_value_grad_md``: lane e has its own (Xe[e], Ye[e]) (the
+  per-member hyperparameter fits).
+
+Both count their launches in ``<wrapper>.launches``.  As in JAX, n ≤ 32 and
+p ≤ 8; the kernels also take D ≤ 8.  The twins compute in theta's dtype
+and give a lane whose Gram is not positive definite a NaN value and
+gradient, as the kernels do.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Tuple
+
+import torch
+from torch import Tensor
+
+from . import _cuda
+from .pallas_gram import STATIONARY_FAMILIES, stationary_from_sqdist
+
+MAX_N = 32
+MAX_D = 8
+MAX_P = 8
+
+_LOG_2PI = math.log(2.0 * math.pi)
+_SQRT3 = math.sqrt(3.0)
+_SQRT5 = math.sqrt(5.0)
+
+
+def _dphi(s: Tensor, family: str) -> Tensor:
+    """∂φ/∂s, with the clamps that keep the diagonal finite (0·finite)."""
+    if family == "rbf":
+        return -0.5 * torch.exp(-0.5 * s)
+    d = torch.sqrt(s + 1e-36)
+    if family == "matern12":
+        return -torch.exp(-d) / (2.0 * torch.clamp(d, min=1e-18))
+    if family == "matern32":
+        return -1.5 * torch.exp(-_SQRT3 * d)
+    if family == "matern52":
+        sd = _SQRT5 * d
+        return -(5.0 / 6.0) * (1.0 + sd) * torch.exp(-sd)
+    raise ValueError(f"unknown stationary family {family!r}")
+
+
+def _check_layout(name: str, n: int, D: int, p: int, theta: Tensor, family: str, n_ls: int,
+                  has_noise: bool) -> None:
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"{name}: the fused small-LML kernel is for 1 <= n <= {MAX_N}, got {n}")
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"{name}: takes 1 <= p <= {MAX_P} output columns, got {p}")
+    if family not in STATIONARY_FAMILIES:
+        raise ValueError(f"{name}: unknown stationary family {family!r}")
+    if n_ls not in (1, D):
+        raise ValueError(f"{name}: n_ls must be 1 or D={D}, got {n_ls}")
+    T = 1 + n_ls + int(has_noise)
+    if theta.dim() != 2 or theta.shape[0] != T:
+        raise ValueError(f"{name}: theta must be (T={T}, E), got {tuple(theta.shape)}")
+
+
+# -- plain twins ------------------------------------------------------------
+
+
+def _value_grad_plain(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str, n_ls: int,
+                      has_noise: bool, jitter: float) -> Tuple[Tensor, Tensor]:
+    """Lanes first: Xe (E or 1, n, D), Ye (E or 1, n, p), theta (T, E)."""
+    dtype = theta.dtype
+    Xe, Ye = Xe.to(dtype), Ye.to(dtype)
+    E = theta.shape[1]
+    n, D = Xe.shape[-2:]
+    p = Ye.shape[-1]
+    th = theta.T  # (E, T)
+    amp = torch.exp(th[:, 0])
+    inv_ls2 = torch.exp(-2.0 * th[:, 1:1 + n_ls]).expand(E, D)
+    noise = torch.exp(th[:, 1 + n_ls]) if has_noise else th.new_zeros(E)
+
+    diff = Xe[:, :, None, :] - Xe[:, None, :, :]
+    d2 = diff * diff  # (E|1, n, n, D)
+    s = (d2 * inv_ls2[:, None, None, :]).sum(-1)  # (E, n, n)
+    ph = stationary_from_sqdist(s, family)
+    eye = torch.eye(n, dtype=dtype, device=theta.device)
+    K = amp[:, None, None] * ph + eye * (noise + jitter)[:, None, None]
+    L, info = torch.linalg.cholesky_ex(K)
+    bad = info != 0  # a Gram that is not positive definite: NaN in its lane only
+    L = torch.where(bad[:, None, None], eye, L)
+    Yb = Ye.expand(E, n, p)
+    alpha = torch.cholesky_solve(Yb, L)
+    K_inv = torch.cholesky_inverse(L)
+    logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    quad = (alpha * Yb).sum((-2, -1))
+    val = -0.5 * quad - p * (0.5 * logdet + 0.5 * n * _LOG_2PI)
+
+    W = 0.5 * (alpha @ alpha.transpose(-1, -2) - p * K_inv)
+    g_amp = (W * (amp[:, None, None] * ph)).sum((-2, -1))
+    Wdk = W * (amp[:, None, None] * _dphi(s, family))
+    g_ls = (Wdk[..., None] * d2).sum((1, 2)) * (-2.0 * inv_ls2)  # (E, D)
+    if n_ls == 1:
+        g_ls = g_ls.sum(1, keepdim=True)
+    rows = [g_amp[:, None], g_ls]
+    if has_noise:
+        rows.append((noise * torch.diagonal(W, dim1=-2, dim2=-1).sum(-1))[:, None])
+    grad = torch.cat(rows, 1).T
+    nan = torch.full((), math.nan, dtype=dtype, device=theta.device)
+    return torch.where(bad, nan, val), torch.where(bad[None, :], nan, grad)
+
+
+def small_lml_value_grad_ref(X: Tensor, Y: Tensor, theta: Tensor, family: str = "rbf",
+                             n_ls: int = 1, has_noise: bool = True,
+                             jitter: float = 1e-10) -> Tuple[Tensor, Tensor]:
+    """Plain twin of :func:`small_lml_value_grad`: X (n, D), Y (n, p) or
+    (n,), theta (T, E) → (values (E,), gradients (T, E))."""
+    Y2 = Y[:, None] if Y.dim() == 1 else Y
+    return _value_grad_plain(X[None], Y2[None], theta, family, n_ls, has_noise, jitter)
+
+
+def small_lml_value_grad_md_ref(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str = "rbf",
+                                n_ls: int = 1, has_noise: bool = True,
+                                jitter: float = 1e-10) -> Tuple[Tensor, Tensor]:
+    """Plain twin of :func:`small_lml_value_grad_md`: Xe (E, n, D), Ye
+    (E, n, p) or (E, n), theta (T, E) → ((E,), (T, E))."""
+    Ye3 = Ye[:, :, None] if Ye.dim() == 2 else Ye
+    return _value_grad_plain(Xe, Ye3, theta, family, n_ls, has_noise, jitter)
+
+
+# -- kernel wrappers --------------------------------------------------------
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(entry: str):
+    fn = getattr(_cuda.library("fused_lml"), entry)
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _on_card(*tensors: Tensor) -> bool:
+    """True when any input lies on a CUDA device: the kernel's route, which
+    then raises on inputs it does not take."""
+    return any(t.device.type == "cuda" for t in tensors)
+
+
+def _launch(name: str, entry: str, X: Tensor, Y: Tensor, theta: Tensor, family: str,
+            n_ls: int, has_noise: bool, jitter: float) -> Tuple[Tensor, Tensor]:
+    """Checks the card's inputs and launches ``entry`` once."""
+    device = theta.device
+    for t in (X, Y, theta):
+        if t.device != device:
+            raise ValueError(f"{name}: tensors on {t.device} and {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} takes float32 on the card, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous tensors")
+    n, D = X.shape[-2:]
+    if D > MAX_D:
+        raise ValueError(f"{name}: the kernel takes D <= {MAX_D}, got {D}")
+    E = theta.shape[1]
+    val = torch.empty(E, dtype=torch.float32, device=device)
+    grad = torch.empty(theta.shape, dtype=torch.float32, device=device)
+    if E == 0:
+        return val, grad
+    fn = _entry(entry)
+    with torch.cuda.device(device):
+        err = fn(X.data_ptr(), Y.data_ptr(), theta.data_ptr(), val.data_ptr(), grad.data_ptr(),
+                 n, D, Y.shape[-1], n_ls, int(has_noise), STATIONARY_FAMILIES.index(family),
+                 float(jitter), E, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    return val, grad
+
+
+def small_lml_value_grad(X: Tensor, Y: Tensor, theta: Tensor, family: str = "rbf",
+                         n_ls: int = 1, has_noise: bool = True,
+                         jitter: float = 1e-10) -> Tuple[Tensor, Tensor]:
+    """(LML values (E,), gradients (T, E)) of E lanes sharing X (n, D) and
+    Y (n, p) or (n,), at theta (T, E) in the canonical layout.
+
+    For CUDA tensors one launch of the kernel (float32, contiguous, n ≤ 32,
+    p ≤ 8, D ≤ 8); for CPU tensors the plain twin."""
+    Y2 = Y[:, None] if Y.dim() == 1 else Y
+    if X.dim() != 2 or Y2.dim() != 2 or Y2.shape[0] != X.shape[0]:
+        raise ValueError(f"small_lml_value_grad: X (n, D) and Y (n, p), got "
+                         f"{tuple(X.shape)} and {tuple(Y.shape)}")
+    _check_layout("small_lml_value_grad", X.shape[0], X.shape[1], Y2.shape[1], theta, family,
+                  n_ls, has_noise)
+    if not _on_card(X, Y2, theta):
+        return small_lml_value_grad_ref(X, Y2, theta, family, n_ls, has_noise, jitter)
+    out = _launch("small_lml_value_grad", "small_lml_value_grad_f32", X, Y2, theta, family,
+                  n_ls, has_noise, jitter)
+    small_lml_value_grad.launches += 1
+    return out
+
+
+small_lml_value_grad.launches = 0
+
+
+def small_lml_value_grad_md(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str = "rbf",
+                            n_ls: int = 1, has_noise: bool = True,
+                            jitter: float = 1e-10) -> Tuple[Tensor, Tensor]:
+    """(LML values (E,), gradients (T, E)) where lane e evaluates its own
+    dataset (Xe[e] (n, D), Ye[e] (n, p)) at theta[:, e].
+
+    For CUDA tensors one launch of the kernel (float32, contiguous, n ≤ 32,
+    p ≤ 8, D ≤ 8); for CPU tensors the plain twin."""
+    Ye3 = Ye[:, :, None] if Ye.dim() == 2 else Ye
+    if Xe.dim() != 3 or Ye3.dim() != 3 or Ye3.shape[:2] != Xe.shape[:2]:
+        raise ValueError(f"small_lml_value_grad_md: Xe (E, n, D) and Ye (E, n, p), got "
+                         f"{tuple(Xe.shape)} and {tuple(Ye.shape)}")
+    _check_layout("small_lml_value_grad_md", Xe.shape[1], Xe.shape[2], Ye3.shape[2], theta,
+                  family, n_ls, has_noise)
+    if theta.shape[1] != Xe.shape[0]:
+        raise ValueError(f"small_lml_value_grad_md: theta has {theta.shape[1]} lanes, the data "
+                         f"{Xe.shape[0]}")
+    if not _on_card(Xe, Ye3, theta):
+        return small_lml_value_grad_md_ref(Xe, Ye3, theta, family, n_ls, has_noise, jitter)
+    out = _launch("small_lml_value_grad_md", "small_lml_value_grad_md_f32", Xe, Ye3, theta,
+                  family, n_ls, has_noise, jitter)
+    small_lml_value_grad_md.launches += 1
+    return out
+
+
+small_lml_value_grad_md.launches = 0

@@ -11,14 +11,21 @@ source point set onto a target one and Ψ the GP on the residuals:
   one by one through the blocked Cholesky, the sizes between one by one
   through the dense path.
 
-``transport_apply`` accepts a GP and affine fit with or without a leading
-ensemble axis, so both entry points share it.  The public shapes are the
-JAX ones: every field is (Q, D), or (E, Q, D) batched, ``ori`` (…, Q, 4),
-and ``min_abs_det`` is () or (E,).
+* ``fit_and_transport_batched_opt`` for E targets with each member's
+  hyperparameters fitted to its own residuals first (the original
+  project's refit-per-transport behaviour at ensemble scale), through
+  ``models.exact_gp.fit_ensemble_fused``.
 
-Not here yet: the ``GaussianProcessTransportation`` façade and the
-per-member hyperparameter fit (``fit_and_transport_batched_opt``), which
-need the hyperparameter part of the port.
+``transport_apply`` accepts a GP and affine fit with or without a leading
+ensemble axis (and a kernel with per-member hyperparameters), so every
+entry point shares it.  The public shapes are the JAX ones: every field is
+(Q, D), or (E, Q, D) batched, ``ori`` (…, Q, 4), and ``min_abs_det`` is ()
+or (E,).
+
+``GaussianProcessTransportation`` is the original project's attribute
+protocol over ``transport.core.PolicyTransport`` and
+``models.gp_regressor.GaussianProcess``, on the card unless asked for the
+CPU.
 """
 from __future__ import annotations
 
@@ -31,9 +38,12 @@ from .. import kernels as K
 from ..models import affine as affine_core
 from ..models import exact_gp as gp_core
 from ..models.affine import AffineParams
+from ..models.gp_regressor import GaussianProcess
 from ..ops import quaternion as quat
 from ..ops.batched_linalg import spd_inverse_elast_auto
+from ..ops.fused_lml import MAX_N as FUSED_LML_MAX_N
 from ..ops.linalg import tri_solve_lower
+from .core import PolicyTransport
 
 
 def default_transport_kernel(
@@ -43,6 +53,47 @@ def default_transport_kernel(
     its lengthscale on ``device`` (the card unless the caller asks for the
     CPU)."""
     return K.Constant(0.1) * K.RBF(0.1 * torch.ones(d, dtype=dtype, device=device)) + K.White(1e-4)
+
+
+class GaussianProcessTransportation:
+    """The original project's transport protocol: set
+    ``source_distribution``, ``target_distribution``, ``training_traj`` and
+    optionally ``training_delta`` / ``training_ori`` (numpy arrays or
+    tensors), then ``fit_transportation()`` and ``apply_transportation()``,
+    which replaces those attributes by their transported values and sets
+    ``std`` and ``var_vel_transported``.
+
+    Every attribute is moved to ``device`` (the card unless the caller asks
+    for the CPU) in its own dtype.  ``gp_kwargs`` go to ``GaussianProcess``, whose default re-fits the
+    residual GP's hyperparameters (L-BFGS-B, 5 restarts) on every fit."""
+
+    def __init__(self, kernel_transport: Optional[K.Kernel] = None, device="cuda", **gp_kwargs):
+        self.device = torch.device(device)
+        kernel = kernel_transport
+        if kernel is None:
+            kernel = default_transport_kernel(device=self.device)
+        self.method = PolicyTransport(GaussianProcess(kernel=kernel, **gp_kwargs))
+
+    def _tensor(self, value) -> Tensor:
+        return torch.as_tensor(value, device=self.device)
+
+    def fit_transportation(self, do_scale: bool = False, do_rotation: bool = True):
+        self.method.fit(self._tensor(self.source_distribution),
+                        self._tensor(self.target_distribution),
+                        do_scale=do_scale, do_rotation=do_rotation)
+
+    def apply_transportation(self):
+        self.training_traj_old = self._tensor(self.training_traj)
+        self.training_traj, self.std = self.method.transport(self.training_traj_old)
+        if getattr(self, "training_delta", None) is not None:
+            self.training_delta, self.var_vel_transported = self.method.transport_velocity(
+                self.training_traj_old, self._tensor(self.training_delta))
+        if getattr(self, "training_ori", None) is not None:
+            self.training_ori = self.method.transport_orientation(
+                self.training_traj_old, self._tensor(self.training_ori))
+
+    def sample_transportation(self):
+        return self.method.sample_transportation(self.training_traj_old)
 
 
 class TransportResult(NamedTuple):
@@ -247,5 +298,56 @@ def fit_and_transport_batched(
 
     gp = gp_core.ExactGP(
         kernel=kernel, X=src_al, Y=delta_b, alpha=alpha_b, L=L_b, K_inv=Kinv_b, jitter=jitter
+    )
+    return transport_apply(aff_b, gp, traj, delta, ori=ori)
+
+
+def fit_and_transport_batched_opt(
+    kernel: K.Kernel,
+    source_distribution: Tensor,
+    target_distributions: Tensor,
+    traj: Tensor,
+    delta: Tensor,
+    n_restarts: int = 6,
+    maxiter: int = 30,
+    generator: Optional[torch.Generator] = None,
+    do_scale: bool = False,
+    do_rotation: bool = True,
+    jitter: float = 1e-10,
+    ori: Optional[Tensor] = None,
+) -> TransportResult:
+    """Batched multi-target transport with per-member hyperparameter
+    optimization: each member's residual dataset (γ_e(S), T_e − γ_e(S))
+    gets its own multi-restart L-BFGS fit through
+    ``models.exact_gp.fit_ensemble_fused`` (one launch of the fused-LML
+    kernel per line-search candidate on the card), then the transport runs
+    with the per-member kernels ``kernel.with_theta(thetas)`` through the
+    same conditioning as :func:`fit_and_transport_batched`: E Grams, one
+    launch of the Cholesky/inverse kernel, the batched ``transport_apply``.
+
+    ``generator`` draws the restarts (on the targets' device).  Needs the
+    C·stationary(+White) family and n ≤ 32 points per member."""
+    n, d = source_distribution.shape
+    if n > FUSED_LML_MAX_N:
+        raise ValueError(
+            "fit_and_transport_batched_opt needs n <= 32 distribution points (the fused "
+            "small-LML fit)")
+    aff_b = affine_core.fit_batched(
+        source_distribution, target_distributions, do_scale=do_scale, do_rotation=do_rotation
+    )
+    src_al = affine_core.predict(aff_b, source_distribution)  # (E, n, d)
+    delta_b = target_distributions - src_al
+
+    thetas, _ = gp_core.fit_ensemble_fused(kernel, src_al, delta_b, n_restarts=n_restarts,
+                                           generator=generator, jitter=jitter, maxiter=maxiter)
+    kernels_b = kernel.with_theta(thetas)
+
+    eff = gp_core._eff_jitter(src_al.dtype, jitter)
+    K_b = kernels_b(src_al) + eff * torch.eye(n, dtype=src_al.dtype, device=src_al.device)
+    L_e, Kinv_e = spd_inverse_elast_auto(K_b.permute(1, 2, 0).contiguous())  # (n, n, E)
+    Kinv_b = Kinv_e.permute(2, 0, 1)
+    gp = gp_core.ExactGP(
+        kernel=kernels_b, X=src_al, Y=delta_b, alpha=Kinv_b @ delta_b, L=L_e.permute(2, 0, 1),
+        K_inv=Kinv_b, jitter=jitter,
     )
     return transport_apply(aff_b, gp, traj, delta, ori=ori)

@@ -264,3 +264,84 @@ def test_batched_transport_of_large_members_launches_a_panel_each(device, monkey
     for name in ("traj", "std", "delta"):
         err = (getattr(got, name).double().cpu() - getattr(ref, name)).abs().max().item()
         assert err / scale < 1e-3, name
+
+
+# ---- the fused small-LML kernels (#2, #3) and their paths -------------------
+
+from gaussian_process_transportation_tpu_torch.ops import fused_lml as tfl  # noqa: E402
+from gaussian_process_transportation_tpu_torch.parallel import samplers as tsm  # noqa: E402
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_fused_lml_kernels_match_twins_and_the_f64_formula(device, family):
+    """Every phase-12 shape of the family, E ragged, to chip_smoke's bound."""
+    for case in chip_smoke.LML_CASES:
+        if case[0] == family:
+            for name, (diff, excess) in chip_smoke.check_lml_case(device, case, 37).items():
+                assert excess < 1 and diff < 1e-3, (name, case, diff, excess)
+
+
+def test_fused_lml_planted_faults_are_rejected(device):
+    assert min(chip_smoke.lml_faults(device, 1024).values()) > 10
+
+
+def test_fused_lml_repeat_runs_are_bitwise_equal(device):
+    for name, per_lane in (("small_lml_value_grad", False), ("small_lml_value_grad_md", True)):
+        X, Y, th = chip_smoke.lml_inputs(device, 1001, 20, 2, 2, 2, True, per_lane)
+        a = getattr(tfl, name)(X, Y, th, "matern52", 2, True)
+        b = getattr(tfl, name)(X, Y, th, "matern52", 2, True)
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_fused_lml_wrappers_refuse_what_the_kernels_do_not_take(device):
+    X, Y, th = chip_smoke.lml_inputs(device, 8, 10, 2, 1, 1, True, True)
+    md = tfl.small_lml_value_grad_md
+    md(X, Y, th)
+    X33, Y33, th33 = chip_smoke.lml_inputs(device, 8, 33, 2, 1, 1, True, True)
+    with pytest.raises(ValueError, match="n <= 32"):
+        md(X33, Y33, th33)
+    with pytest.raises(ValueError, match="p <= 8"):
+        md(X, Y.expand(8, 10, 9).contiguous(), th)
+    with pytest.raises(ValueError, match="theta"):
+        md(X, Y, th[:2])
+    with pytest.raises(ValueError, match="tensors on"):
+        md(X.cpu(), Y, th)
+    with pytest.raises(TypeError):
+        md(X.double(), Y.double(), th.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        md(X, Y, th.T.contiguous().T)
+    X9, Y9, th9 = chip_smoke.lml_inputs(device, 8, 10, 9, 1, 1, True, True)
+    with pytest.raises(ValueError, match="D <= 8"):
+        md(X9, Y9, th9)
+
+
+def _reset_lml_counts(monkeypatch):
+    for fn in (tfl.small_lml_value_grad, tfl.small_lml_value_grad_md,
+               tbl.spd_inverse_elast_fused):
+        monkeypatch.setattr(fn, "launches", 0)
+
+
+def test_batched_opt_transport_launches_the_fused_fit(device, monkeypatch):
+    _reset_lml_counts(monkeypatch)
+    X, dX, S, S1 = chip_smoke.make_workload(n_traj=50)
+    T = chip_smoke.fit_targets(S1, 16)
+    f32 = dict(dtype=torch.float32, device=device)
+    res = gpt.fit_and_transport_batched_opt(
+        chip_smoke.fit_kernel(**f32), *(torch.as_tensor(a, **f32) for a in (S, T, X, dX)),
+        n_restarts=2, maxiter=3)
+    torch.cuda.synchronize()
+    assert tfl.small_lml_value_grad_md.launches == 1 + 3 * 7
+    assert tbl.spd_inverse_elast_fused.launches == 1 and tfl.small_lml_value_grad.launches == 0
+    assert torch.isfinite(res.traj).all() and res.traj.shape == (16, 50, 2)
+
+
+def test_sample_gp_posterior_launches_the_fused_lml_each_leapfrog(device, monkeypatch):
+    _reset_lml_counts(monkeypatch)
+    X, Y = (torch.as_tensor(a, device=device) for a in chip_smoke.hmc_inputs())
+    kern = K.Constant(1.0) * K.RBF(torch.ones(2, device=device)) + K.White(0.01)
+    s, d = tsm.sample_gp_posterior(kern, X, Y, seed=1, num_chains=8, num_warmup=4, num_samples=4,
+                                   num_leapfrog=3)
+    torch.cuda.synchronize()
+    assert tfl.small_lml_value_grad.launches == 1 + 8 * 3
+    assert s.shape == (8, 4, 4) and torch.isfinite(s).all()

@@ -32,7 +32,7 @@ def pair(request):
     name, cache = request.param
     jk = JAX_KERNELS[name]()
     jg = jgp.condition(jk, jnp.asarray(X), jnp.asarray(Y), jitter=1e-8, cache_k_inv=cache)
-    tg = tgp.condition(kernel_from_tree(jk), torch.as_tensor(X), torch.as_tensor(Y),
+    tg = tgp.condition(kernel_from_tree(jk, device="cpu"), torch.as_tensor(X), torch.as_tensor(Y),
                        jitter=1e-8, cache_k_inv=cache)
     return jg, tg
 
@@ -91,7 +91,7 @@ def test_exact_gp_from_numpy_predicts_like_jax(pair):
     jg, _ = pair
     state = {k: None if getattr(jg, k) is None else np.asarray(getattr(jg, k))
              for k in ("X", "Y", "alpha", "L", "K_inv")}
-    tg = exact_gp_from_numpy(state, kernel_from_tree(jg.kernel))
+    tg = exact_gp_from_numpy(state, kernel_from_tree(jg.kernel, device="cpu"), device="cpu")
     jm, js = jgp.predict(jg, jnp.asarray(XQ), return_std=True)
     tm, ts = tgp.predict(tg, torch.as_tensor(XQ), return_std=True)
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=TOL, atol=TOL)
@@ -156,9 +156,9 @@ def blocked(request):
     jg = jgp.condition_blocked(jk, jnp.asarray(XB, jnp.float32), jnp.asarray(YB, jnp.float32),
                                block=128, interpret=True)
     f32 = dict(dtype=torch.float32)
-    tg32 = tgp.condition_blocked(kernel_from_tree(jk, torch.float32),
+    tg32 = tgp.condition_blocked(kernel_from_tree(jk, torch.float32, "cpu"),
                                  torch.as_tensor(XB, **f32), torch.as_tensor(YB, **f32), block=128)
-    tk64 = kernel_from_tree(jk)
+    tk64 = kernel_from_tree(jk, device="cpu")
     tg64 = tgp.condition_blocked(tk64, torch.as_tensor(XB), torch.as_tensor(YB), block=128)
     dense64 = tgp.condition(tk64, torch.as_tensor(XB), torch.as_tensor(YB))
     return jg, tg32, tg64, dense64
@@ -200,7 +200,8 @@ def test_exact_gp_from_numpy_carries_a_blocked_factor(blocked):
     jg = blocked[0]
     state = {k: np.asarray(getattr(jg, k)) for k in ("X", "Y", "alpha")}
     state["chol"] = jg.chol
-    tg = exact_gp_from_numpy(state, kernel_from_tree(jg.kernel, torch.float32), torch.float32)
+    tg = exact_gp_from_numpy(state, kernel_from_tree(jg.kernel, torch.float32, "cpu"), torch.float32,
+                             "cpu")
     assert tg.L is None and tg.chol.n == jg.chol.n and len(tg.chol.panels) == 3
     jm, js = jgp.predict(jg, jnp.asarray(XQB, jnp.float32), return_std=True)
     xq = torch.as_tensor(XQB, dtype=torch.float32)

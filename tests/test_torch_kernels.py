@@ -47,7 +47,7 @@ def _t(a):
 @pytest.mark.parametrize("name", sorted(JAX_KERNELS))
 def test_kernel_method_matches_jax(name, method):
     jk = JAX_KERNELS[name]()
-    tk = kernel_from_tree(jk)
+    tk = kernel_from_tree(jk, device="cpu")
     fn = METHODS[method]
     if name == "matern12" and method == "dxdz_diag":
         with pytest.raises(NotImplementedError):
@@ -91,3 +91,62 @@ def test_product_of_two_stationary_kernels_has_no_dxdz_diag_yet():
     k = TK.RBF(1.0) * TK.Matern(1.0, nu=2.5)
     with pytest.raises(NotImplementedError):
         k.dxdz_diag(_t(X))
+
+
+# ---- the hyperparameter vector -------------------------------------------
+
+THETA_KERNELS = {
+    "plain": lambda: JK.Constant(10.0) * JK.RBF(jnp.asarray(LS)) + JK.White(0.01),
+    "swapped_sum": lambda: JK.White(0.02, bounds=(1e-3, 1.0))
+    + JK.Constant(0.5, bounds=(1e-2, 1e2)) * JK.RBF(0.8),
+    "ard_matern_bounds": lambda: JK.Matern(jnp.asarray([1.0, 2.0, 0.5]), nu=2.5,
+                                           bounds=(1e-1, 1e1)) * JK.Constant(2.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(THETA_KERNELS))
+def test_theta_and_bounds_match_jax(name):
+    jk = THETA_KERNELS[name]()
+    tk = kernel_from_tree(jk, device="cpu")
+    np.testing.assert_allclose(tk.theta.numpy(), np.asarray(jk.theta), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(tk.theta_bounds.numpy(), np.asarray(jk.theta_bounds), rtol=TOL)
+    assert tk.n_theta == jk.n_theta
+    theta = np.asarray(jk.theta) + np.linspace(-0.5, 0.5, jk.n_theta)
+    want, got = jk.with_theta(jnp.asarray(theta)), tk.with_theta(_t(theta))
+    np.testing.assert_allclose(got.theta.numpy(), np.asarray(want.theta), rtol=TOL, atol=TOL)
+    x = rng.standard_normal((6, 3 if name == "ard_matern_bounds" else 2))
+    np.testing.assert_allclose(got(_t(x)).numpy(), np.asarray(want(jnp.asarray(x))), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("method", ["gram", "cross", "diag", "dx", "dxT", "dxdz_diag"])
+@pytest.mark.parametrize("name", ["c_rbf_white", "c_matern52_white", "rbf_iso_white"])
+def test_per_member_kernel_equals_member_kernels(name, method):
+    """with_theta((E, T)) gives one kernel whose hyperparameters carry the
+    E axis; it evaluates per-member points as E kernels would, and points
+    without the E axis as shared by every member."""
+    base = {"c_rbf_white": lambda: TK.Constant(10.0) * TK.RBF(_t(LS)) + TK.White(0.01),
+            "c_matern52_white": lambda: TK.Constant(0.1) * TK.Matern(_t(LS), nu=2.5)
+            + TK.White(1e-4),
+            "rbf_iso_white": lambda: TK.RBF(0.7) + TK.White(0.3)}[name]()
+    E = 3
+    thetas = _t(rng.uniform(-1.0, 1.0, (E, base.n_theta)))
+    kb = base.with_theta(thetas)
+    Xb, Zb = _t(rng.standard_normal((E, 5, 2))), _t(rng.standard_normal((E, 4, 2)))
+    fn = METHODS[method]
+    got = fn(kb, Xb, Zb)
+    shared = fn(kb, Xb[0], Zb[0])
+    for e in range(E):
+        one = base.with_theta(thetas[e])
+        torch.testing.assert_close(got[e], fn(one, Xb[e], Zb[e]), rtol=TOL, atol=TOL)
+        torch.testing.assert_close(shared[e], fn(one, Xb[0], Zb[0]), rtol=TOL, atol=TOL)
+
+
+def test_with_theta_keeps_a_tensor_leaf_dtype_and_follows_theta_device():
+    k = TK.Constant(2.0) * TK.RBF(torch.ones(2, dtype=torch.float32)) + TK.White(0.1)
+    assert k.theta.dtype == torch.float32
+    k2 = k.with_theta(torch.zeros(4, dtype=torch.float64))
+    assert k2.k1.k2.lengthscale.dtype == torch.float32
+    assert k2.k1.k1.constant_value.dtype == torch.float64
+    with pytest.raises(ValueError, match="entries"):
+        k.with_theta(torch.zeros(5))

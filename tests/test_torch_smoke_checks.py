@@ -36,3 +36,41 @@ def test_predict_check_rejects_planted_faults():
     faults = chip_smoke.planted_faults(Xq, gp.X, gp.alpha, gp.K_inv, torch.ones(2), 2.0, 2.1)
     assert set(faults) == {"var x2", "column tile 1 dropped"}
     assert min(faults.values()) > 10
+
+
+# ---- the fused-LML check of phases 12-14 -----------------------------------
+
+
+@pytest.mark.parametrize("family", chip_smoke.FAMILIES)
+def test_lml_check_passes_a_sound_f32_evaluation(family):
+    """The f32 twin (what the wrappers take on the CPU) against the per-lane
+    f64 formula, over the phase-12 shapes of the family, below half the
+    bound."""
+    for case in chip_smoke.LML_CASES:
+        if case[0] == family:
+            for name, (diff, excess) in chip_smoke.check_lml_case("cpu", case, 37).items():
+                assert diff == 0.0 and excess < 0.5, (name, case, excess)
+
+
+def test_lml_check_rejects_planted_faults():
+    faults = chip_smoke.lml_faults("cpu", 512)
+    assert set(faults) == {"amplitude gradient negated", "lanes 0 and 1 datasets swapped"}
+    assert min(faults.values()) > 10
+
+
+def test_lml_check_holds_at_the_hmc_chains_final_positions():
+    """Phase 14 holds kernel #2 at the chains' final positions to the same
+    bound; on the CPU the f32 twin of a short run reads below half of it."""
+    from gaussian_process_transportation_tpu_torch.models.exact_gp import small_lml_theta_layout
+    from gaussian_process_transportation_tpu_torch.ops import fused_lml as tfl
+    from gaussian_process_transportation_tpu_torch.parallel import samplers
+
+    X, Y = (torch.as_tensor(a) for a in chip_smoke.hmc_inputs())
+    kern = K.Constant(1.0) * K.RBF(torch.ones(2)) + K.White(0.01)
+    s, _ = samplers.sample_gp_posterior(kern, X, Y, seed=0, num_chains=32, num_warmup=24,
+                                        num_samples=8, num_leapfrog=8)
+    fam, n_ls, noise, perm = small_lml_theta_layout(kern)
+    th = s[:, -1, :][:, torch.as_tensor(perm)].T.contiguous()
+    v, g = tfl.small_lml_value_grad(X, Y, th, fam, n_ls, noise, 1e-10)
+    ref = chip_smoke.lml_f64(X[None], Y[None], th, fam, n_ls, noise, 1e-10)
+    assert max(chip_smoke.lml_excess(v, g, ref)) < 0.5

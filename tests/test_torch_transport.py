@@ -70,7 +70,7 @@ def case_2d():
                                           jnp.asarray(X), jnp.asarray(dX))
     want_one = jgpt.fit_and_transport(jk, jnp.asarray(S), jnp.asarray(targets[1]),
                                       jnp.asarray(X), jnp.asarray(dX))
-    args = (kernel_from_tree(jk), _t(S), _t(targets), _t(X), _t(dX))
+    args = (kernel_from_tree(jk, device="cpu"), _t(S), _t(targets), _t(X), _t(dX))
     return args, want, want_one
 
 
@@ -104,8 +104,8 @@ def test_batched_with_scale_matches_jax():
     jk = _jax_kernel(2, amp=1.0, ls=2.0)
     want = jgpt.fit_and_transport_batched(jk, jnp.asarray(S), jnp.asarray(targets),
                                           jnp.asarray(X), jnp.asarray(dX), do_scale=True)
-    got = tgpt.fit_and_transport_batched(kernel_from_tree(jk), _t(S), _t(targets), _t(X),
-                                         _t(dX), do_scale=True)
+    got = tgpt.fit_and_transport_batched(kernel_from_tree(jk, device="cpu"), _t(S), _t(targets),
+                                         _t(X), _t(dX), do_scale=True)
     _assert_result(got, want)
 
 
@@ -114,8 +114,8 @@ def test_3d_with_orientation_matches_jax():
     jk = _jax_kernel(3, amp=1.0, ls=1.5, noise=1e-3)
     want = jgpt.fit_and_transport_batched(jk, jnp.asarray(S), jnp.asarray(targets),
                                           jnp.asarray(X), jnp.asarray(dX), ori=jnp.asarray(ori))
-    got = tgpt.fit_and_transport_batched(kernel_from_tree(jk), _t(S), _t(targets), _t(X),
-                                         _t(dX), ori=_t(ori))
+    got = tgpt.fit_and_transport_batched(kernel_from_tree(jk, device="cpu"), _t(S), _t(targets),
+                                         _t(X), _t(dX), ori=_t(ori))
     assert got.ori.shape == (targets.shape[0], X.shape[0], 4)
     _assert_result(got, want)
 
@@ -136,7 +136,8 @@ def test_n80_per_member_branch_matches_jax():
     jk = JK.Constant(1.0) * JK.RBF(2.0 * jnp.ones(2)) + JK.White(0.01)
     want = jgpt.fit_and_transport_batched(jk, jnp.asarray(S), jnp.asarray(targets),
                                           jnp.asarray(X), jnp.asarray(dX))
-    got = tgpt.fit_and_transport_batched(kernel_from_tree(jk), _t(S), _t(targets), _t(X), _t(dX))
+    got = tgpt.fit_and_transport_batched(kernel_from_tree(jk, device="cpu"), _t(S), _t(targets),
+                                         _t(X), _t(dX))
     assert got.min_abs_det.shape == (2,)
     _assert_result(got, want)
 
@@ -153,7 +154,7 @@ def test_large_members_go_through_the_blocked_factor_like_the_dense_path(monkeyp
     X = 2.0 * rng.standard_normal((Q, 3))
     dX = np.zeros_like(X)
     dX[:-1] = np.diff(X, axis=0)
-    kern = kernel_from_tree(_jax_kernel(3, amp=2.0, ls=2.0))
+    kern = kernel_from_tree(_jax_kernel(3, amp=2.0, ls=2.0), device="cpu")
     seen = []
     real = tgpt.gp_core.condition_blocked
     monkeypatch.setattr(tgpt.gp_core, "condition_blocked",
@@ -182,7 +183,7 @@ def test_transport_apply_with_blocked_gp_matches_dense():
     from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
 
     S, S1, traj, delta, jk = _blocked_case()
-    kern = kernel_from_tree(jk)
+    kern = kernel_from_tree(jk, device="cpu")
     aff = taff.fit(_t(S), _t(S1))
     src = taff.predict(aff, _t(S))
     gp_b = tgp.condition_blocked(kern, src, _t(S1) - src, block=128)
@@ -209,8 +210,8 @@ def test_transport_apply_with_blocked_gp_matches_jax():
     want = jgpt.transport_apply(aff, jg, f(traj), f(delta))
     t32 = lambda a: torch.as_tensor(np.array(a), dtype=torch.float32)
     taff = affine_from_numpy({k: np.asarray(getattr(aff, k)) for k in (
-        "rotation", "scale", "source_centroid", "target_centroid")}, torch.float32)
-    tg = tgp.condition_blocked(kernel_from_tree(jk, torch.float32), t32(src),
+        "rotation", "scale", "source_centroid", "target_centroid")}, torch.float32, "cpu")
+    tg = tgp.condition_blocked(kernel_from_tree(jk, torch.float32, "cpu"), t32(src),
                                t32(np.asarray(f(S1) - src)), block=128)
     got = tgpt.transport_apply(taff, tg, t32(traj), t32(delta))
     for name in ("traj", "std", "delta", "delta_var"):
@@ -234,9 +235,10 @@ def test_transport_apply_carried_blocked_state_matches_jax():
     want = jgpt.transport_apply(aff, jg, f(traj), f(delta))
     state = {k: np.asarray(getattr(jg, k)) for k in ("X", "Y", "alpha")}
     state["chol"] = jg.chol
-    tg = exact_gp_from_numpy(state, kernel_from_tree(jk, torch.float32), torch.float32)
+    tg = exact_gp_from_numpy(state, kernel_from_tree(jk, torch.float32, "cpu"), torch.float32,
+                             "cpu")
     taff = affine_from_numpy({k: np.asarray(getattr(aff, k)) for k in (
-        "rotation", "scale", "source_centroid", "target_centroid")}, torch.float32)
+        "rotation", "scale", "source_centroid", "target_centroid")}, torch.float32, "cpu")
     t32 = lambda a: torch.as_tensor(np.array(a), dtype=torch.float32)
     got = tgpt.transport_apply(taff, tg, t32(traj), t32(delta))
     for name in ("traj", "std", "delta", "delta_var", "min_abs_det"):
@@ -281,3 +283,108 @@ def test_default_transport_kernel_lives_on_the_card_by_default():
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             tgpt.default_transport_kernel()
+
+
+# ---- hyperparameter fits under the transport --------------------------------
+
+
+def _opt_kernel():
+    """C(10)·RBF(4)+White(0.01) with the fit's bounds of ``chip_smoke.py``
+    phase 13: under the default (1e-5, 1e5) these smooth residuals drive
+    ℓ to 1e5 and the noise to 1e-5, where float32 fits diverge."""
+    return (JK.Constant(10.0, bounds=(1e-2, 1e2)) * JK.RBF(4.0 * jnp.ones(2), bounds=(1e-1, 1e1))
+            + JK.White(0.01, bounds=(1e-2, 1e1)))
+
+
+def _opt_case():
+    X, dX, S, S1 = _workload_2d(n_traj=40, n_dist=12)
+    E = 3
+    s = np.linspace(0, 1, 12)
+    targets = S1[None] + np.linspace(0.0, 2.0, E)[:, None, None] * np.stack(
+        [0 * s, np.sin(np.pi * s)], 1)[None]
+    return X, dX, S, targets
+
+
+def test_fit_and_transport_batched_opt_matches_jax():
+    X, dX, S, targets = _opt_case()
+    jk = _opt_kernel()
+    want = jgpt.fit_and_transport_batched_opt(jk, jnp.asarray(S), jnp.asarray(targets),
+                                              jnp.asarray(X), jnp.asarray(dX), n_restarts=0,
+                                              maxiter=8)
+    got = tgpt.fit_and_transport_batched_opt(kernel_from_tree(jk, device="cpu"), _t(S),
+                                             _t(targets), _t(X), _t(dX), n_restarts=0, maxiter=8)
+    scale = np.abs(X).max()
+    for name in FIELDS[:5]:
+        err = np.abs(getattr(got, name).numpy() - np.asarray(getattr(want, name))).max()
+        assert err / scale < 1e-3, (name, err)
+
+
+def test_batched_opt_equals_per_member_transport_at_the_fitted_kernels(monkeypatch):
+    X, dX, S, targets = _opt_case()
+    kern = kernel_from_tree(_opt_kernel(), device="cpu")
+    fitted = []
+    real = tgpt.gp_core.fit_ensemble_fused
+    monkeypatch.setattr(tgpt.gp_core, "fit_ensemble_fused",
+                        lambda *a, **k: fitted.append(real(*a, **k)) or fitted[-1])
+    got = tgpt.fit_and_transport_batched_opt(kern, _t(S), _t(targets), _t(X), _t(dX),
+                                             n_restarts=2, maxiter=6)
+    thetas = fitted[0][0]
+    assert thetas.shape == (3, kern.n_theta)
+    for e in range(3):
+        one = tgpt.fit_and_transport(kern.with_theta(thetas[e]), _t(S), _t(targets[e]), _t(X),
+                                     _t(dX))
+        for name in FIELDS[:5]:
+            torch.testing.assert_close(getattr(got, name)[e], getattr(one, name), rtol=1e-10,
+                                       atol=1e-10, msg=name)
+
+
+def _facade_pair(optimizer, ori=False, **kw):
+    """The JAX and the port façade driven through the same attributes."""
+    if ori:
+        X, dX, S, targets, q = _workload_3d(E=1)
+        S1, jk = targets[0], _jax_kernel(3, amp=1.0, ls=1.5, noise=1e-3)
+    else:
+        X, dX, S, S1 = _workload_2d(n_traj=60, n_dist=15)
+        q, jk = None, _jax_kernel(2)
+    j = jgpt.GaussianProcessTransportation(kernel_transport=jk, optimizer=optimizer, **kw)
+    t = tgpt.GaussianProcessTransportation(kernel_transport=kernel_from_tree(jk, device="cpu"),
+                                           device="cpu", optimizer=optimizer, **kw)
+    for tr, conv in ((j, jnp.asarray), (t, np.asarray)):
+        tr.source_distribution, tr.target_distribution = conv(S), conv(S1)
+        tr.training_traj, tr.training_delta = conv(X), conv(dX)
+        if ori:
+            tr.training_ori = conv(q)
+        tr.fit_transportation()
+        tr.apply_transportation()
+    return j, t, np.abs(X).max()
+
+
+FACADE_FIELDS = ("training_traj", "std", "training_delta", "var_vel_transported")
+
+
+@pytest.mark.parametrize("ori", [False, True], ids=["2d", "3d_orientation"])
+def test_facade_without_optimizer_matches_jax(ori):
+    j, t, _ = _facade_pair(None, ori=ori)
+    for name in FACADE_FIELDS + (("training_ori",) if ori else ()):
+        got = getattr(t, name)
+        assert got.device.type == "cpu", name
+        np.testing.assert_allclose(got.numpy(), np.asarray(getattr(j, name)), rtol=1e-10,
+                                   atol=1e-10, err_msg=name)
+    assert t.method.is_diffeomorphic == j.method.is_diffeomorphic
+
+
+def test_facade_with_lbfgs_matches_jax():
+    j, t, scale = _facade_pair("lbfgs", n_restarts_optimizer=0)
+    for name in FACADE_FIELDS:
+        err = np.abs(getattr(t, name).numpy() - np.asarray(getattr(j, name))).max()
+        assert err <= 1e-6 * scale, (name, err)
+    assert t.method.delta_map.kernel_ is not t.method.delta_map.kernel
+
+
+def test_facade_lives_on_the_card_by_default():
+    """Without a card the default device refuses rather than falling back."""
+    if torch.cuda.is_available():
+        assert tgpt.GaussianProcessTransportation().device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            tgpt.GaussianProcessTransportation()

@@ -25,24 +25,29 @@ Phases, one line each on stdout:
 7. those kernels against their twins on the card: ``factor_panel`` at
    B in {128, 256, 512} against numpy's f64 factor, ``stationary_gram``
    for the four families at ragged sizes, the fused predicts at the grid
-   size and a ragged one, per query against their formula in float64 on
-   the same inputs (tolerances and reasons in ``check_*`` and beside
-   ``VAR_REL``), and two planted faults of the variance that the check
-   must reject;
+   size, a ragged one and every Nq, N in {1, 127, 128, 129, 300} (the edges
+   of the mean-and-variance kernel's 128-wide tiles; D=3, P=2), per query
+   against their formula in float64 on the same inputs (tolerances and
+   reasons in ``check_*`` and beside ``VAR_REL``), two runs bitwise equal,
+   and two planted faults of the variance that the check must reject;
 8. the large-N solve ``gram_cholesky_solve`` at N=10240 (the bench's
    inputs): 20 panel launches, alpha against an f64 solve on the card,
-   TFLOP/s beside the card's f32 matmul rate, and cuSOLVER's dense
-   Cholesky at N in {4096, 10240};
+   TFLOP/s beside the card's f32 matmul rate, and the blocked path beside
+   cuSOLVER's dense Cholesky at N in {4096, 10240, 20480}, with the path
+   ``condition()`` takes at each;
 9. the slice's main path, the 3-D ensemble transport at the original
    project's surface scale (E=16 members of n=2500 points, Q=1000, D=3):
    80 panel launches, members 0 and 15 against the port's f64 dense run on
    the CPU;
 10. the dense-grid predicts (a 100x100 grid, N=2048): one launch of each
-    fused kernel, the result against the f64 dense path on the card;
+    fused kernel, as ``fused_predict_route`` says, the result against the
+    f64 dense path on the card;
 11. times of each kernel at the path's shapes, its twin and the nearest
     library call, each as the device time of the kernels the call launched
     (torch.profiler, mean of 5 after a warm-up) and as the CUDA-event time
-    of the call (median of 5), and of phases 8-10 end to end (CUDA events).
+    of the call (median of 5), the mean-and-variance kernel beside the dense
+    path at N in {512, 2048, 4096} with the one ``predict(return_std)``
+    takes at each, and phases 8-10 end to end (CUDA events).
     The kernels' record carries the device times (``"timing":
     "cupti_device"``) and the calls' CUDA-event times beside them;
 12. the fused small-LML kernels #2 and #3 (``csrc/fused_lml.cu``, built in
@@ -89,6 +94,9 @@ SOURCES = ("spd_inverse_elast", "factor_panel", "stationary_gram", "fused_lml")
 N_SOLVE, D_SOLVE, BLOCK = 10240, 3, 512
 E_3D, N_3D, Q_3D = 16, 2500, 1000
 NQ_GRID, N_GRID = 100, 2048
+TILE_EDGES = (1, 127, 128, 129, 300)  # around the mean-and-variance kernel's 128-wide tiles
+N_CHOL_ROUTE = (4096, N_SOLVE, 20480)  # condition()'s two paths are timed at these N
+N_VAR_ROUTE = (512, N_GRID, 4096)  # predict(return_std)'s two paths, at Nq = NQ_GRID^2
 FAMILIES = ("rbf", "matern12", "matern32", "matern52")
 
 # the fused predicts against their formula in float64, per query: the mean
@@ -432,14 +440,15 @@ def check_predicts(device, Xq, X, alpha, K_inv, ls, amp, prior, family):
 def planted_faults(Xq, X, alpha, K_inv, ls, amp, prior):
     """``check_predicts``'s variance bound must reject a wrong kernel: the
     variance doubled, and the variance with the partial sums of K⁻¹ column
-    tile 1 dropped (the kernel run on a K⁻¹ whose columns 64-127 are zero).
-    Returns each fault's error/bound ratio."""
+    tile 1 dropped (the kernel run on a K⁻¹ whose columns of that tile,
+    ``MEAN_VAR_TILE_B`` wide, are zero).  Returns each fault's error/bound
+    ratio."""
     from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
 
     ref = predict_f64(Xq, X, alpha, K_inv, ls, amp, prior, "rbf")
     mean, var = pg.fused_gp_predict_mean_var(Xq, X, alpha, K_inv, ls, amp, prior)
     K_drop = K_inv.clone()
-    K_drop[:, 64:128] = 0
+    K_drop[:, pg.MEAN_VAR_TILE_B:2 * pg.MEAN_VAR_TILE_B] = 0
     var_drop = pg.fused_gp_predict_mean_var(Xq, X, alpha, K_drop, ls, amp, prior)[1]
     faults = {"var x2": predict_excess(mean, 2 * var, ref)[1],
               "column tile 1 dropped": predict_excess(mean, var_drop, ref)[1]}
@@ -448,6 +457,26 @@ def planted_faults(Xq, X, alpha, K_inv, ls, amp, prior):
             raise AssertionError(f"the fused-variance check passes a planted fault, {name} "
                                  f"(error/bound {ex:.3g})")
     return faults
+
+
+def posterior_case(device, Nq, N, family, D=3, P=2, seed=6):
+    """Standard-normal queries (Nq, D) and the X, α and K⁻¹ of a GP
+    conditioned on N such points with Y = sin of their coordinates, so that
+    the variance is a posterior one; C(2)·family(ℓ)+White(0.05), float32.
+    Returns (Xq, X, alpha, K_inv, lengthscale, amplitude, prior)."""
+    from gaussian_process_transportation_tpu_torch import kernels as K
+    from gaussian_process_transportation_tpu_torch.models import exact_gp as gp_core
+
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    Xq = torch.as_tensor(rng.standard_normal((Nq, D)), **f32)
+    X = torch.as_tensor(rng.standard_normal((N, D)), **f32)
+    ls = torch.linspace(0.9, 1.4, D, **f32)
+    nu = {"rbf": None, "matern12": 0.5, "matern32": 1.5, "matern52": 2.5}[family]
+    base = K.RBF(ls) if nu is None else K.Matern(ls, nu=nu)
+    gp = gp_core.condition(K.Constant(2.0) * base + K.White(0.05), X,
+                           torch.sin(X[:, torch.arange(P) % D]), cache_k_inv=True)
+    return Xq, X, gp.alpha, gp.K_inv, ls, 2.0, 2.05
 
 
 # ---- workloads of phases 8-10 ----------------------------------------------
@@ -776,6 +805,9 @@ def main() -> None:
         print(f"build: {name} in {build_s:.2f} s, beside the others ({path.name}; ptxas: "
               + "; ".join(line.split(":", 1)[-1].strip() for line in log.splitlines()
                           if "registers" in line or "spill" in line)
+              + (f"; mean_var_kernel dynamic smem "
+                 f"{_cuda.library(name).predict_mean_var_smem_bytes()} bytes"
+                 if name == "stationary_gram" else "")
               + f") {tag}", flush=True)
     pool.shutdown()
 
@@ -798,7 +830,17 @@ def main() -> None:
     for fam in FAMILIES:
         pred_errs[(fam, 777, 301)] = check_predicts(device, Xqr, Xr, gp_r.alpha, gp_r.K_inv,
                                                     ones2, 2.0, 2.1, fam)
-    faults = planted_faults(Xqg, Xg, gp_grid.alpha, gp_grid.K_inv, ones2, 2.0, 2.1)
+    edge_excess = [0.0, 0.0]
+    for nq in TILE_EDGES:
+        for nn in TILE_EDGES:
+            out = check_predicts(device, *posterior_case(device, nq, nn, "rbf"), "rbf")
+            edge_excess = [max(a, b) for a, b in zip(edge_excess, out[2:])]
+    grid_args = (Xqg, Xg, gp_grid.alpha, gp_grid.K_inv, ones2, 2.0, 2.1)
+    run_a, run_b = pg.fused_gp_predict_mean_var(*grid_args), pg.fused_gp_predict_mean_var(*grid_args)
+    if not (torch.equal(run_a[0], run_b[0]) and torch.equal(run_a[1], run_b[1])):
+        raise AssertionError("two runs of fused_gp_predict_mean_var on the same inputs differ")
+    del run_a, run_b
+    faults = planted_faults(*grid_args)
     print("new kernels vs twins: factor_panel |kernel-twin| (rel err vs f64) "
           + ", ".join(f"B={B}: {e:.3g} ({r:.3g})" for B, (e, r) in fp_errs.items())
           + "; stationary_gram max " + f"{max(gram_errs.values()):.3g} over "
@@ -806,6 +848,8 @@ def main() -> None:
           + f"formula, bound mean {MEAN_REL:g}*sum|k alpha|, var {VAR_REL:g}*var64+{VAR_FLOOR:g}) "
           + ", ".join(f"{f} {nq}x{nn}: {a:.3g}/{b:.3g} ({c:.3g}/{d:.3g})"
                       for (f, nq, nn), (a, b, c, d) in pred_errs.items())
+          + f"; rbf D=3 P=2 at every Nq, N in {TILE_EDGES}: error/bound max "
+          + f"{edge_excess[0]:.3g}/{edge_excess[1]:.3g}; two runs bitwise equal"
           + "; planted faults rejected, error/bound "
           + ", ".join(f"{name} {ex:.3g}" for name, ex in faults.items())
           + f"; all within tolerance {tag}", flush=True)
@@ -842,17 +886,20 @@ def main() -> None:
         return torch.cholesky_solve(Y_, torch.linalg.cholesky(Kd))
 
     lib_ms = {}
-    for nn in (4096, N_SOLVE):
+    for nn in N_CHOL_ROUTE:
         Xn, Yn = solve_inputs(device, nn)
         lib_ms[nn] = (cuda_ms(lambda: solve_path(Xn, Yn))[0],
-                      cuda_ms(lambda: cusolver_path(Xn, Yn))[0])
+                      cuda_ms(lambda: cusolver_path(Xn, Yn))[0],
+                      "blocked" if nn >= gp_core.BLOCKED_CHOL_MIN_N else "dense")
+    del Xn, Yn
     print(f"large-N solve: gram_cholesky_solve N={n} D={D_SOLVE} block={BLOCK}: factor_panel "
           f"launches {counts8['factor_panel']}, stationary_gram {counts8['stationary_gram']}; "
           f"alpha rel err vs f64 {solve_err:.3g} (< 5e-3); {solve_ms:.4f} ms {solve_all} = "
           f"{tflops:.3f} TFLOP/s; f32 matmul 8192^2 {mm_tflops:.3f} TFLOP/s (TF32 off); "
           "blocked vs torch.linalg.cholesky+cholesky_solve (dense Gram included): "
-          + ", ".join(f"N={k}: {a:.4f} vs {b:.4f} ms" for k, (a, b) in lib_ms.items())
-          + f" {tag}", flush=True)
+          + ", ".join(f"N={k}: {a:.4f} vs {b:.4f} ms (condition() takes the {r} path)"
+                      for k, (a, b, r) in lib_ms.items())
+          + f"; BLOCKED_CHOL_MIN_N = {gp_core.BLOCKED_CHOL_MIN_N} {tag}", flush=True)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         solve_path()
         torch.cuda.synchronize()
@@ -903,6 +950,10 @@ def main() -> None:
           + prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), file=sys.stderr)
 
     # 10. dense-grid predicts
+    route = lambda n, std: gp_core.fused_predict_route(
+        "cuda", torch.float32, torch.float32, NQ_GRID**2, n, 2, Yg.shape[1], True, std)
+    if (route(N_GRID, False), route(N_GRID, True)) != ("mean", "mean_var"):
+        raise AssertionError("the grid shape no longer routes to the fused kernels")
     mean, counts_m = drive(lambda: gp_core.predict(gp_grid, Xqg))
     expect_launches("predict", counts_m, {"fused_gp_predict_mean": 1,
                                           "fused_gp_predict_mean_var": 0})
@@ -954,9 +1005,9 @@ def main() -> None:
     a_g, Ki_g = gp_grid.alpha, gp_grid.K_inv
     Nq, N, P, D = Xqg.shape[0], Xg.shape[0], a_g.shape[1], 2
 
-    def dense_mean_var():
-        k_star = kern_grid(Xqg, Xg)
-        return k_star @ a_g, kern_grid.diag(Xqg) - ((k_star @ Ki_g) * k_star).sum(-1)
+    def dense_mean_var(X_=Xg, a_=a_g, Ki_=Ki_g):
+        k_star = kern_grid(Xqg, X_)
+        return k_star @ a_, kern_grid.diag(Xqg) - ((k_star @ Ki_) * k_star).sum(-1)
 
     kernels_json["fused_gp_predict_mean"] = dict(
         source=f"{PKG}/csrc/stationary_gram.cu", replaces=f"{TPU_PKG}/ops/pallas_gram.py:43",
@@ -979,6 +1030,20 @@ def main() -> None:
     for v in kernels_json.values():
         v.update(timed(*v.pop("calls")))
 
+    # predict(return_std)'s two paths at Nq = 10^4: device ms of the kernel and
+    # of the dense path, and which one the route takes
+    var_ms = {N: (kernels_json["fused_gp_predict_mean_var"]["ms"][0],
+                  kernels_json["fused_gp_predict_mean_var"]["library_ms"][0])}
+    for nn in N_VAR_ROUTE:
+        if nn == N:
+            continue
+        Xn = torch.as_tensor(np.random.default_rng(nn).standard_normal((nn, 2)), **f32)
+        gp_n = gp_core.condition(kern_grid, Xn, torch.sin(Xn), cache_k_inv=True)
+        a_n, Ki_n = gp_n.alpha, gp_n.K_inv
+        var_ms[nn] = (device_ms(lambda: pg.fused_gp_predict_mean_var(Xqg, Xn, a_n, Ki_n, ones2,
+                                                                      2.0, 2.1)),
+                      device_ms(lambda: dense_mean_var(Xn, a_n, Ki_n)))
+    del gp_n, a_n, Ki_n
     pm_ms = cuda_ms(lambda: gp_core.predict(gp_grid, Xqg))[0]
     pv_ms = cuda_ms(lambda: gp_core.predict(gp_grid, Xqg, return_std=True))[0]
     fmt = lambda t: "-" if t is None else f"{t[0]:.4f}/{t[1]:.4f}"
@@ -987,6 +1052,11 @@ def main() -> None:
           + "; ".join(f"{name} {v['shape']}: kernel {fmt(v['ms'])}, twin {fmt(v['plain_ms'])}, "
                       f"library {fmt(v['library_ms'])}, bound {v['bound'][0]:.4f} by "
                       f"{v['bound'][1]}" for name, v in kernels_json.items())
+          + f"; fused_gp_predict_mean_var vs the dense path at Nq={Nq} (device ms): "
+          + ", ".join(f"N={nn}: {var_ms[nn][0]:.4f} vs {var_ms[nn][1]:.4f} (predict(return_std) "
+                      f"takes the {'kernel' if route(nn, True) else 'dense path'})"
+                      for nn in N_VAR_ROUTE)
+          + f", FUSED_MEAN_VAR_MAX_N = {gp_core.FUSED_MEAN_VAR_MAX_N}"
           + f"; end to end (CUDA events): phase 8 gram_cholesky_solve N={N_SOLVE} "
           f"{solve_ms:.4f} ms, phase 9 3-D ensemble {ens_ms:.4f} ms, phase 10 predict "
           f"{pm_ms:.4f} ms, predict(return_std) {pv_ms:.4f} ms {tag}", flush=True)

@@ -28,17 +28,33 @@
 //   N = 2048.
 // * predict_mean_var: the TPU kernel carried a (tile_q, N) row of
 //   W = k K^-1 in scratch across sequential grid steps; CUDA blocks run in
-//   no order and 64 x 2048 floats is 512 KB.  So a block owns a 64-query by
-//   64-column tile of W, loops over the training points a in chunks of 16
-//   (k tile and K^-1 tile in shared memory, a 4 x 4 register tile of W per
-//   thread), and closes its columns at once: partial[b_tile, q] =
-//   sum_{b in tile} W[q, b] k[q, b].  A second kernel adds the partials over
-//   the column tiles in a fixed order: no atomics, so repeated runs agree
-//   bitwise.  The mean is accumulated by the blocks of column tile 0.
-//   About 2 Nq N^2 FLOP: 84 GFLOP, 1.25 ms at Nq = 10^4, N = 2048.  Shared
-//   memory does not grow with N (about 21 KB a block), so unlike the TPU
-//   kernel there is no N cap; the limits are D <= 16 and P <= 8, the sizes
-//   of the per-thread coordinate and output arrays.
+//   no order, so a block owns a 128-query by 128-column tile of W and loops
+//   over the training points a in slices of 16.  About 2 Nq N^2 FLOP (84
+//   GFLOP, a 1.25 ms bound at Nq = 10^4, N = 2048) against 16 MB of K^-1:
+//   bound by the f32 FMA rate, so the design spends as few other instructions
+//   per FMA as it can:
+//   - 256 threads, an 8 x 8 register tile of W a thread, laid out as two
+//     groups of 4 neighbouring rows and columns, so the operands of 64 FMAs
+//     are four 16-byte shared-memory loads, free of bank conflicts;
+//   - two stages of operand slices in shared memory and one __syncthreads a
+//     slice: the K^-1 slice of step t + 1 arrives by cp.async (16 bytes a
+//     copy, zero-filled past N; 4 bytes a copy when the rows of K^-1 are not
+//     16-byte aligned) while the FMAs of step t run, and the k slice of
+//     step t + 1 (8 profile evaluations a thread) is computed between the
+//     copy's start and its wait;
+//   - each k entry is evaluated once per column tile, N / 128 times in all,
+//     and amortised over 128 FMAs; for D = 2 and D = 3 the kernel is compiled
+//     with the dimension fixed, so the distance unrolls and a thread's query
+//     stays in registers; other D read it at run time, which is slower.
+//   The block closes its columns at once: partial[b_tile, q] =
+//   sum_{b in tile} W[q, b] k[q, b], reduced in a fixed order inside the
+//   block.  A second kernel adds the partials over the column tiles in tile
+//   order: no atomics, so repeated runs agree bitwise.  The mean is
+//   accumulated by the blocks of column tile 0.  Shared memory does not grow
+//   with N (about 56 KB a block, two blocks an SM), so unlike the TPU kernel
+//   there is no N cap; the limits are D <= 16 and P <= 8, the sizes of the
+//   shared coordinate and output arrays.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -148,90 +164,180 @@ mean_kernel(const float* __restrict__ Xq, const float* __restrict__ X,
   }
 }
 
-// ---- predict_mean_var: 64 queries x 64 columns of K^-1, 256 threads -------
-constexpr int kVQ = 64, kVB = 64, kVA = 16, kVPad = 68;
+// ---- predict_mean_var: 128 queries x 128 columns of K^-1, 256 threads -----
+constexpr int kVQ = 128, kVB = 128, kVA = 16, kVThreads = 256;
 
-__global__ void __launch_bounds__(256)
+struct VarSmem {
+  float ks[2][kVA * kVQ];     // k slice, ks[a][q]; the epilogue's scratch
+  float kinv[2][kVA * kVB];   // K^-1 slice, kinv[a][b]
+  float xa[2][kVA * kDP];     // the slice's training points
+  float al[2][kVA * kMaxP];   // the slice's alpha rows (column tile 0 only)
+  float xq[kVQ * kDP];        // the block's queries
+  float xb[kVB * kDP];        // the training points of the block's columns
+  float mean[kVQ * kMaxP];    // mean accumulators (column tile 0 only)
+};
+
+// row or column g < 8 of a thread's register tile: two groups of 4 neighbours
+__device__ __forceinline__ int tile_index(int t, int g) { return 4 * t + (g & 3) + 64 * (g >> 2); }
+
+// kD > 0 fixes the dimension at compile time (the distance loops unroll and
+// a thread keeps its query's coordinates in registers); kD == 0 reads it
+// from D_any.
+template <int kD>
+__global__ void __launch_bounds__(kVThreads, 2)
 mean_var_kernel(const float* __restrict__ Xq, const float* __restrict__ X,
-                const float* __restrict__ alpha, const float* __restrict__ Kinv, int Nq, int N,
-                int D, int P, float amp, int family, float* __restrict__ mean,
+                const float* __restrict__ alpha, const float* __restrict__ Kinv, long long ldk,
+                int Nq, int N, int D_any, int P, float amp, int family, float* __restrict__ mean,
                 float* __restrict__ partial) {
-  __shared__ float xq_s[kVQ * kDP], xb_s[kVB * kDP], xa_s[kVA * kDP];
-  __shared__ float ks[kVA * kVPad], kinv_s[kVA * kVPad], al_s[kVA * kMaxP];
-  __shared__ float red[kVQ * 17];
+  const int D = kD > 0 ? kD : D_any;
+  extern __shared__ __align__(16) unsigned char var_smem_raw[];
+  VarSmem& s = *reinterpret_cast<VarSmem*>(var_smem_raw);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = blockIdx.x * kVQ, b0 = blockIdx.y * kVB;
   const bool with_mean = blockIdx.y == 0;
-  load_points(xq_s, Xq, q0, kVQ, Nq, D);
-  load_points(xb_s, X, b0, kVB, N, D);
-  float w[4][4] = {};
-  float macc[kMaxP];
-#pragma unroll
-  for (int p = 0; p < kMaxP; ++p) macc[p] = 0.f;
+  const bool aligned = reinterpret_cast<unsigned long long>(Kinv) % 16 == 0 && ldk % 4 == 0;
+  const int slices = (N + kVA - 1) / kVA;
 
-  for (int a0 = 0; a0 < N; a0 += kVA) {
-    __syncthreads();
-    load_points(xa_s, X, a0, kVA, N, D);
-    for (int e = tid; e < kVA * kVB; e += 256) {
-      const int a = e / kVB, b = e % kVB;
-      kinv_s[a * kVPad + b] = (a0 + a < N && b0 + b < N)
-                                  ? Kinv[static_cast<long long>(a0 + a) * N + b0 + b] : 0.f;
-    }
-    if (with_mean)
-      for (int e = tid; e < kVA * P; e += 256) {
-        const int a = e / P, p = e % P;
-        al_s[a * kMaxP + p] = (a0 + a < N) ? alpha[static_cast<long long>(a0 + a) * P + p] : 0.f;
+  // K^-1 rows [a0, a0 + 16) of the block's columns into stage st, as one
+  // group of asynchronous copies; entries past N are filled with 0
+  auto copy_kinv = [&](int st, int a0) {
+    if (aligned) {
+      const bool inside = a0 + kVA <= N && b0 + kVB <= N;
+      for (int e = tid; e < kVA * kVB / 4; e += kVThreads) {
+        const int a = e / (kVB / 4), c = 4 * (e % (kVB / 4));
+        const int row = a0 + a, col = b0 + c;
+        float* dst = &s.kinv[st][a * kVB + c];
+        if (inside) {
+          __pipeline_memcpy_async(dst, Kinv + row * ldk + col, 16);
+        } else {
+          const int valid = row < N ? min(max(N - col, 0), 4) : 0;
+          __pipeline_memcpy_async(dst, valid ? Kinv + row * ldk + col : Kinv, 16, 16 - 4 * valid);
+        }
       }
-    __syncthreads();
-    for (int e = tid; e < kVA * kVQ; e += 256) {
-      const int a = e / kVQ, qq = e % kVQ;
-      ks[a * kVPad + qq] = (a0 + a < N)
-                               ? amp * profile(sqdist(xq_s + qq * kDP, xa_s + a * kDP, D), family)
-                               : 0.f;
+    } else {
+      for (int e = tid; e < kVA * kVB; e += kVThreads) {
+        const int a = e / kVB, b = e % kVB;
+        const int row = a0 + a, col = b0 + b;
+        float* dst = &s.kinv[st][a * kVB + b];
+        if (row < N && col < N) {
+          __pipeline_memcpy_async(dst, Kinv + row * ldk + col, 4);
+        } else {
+          __pipeline_memcpy_async(dst, Kinv, 4, 4);
+        }
+      }
     }
-    __syncthreads();
+    __pipeline_commit();
+  };
+  // k(query, training point) of the slice whose points are in s.xa[st]:
+  // query tid % 128, every second training point
+  auto eval_k = [&](int st, int a0) {
+    const int q = tid % kVQ;
+    if (kD > 0) {
+      float xr[kD > 0 ? kD : 1];
+#pragma unroll
+      for (int d = 0; d < kD; ++d) xr[d] = s.xq[q * kDP + d];
+#pragma unroll
+      for (int i = 0; i < kVA * kVQ / kVThreads; ++i) {
+        const int a = tid / kVQ + i * (kVThreads / kVQ);
+        s.ks[st][a * kVQ + q] =
+            (a0 + a < N) ? amp * profile(sqdist(xr, s.xa[st] + a * kDP, kD), family) : 0.f;
+      }
+    } else {
+      for (int a = tid / kVQ; a < kVA; a += kVThreads / kVQ)
+        s.ks[st][a * kVQ + q] =
+            (a0 + a < N) ? amp * profile(sqdist(s.xq + q * kDP, s.xa[st] + a * kDP, D), family)
+                         : 0.f;
+    }
+  };
+  auto load_alpha = [&](int st, int a0) {
+    for (int e = tid; e < kVA * P; e += kVThreads) {
+      const int a = e / P, p = e % P;
+      s.al[st][a * kMaxP + p] =
+          (a0 + a < N) ? alpha[static_cast<long long>(a0 + a) * P + p] : 0.f;
+    }
+  };
+
+  load_points(s.xq, Xq, q0, kVQ, Nq, D);
+  load_points(s.xb, X, b0, kVB, N, D);
+  load_points(s.xa[0], X, 0, kVA, N, D);
+  load_points(s.xa[1], X, kVA, kVA, N, D);
+  if (with_mean) {
+    load_alpha(0, 0);
+    for (int e = tid; e < kVQ * kMaxP; e += kVThreads) s.mean[e] = 0.f;
+  }
+  copy_kinv(0, 0);
+  __syncthreads();
+  eval_k(0, 0);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  float w[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w[i][j] = 0.f;
+
+  // Step t multiplies stage t % 2 while stage (t + 1) % 2 is filled.  The one
+  // barrier at the end of a step orders both: what step t writes (the k,
+  // K^-1 and alpha of slice t + 1, the points of slice t + 2) lies in
+  // buffers whose last readers ran in step t - 1.
+  for (int t = 0; t < slices; ++t) {
+    const int cur = t & 1, nxt = cur ^ 1;
+    if (t + 1 < slices) {
+      copy_kinv(nxt, (t + 1) * kVA);
+      eval_k(nxt, (t + 1) * kVA);
+      if (with_mean) load_alpha(nxt, (t + 1) * kVA);
+    }
+    if (t + 2 < slices) load_points(s.xa[cur], X, (t + 2) * kVA, kVA, N, D);
 #pragma unroll
     for (int a = 0; a < kVA; ++a) {
-      float kv[4], iv[4];
+      const float4 k0 = *reinterpret_cast<const float4*>(&s.ks[cur][a * kVQ + 4 * ty]);
+      const float4 k1 = *reinterpret_cast<const float4*>(&s.ks[cur][a * kVQ + 64 + 4 * ty]);
+      const float4 i0 = *reinterpret_cast<const float4*>(&s.kinv[cur][a * kVB + 4 * tx]);
+      const float4 i1 = *reinterpret_cast<const float4*>(&s.kinv[cur][a * kVB + 64 + 4 * tx]);
+      const float kv[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+      const float iv[8] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) kv[i] = ks[a * kVPad + ty + 16 * i];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) iv[j] = kinv_s[a * kVPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[i][j] = fmaf(kv[i], iv[j], w[i][j]);
+        for (int j = 0; j < 8; ++j) w[i][j] = fmaf(kv[i], iv[j], w[i][j]);
     }
     if (with_mean && tid < kVQ)
-      for (int a = 0; a < kVA; ++a) {
-        const float kv = ks[a * kVPad + tid];
-#pragma unroll
-        for (int p = 0; p < kMaxP; ++p)
-          if (p < P) macc[p] = fmaf(kv, al_s[a * kMaxP + p], macc[p]);
+      for (int p = 0; p < P; ++p) {
+        float m = s.mean[tid * kMaxP + p];
+        for (int a = 0; a < kVA; ++a)
+          m = fmaf(s.ks[cur][a * kVQ + tid], s.al[cur][a * kMaxP + p], m);
+        s.mean[tid * kMaxP + p] = m;
       }
+    __pipeline_wait_prior(0);
+    __syncthreads();
   }
 
-  // close this block's columns: sum_b W[q, b] k[q, b]
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  // close this block's columns: sum_b W[q, b] k[q, b], first over a thread's
+  // 8 columns, then over the 16 threads of a row in a fixed order
+  float part[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    part[i] = 0.f;
+    const float* xq = s.xq + tile_index(ty, i) * kDP;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qq = ty + 16 * i, b = tx + 16 * j;
+    for (int j = 0; j < 8; ++j) {
+      const int b = tile_index(tx, j);
       if (b0 + b < N)
-        part[i] = fmaf(w[i][j],
-                       amp * profile(sqdist(xq_s + qq * kDP, xb_s + b * kDP, D), family),
-                       part[i]);
+        part[i] = fmaf(w[i][j], amp * profile(sqdist(xq, s.xb + b * kDP, D), family), part[i]);
     }
+  }
+  float* red = &s.ks[0][0];  // (128, 17) floats; every stage has been consumed
 #pragma unroll
-  for (int i = 0; i < 4; ++i) red[(ty + 16 * i) * 17 + tx] = part[i];
+  for (int i = 0; i < 8; ++i) red[tile_index(ty, i) * 17 + tx] = part[i];
   __syncthreads();
   if (tid < kVQ && q0 + tid < Nq) {
-    float s = 0.f;
-    for (int t = 0; t < 16; ++t) s += red[tid * 17 + t];
-    partial[static_cast<long long>(blockIdx.y) * Nq + q0 + tid] = s;
+    float sum = 0.f;
+    for (int t = 0; t < 16; ++t) sum += red[tid * 17 + t];
+    partial[static_cast<long long>(blockIdx.y) * Nq + q0 + tid] = sum;
     if (with_mean)
-      for (int p = 0; p < P; ++p) mean[static_cast<long long>(q0 + tid) * P + p] = macc[p];
+      for (int p = 0; p < P; ++p)
+        mean[static_cast<long long>(q0 + tid) * P + p] = s.mean[tid * kMaxP + p];
   }
 }
 
@@ -270,18 +376,31 @@ extern "C" int predict_mean_f32(const void* Xq, const void* X, const void* alpha
   return static_cast<int>(cudaGetLastError());
 }
 
-// partial is a (ceil(N / 64), Nq) float32 scratch buffer.
+// Dynamic shared memory of one block of the mean-and-variance kernel, which
+// ptxas does not report.
+extern "C" int predict_mean_var_smem_bytes() { return static_cast<int>(sizeof(VarSmem)); }
+
+// Kinv is (N, N) with unit column stride and row stride ldk (in floats), at
+// any alignment.  partial is a (ceil(N / tile_b), Nq) float32 scratch buffer
+// sized by the caller, who passes the column-tile width it sized it for:
+// another width than the kernel's is refused (cudaErrorInvalidValue).
 extern "C" int predict_mean_var_f32(const void* Xq, const void* X, const void* alpha,
-                                    const void* Kinv, int Nq, int N, int D, int P, float amp,
-                                    float prior, int family, void* mean, void* var,
-                                    void* partial, void* stream) {
+                                    const void* Kinv, long long ldk, int Nq, int N, int D, int P,
+                                    float amp, float prior, int family, void* mean, void* var,
+                                    void* partial, int tile_b, void* stream) {
+  if (tile_b != kVB) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int smem = static_cast<int>(sizeof(VarSmem));
   const int tiles = cdiv(N, kVB);
-  mean_var_kernel<<<dim3(cdiv(Nq, kVQ), tiles), 256, 0, s>>>(
+  auto kernel = D == 2 ? mean_var_kernel<2> : D == 3 ? mean_var_kernel<3> : mean_var_kernel<0>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(cdiv(Nq, kVQ), tiles), kVThreads, smem, s>>>(
       static_cast<const float*>(Xq), static_cast<const float*>(X),
-      static_cast<const float*>(alpha), static_cast<const float*>(Kinv), Nq, N, D, P, amp, family,
-      static_cast<float*>(mean), static_cast<float*>(partial));
-  cudaError_t err = cudaGetLastError();
+      static_cast<const float*>(alpha), static_cast<const float*>(Kinv), ldk, Nq, N, D, P, amp,
+      family, static_cast<float*>(mean), static_cast<float*>(partial));
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   combine_var_kernel<<<cdiv(Nq, 256), 256, 0, s>>>(static_cast<const float*>(partial), tiles, Nq,
                                                    prior, static_cast<float*>(var));

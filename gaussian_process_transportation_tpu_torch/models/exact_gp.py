@@ -74,10 +74,11 @@ def _eff_jitter(dtype: torch.dtype, jitter: float) -> float:
 
 
 # condition() takes the blocked Cholesky from this N, for float32 CUDA
-# tensors and a C·stationary(+White) kernel.  The value is the JAX
-# package's; the card's own crossover against torch.linalg.cholesky is
-# measured by chip_smoke.py (PERF.md) and not re-derived yet.
-BLOCKED_CHOL_MIN_N = 4096
+# tensors and a C·stationary(+White) kernel; below it, it takes
+# torch.linalg.cholesky.  On an NVIDIA H100 80GB HBM3 (700 W) chip_smoke.py
+# measured the blocked path slower than the dense one at every N it timed
+# (4096, 10240, 20480), so the value is twice the largest N measured.
+BLOCKED_CHOL_MIN_N = 40960
 
 
 def condition(
@@ -198,23 +199,45 @@ def _noise_std(kernel: Kernel, like: Tensor) -> Tensor:
 
 
 # predict() takes the fused kernels when the (Nq, N) Gram would have this
-# many elements or more (the JAX package's threshold).
+# many elements or more (the JAX package's threshold) and, for the
+# mean-and-variance kernel, N up to this one: the largest training size at
+# which chip_smoke.py measured the kernel no slower than the dense path
+# (k K⁻¹ through cuBLAS) at Nq = 10⁴ on an NVIDIA H100 80GB HBM3, 700 W.
+# It took 0.55 of the dense path's time at N = 512 and 0.90 at N = 2048,
+# and lost at N = 4096 (1.08): cuBLAS's product runs faster than the
+# kernel's, and the dense path's other passes weigh less as N grows.
 FUSED_PREDICT_MIN_ELEMS = 2**21
+FUSED_MEAN_VAR_MAX_N = 2048
 
 
-def _fused_predict_params(gp: ExactGP, x: Tensor):
-    """(family, amplitude, lengthscale) when predict() should take the
-    fused kernels: float32 CUDA tensors, 2-D x and X, a C·stationary(+White)
-    kernel and Nq·N ≥ ``FUSED_PREDICT_MIN_ELEMS``; None otherwise."""
-    if x.device.type != "cuda" or x.dim() != 2 or gp.X.dim() != 2:
+def fused_predict_route(device_type: str, x_dtype: torch.dtype, alpha_dtype: torch.dtype,
+                        Nq: int, N: int, D: int, P: int, has_k_inv: bool,
+                        return_std: bool) -> Optional[str]:
+    """Which fused kernel predict() takes for 2-D queries (Nq, D) on N
+    training points with P outputs: "mean", "mean_var", or None for the
+    dense path.  The kernels take float32 CUDA tensors, D ≤ ``MAX_D`` and
+    P ≤ ``MAX_P``, and pay from Nq·N ≥ ``FUSED_PREDICT_MIN_ELEMS``; the
+    std needs a cached K⁻¹ and N ≤ ``FUSED_MEAN_VAR_MAX_N``."""
+    if device_type != "cuda" or x_dtype != torch.float32 or alpha_dtype != torch.float32:
         return None
-    if x.dtype != torch.float32 or gp.alpha.dtype != torch.float32:
+    if Nq * N < FUSED_PREDICT_MIN_ELEMS or D > pallas_gram.MAX_D or P > pallas_gram.MAX_P:
         return None
-    if x.shape[0] * gp.X.shape[0] < FUSED_PREDICT_MIN_ELEMS:
+    if not return_std:
+        return "mean"
+    return "mean_var" if has_k_inv and N <= FUSED_MEAN_VAR_MAX_N else None
+
+
+def _fused_predict_params(gp: ExactGP, x: Tensor, return_std: bool = False):
+    """(route, family, amplitude, lengthscale) when predict() should take a
+    fused kernel (:func:`fused_predict_route`, 2-D x and X, a
+    C·stationary(+White) kernel); None otherwise."""
+    if x.dim() != 2 or gp.X.dim() != 2:
         return None
-    if x.shape[1] > pallas_gram.MAX_D or gp.alpha.shape[1] > pallas_gram.MAX_P:
-        return None
-    return stationary_family_params(gp.kernel)
+    route = fused_predict_route(x.device.type, x.dtype, gp.alpha.dtype, x.shape[0],
+                                gp.X.shape[0], x.shape[1], gp.alpha.shape[1],
+                                gp.K_inv is not None, return_std)
+    params = None if route is None else stationary_family_params(gp.kernel)
+    return None if params is None else (route, *params)
 
 
 def predict(
@@ -229,15 +252,14 @@ def predict(
     ``epistemic_only``, which subtracts sqrt(noise_level) as the original
     project does.
 
-    Dense grids on the card (see :func:`_fused_predict_params`) take the
+    Dense grids on the card (see :func:`fused_predict_route`) take the
     fused kernels, which never write the (Nq, N) Gram: the mean kernel, or
     with ``return_std`` and a cached K⁻¹ the mean-and-variance kernel."""
-    params = _fused_predict_params(gp, x)
-    if params is not None and not return_std:
-        fam, amp, ls = params
-        return pallas_gram.fused_gp_predict_mean(x, gp.X, gp.alpha, ls, amp, family=fam)
-    if params is not None and gp.K_inv is not None:
-        fam, amp, ls = params
+    fused = _fused_predict_params(gp, x, return_std)
+    if fused is not None:
+        route, fam, amp, ls = fused
+        if route == "mean":
+            return pallas_gram.fused_gp_predict_mean(x, gp.X, gp.alpha, ls, amp, family=fam)
         prior = amp + white_noise_level(gp.kernel)
         mean, var = pallas_gram.fused_gp_predict_mean_var(
             x, gp.X, gp.alpha, gp.K_inv, ls, amp, prior, family=fam)

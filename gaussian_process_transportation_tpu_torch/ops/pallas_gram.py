@@ -18,9 +18,9 @@ count their launches in ``<wrapper>.launches``; the twins take any dtype.
 
 The JAX gates on these kernels (N ≤ 4096 for the mean-and-variance kernel,
 a smaller ``tile_k`` past N = 2560) were TPU VMEM limits.  The CUDA kernels'
-shared memory does not grow with N or Nq (about 21 KB a block), so they
-have no such gate; their limits are D ≤ ``MAX_D`` and P ≤ ``MAX_P``, the
-sizes of the per-thread coordinate and output arrays.
+shared memory does not grow with N or Nq (at most about 56 KB a block), so
+they have no such gate; their limits are D ≤ ``MAX_D`` and P ≤ ``MAX_P``,
+the sizes of the kernels' coordinate and output arrays.
 """
 from __future__ import annotations
 
@@ -38,6 +38,10 @@ from . import _cuda
 STATIONARY_FAMILIES = ("rbf", "matern12", "matern32", "matern52")
 MAX_D = 16
 MAX_P = 8
+# K⁻¹ columns one block of the mean-and-variance kernel closes: the wrapper
+# sizes the kernel's scratch of partial variances by it and hands it to the
+# kernel, which refuses a width other than its own.
+MEAN_VAR_TILE_B = 128
 
 _SQRT3 = math.sqrt(3.0)
 _SQRT5 = math.sqrt(5.0)
@@ -110,9 +114,10 @@ _ARGTYPES = {
                          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                          ctypes.c_void_p, ctypes.c_void_p],
     "predict_mean_var_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                             ctypes.c_void_p],
 }
 
 
@@ -214,7 +219,9 @@ def fused_gp_predict_mean_var(Xq: Tensor, X: Tensor, alpha: Tensor, K_inv: Tenso
 
     For CUDA tensors one call of the fused kernel (its two CUDA launches:
     the tiles, then the fixed-order sum of their partial variances; float32
-    only).  For CPU tensors the twin."""
+    only).  K⁻¹ is read in place when its columns have unit stride, at any
+    row stride and alignment; another layout is copied first.  For CPU
+    tensors the twin."""
     if Xq.device.type != "cuda":
         return fused_gp_predict_mean_var_plain(Xq, X, alpha, K_inv, lengthscale, amplitude,
                                                prior_diag, family)
@@ -226,12 +233,14 @@ def fused_gp_predict_mean_var(Xq: Tensor, X: Tensor, alpha: Tensor, K_inv: Tenso
     mean = torch.empty(Nq, P, dtype=torch.float32, device=device)
     var = torch.empty(Nq, dtype=torch.float32, device=device)
     if Nq:
-        partial = torch.empty(-(-N // 64), Nq, dtype=torch.float32, device=device)
+        partial = torch.empty(-(-N // MEAN_VAR_TILE_B), Nq, dtype=torch.float32, device=device)
         Xqs, Xs = _kernel_points(Xq, lengthscale), _kernel_points(X, lengthscale)
-        a, Ki = alpha.contiguous(), K_inv.contiguous()
+        a = alpha.contiguous()
+        Ki = K_inv if K_inv.stride(1) == 1 else K_inv.contiguous()
         _call("predict_mean_var_f32", device, Xqs.data_ptr(), Xs.data_ptr(), a.data_ptr(),
-              Ki.data_ptr(), Nq, N, D, P, float(amplitude), float(prior_diag),
-              _family_code(family), mean.data_ptr(), var.data_ptr(), partial.data_ptr())
+              Ki.data_ptr(), Ki.stride(0), Nq, N, D, P, float(amplitude), float(prior_diag),
+              _family_code(family), mean.data_ptr(), var.data_ptr(), partial.data_ptr(),
+              MEAN_VAR_TILE_B)
         fused_gp_predict_mean_var.launches += 1
     return mean, var
 

@@ -135,7 +135,7 @@ def test_stationary_gram_matches_twin(device, family):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_fused_predicts_match_twins(device, family):
-    """Ragged Nq and N (neither a multiple of the 64-wide tiles).  Then,
+    """Ragged Nq and N (neither a multiple of the kernels' tiles).  Then,
     with the K⁻¹ of a conditioned GP so that the variance is a posterior
     one, per query against the same formula in float64 to
     ``chip_smoke.py``'s bounds."""
@@ -167,6 +167,51 @@ def test_fused_predicts_match_twins(device, family):
     assert max(ex_m, chip_smoke.predict_excess(m, var, ref)[0], ex_v) < 1
 
 
+TILE_EDGES = chip_smoke.TILE_EDGES  # around the mean-and-variance kernel's 128-wide tiles
+MEAN_VAR_CASES = ([(Nq, N, "rbf", 3) for Nq in TILE_EDGES for N in TILE_EDGES]
+                  + [(129, 300, fam, 3) for fam in FAMILIES[1:]]
+                  + [(129, 300, "rbf", D) for D in (1, 2, 5)])  # D = 2, 3 are compiled in
+
+
+@pytest.mark.parametrize("Nq,N,family,D", MEAN_VAR_CASES)
+def test_fused_mean_var_matches_the_f64_formula_at_the_tile_edges(device, Nq, N, family, D):
+    """Ragged on both axes, P=2: per query to ``chip_smoke.py``'s bounds."""
+    args = chip_smoke.posterior_case(device, Nq, N, family, D)
+    mean, var = tpg.fused_gp_predict_mean_var(*args, family)
+    torch.cuda.synchronize()
+    assert mean.shape == (Nq, 2) and var.shape == (Nq,)
+    assert max(chip_smoke.predict_excess(mean, var, chip_smoke.predict_f64(*args, family))) < 1
+
+
+def test_fused_mean_var_repeat_runs_are_bitwise_equal(device):
+    args = chip_smoke.posterior_case(device, 1000, 300, "matern52")
+    a = tpg.fused_gp_predict_mean_var(*args, "matern52")
+    b = tpg.fused_gp_predict_mean_var(*args, "matern52")
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("N", [300, 302])  # K⁻¹ rows 16-byte aligned when contiguous, and not
+@pytest.mark.parametrize("layout", ["offset_view", "padded_rows", "transposed"])
+def test_fused_mean_var_reads_any_k_inv_layout(device, N, layout):
+    """A K⁻¹ view whose rows do not start 16-byte aligned, one with padded
+    rows and a non-contiguous one give the result of a fresh contiguous copy."""
+    Xq, X, alpha, K_inv, ls, amp, prior = chip_smoke.posterior_case(device, 200, N, "rbf")
+    if layout == "offset_view":
+        view = torch.zeros(N, N + 1, device=device)[:, 1:]
+    elif layout == "padded_rows":
+        view = torch.zeros(N, (N + 7) // 4 * 4, device=device)[:, :N]  # rows aligned, tail ragged
+    else:
+        view = torch.zeros(N, N, device=device).T
+    view.copy_(K_inv)
+    assert view.is_contiguous() is False
+    fresh = view.contiguous()
+    got = tpg.fused_gp_predict_mean_var(Xq, X, alpha, view, ls, amp, prior)
+    want = tpg.fused_gp_predict_mean_var(Xq, X, alpha, fresh, ls, amp, prior)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(device):
     A = torch.eye(128, device=device)
     with pytest.raises(TypeError):
@@ -196,8 +241,7 @@ def _reset_counts(monkeypatch):
         monkeypatch.setattr(fn, "launches", 0)
 
 
-def test_condition_routes_large_n_through_the_panels(device, monkeypatch):
-    _reset_counts(monkeypatch)
+def _condition_4096(device):
     rng = np.random.default_rng(3)
     X = rng.standard_normal((4096, 3))
     Y = np.sin(X[:, :2])
@@ -205,11 +249,26 @@ def test_condition_routes_large_n_through_the_panels(device, monkeypatch):
     gp = tgp.condition(kern, torch.as_tensor(X, dtype=torch.float32, device=device),
                        torch.as_tensor(Y, dtype=torch.float32, device=device))
     torch.cuda.synchronize()
-    assert gp.L is None and gp.chol is not None
-    assert tbc.factor_panel.launches == 8 and tpg.stationary_gram.launches == 8
     d2 = ((X[:, None, :] - X[None, :, :]) ** 2).sum(-1)
     a64 = np.linalg.solve(2.0 * np.exp(-0.5 * d2) + (0.1 + 1e-6) * np.eye(4096), Y)
-    err = np.abs(gp.alpha.double().cpu().numpy() - a64).max() / np.abs(a64).max()
+    return gp, np.abs(gp.alpha.double().cpu().numpy() - a64).max() / np.abs(a64).max()
+
+
+def test_condition_routes_large_n_through_the_panels(device, monkeypatch):
+    _reset_counts(monkeypatch)
+    monkeypatch.setattr(tgp, "BLOCKED_CHOL_MIN_N", 4096)
+    gp, err = _condition_4096(device)
+    assert gp.L is None and gp.chol is not None
+    assert tbc.factor_panel.launches == 8 and tpg.stationary_gram.launches == 8
+    assert err < 5e-3
+
+
+def test_condition_below_the_threshold_takes_the_dense_factor(device, monkeypatch):
+    _reset_counts(monkeypatch)
+    assert tgp.BLOCKED_CHOL_MIN_N > 4096
+    gp, err = _condition_4096(device)
+    assert gp.L is not None and gp.chol is None
+    assert tbc.factor_panel.launches == 0 and tpg.stationary_gram.launches == 0
     assert err < 5e-3
 
 

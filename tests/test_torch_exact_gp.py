@@ -235,3 +235,39 @@ def test_predict_on_cpu_takes_the_dense_path(monkeypatch):
     mean, std = tgp.predict(gp, xq, return_std=True)
     assert torch.equal(mean, k(xq, X) @ gp.alpha)
     assert tpg.fused_gp_predict_mean.launches == tpg.fused_gp_predict_mean_var.launches == 0
+
+
+def test_route_thresholds_are_the_measured_ones():
+    """The routes' constants, as set from ``chip_smoke.py``'s readings on the
+    card: the blocked Cholesky lost to the dense one at every N timed up to
+    20480, and the mean-and-variance kernel won up to N=2048."""
+    assert tgp.BLOCKED_CHOL_MIN_N == 2 * 20480
+    assert tgp.FUSED_MEAN_VAR_MAX_N == 2048
+    assert tgp.FUSED_PREDICT_MIN_ELEMS == 2**21
+
+
+F32, F64 = torch.float32, torch.float64
+ROUTE_CASES = [
+    # device, x dtype, alpha dtype, Nq, N, D, P, has K⁻¹, return_std -> route
+    (("cuda", F32, F32, 10000, 2048, 2, 2, True, False), "mean"),
+    (("cuda", F32, F32, 10000, 2048, 2, 2, False, False), "mean"),
+    (("cuda", F32, F32, 10000, 2048, 2, 2, True, True), "mean_var"),
+    (("cuda", F32, F32, 10000, 512, 3, 1, True, True), "mean_var"),
+    (("cuda", F32, F32, 10000, 2048, 2, 2, False, True), None),  # no cached K⁻¹
+    (("cuda", F32, F32, 10000, 2049, 2, 2, True, True), None),  # past the measured crossover
+    (("cuda", F32, F32, 10000, 4096, 2, 2, True, False), "mean"),  # which binds the std only
+    (("cuda", F32, F32, 1000, 2048, 2, 2, True, True), None),  # Nq·N under the threshold
+    (("cuda", F32, F32, 1000, 2048, 2, 2, True, False), None),
+    (("cuda", F32, F32, 1024, 2048, 2, 2, True, True), "mean_var"),  # Nq·N at the threshold
+    (("cuda", F64, F64, 10000, 2048, 2, 2, True, True), None),  # the kernels are float32
+    (("cuda", F32, F64, 10000, 2048, 2, 2, True, False), None),
+    (("cuda", F32, F32, 10000, 2048, 17, 2, True, True), None),  # D past the kernels' MAX_D
+    (("cuda", F32, F32, 10000, 2048, 2, 9, True, False), None),  # P past the kernels' MAX_P
+    (("cpu", F32, F32, 10000, 2048, 2, 2, True, True), None),  # the twins are the dense path
+    (("cpu", F32, F32, 10000, 2048, 2, 2, True, False), None),
+]
+
+
+@pytest.mark.parametrize("args,want", ROUTE_CASES)
+def test_fused_predict_route(args, want):
+    assert tgp.fused_predict_route(*args) == want

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gaussian_process_transportation_tpu import kernels as JK
 from gaussian_process_transportation_tpu.models import exact_gp as jgp
 from gaussian_process_transportation_tpu.ops import pallas_gram as jpg
@@ -69,6 +70,36 @@ def test_fused_predict_mean_var_matches_jax(family):
     assert gv.shape == (41,)
     np.testing.assert_allclose(gm.numpy(), np.asarray(wm), atol=3e-4)
     np.testing.assert_allclose(np.sqrt(gv.numpy()), np.sqrt(np.asarray(wv)), atol=3e-4)
+
+
+TILE_EDGES = chip_smoke.TILE_EDGES  # around the CUDA kernel's 128-wide tiles
+
+
+@pytest.mark.parametrize("N", TILE_EDGES)
+@pytest.mark.parametrize("Nq", TILE_EDGES)
+def test_fused_predict_mean_var_matches_jax_at_the_tile_edges(Nq, N):
+    """The twin at the shapes the on-card tests hold the kernel at (ragged on
+    both axes, D=3, P=2) against the Pallas kernel in interpret mode.  Both
+    are float32 sums in another order: the mean, N terms, to 3e-4 absolute as
+    above; the variance, prior − N² terms that cancel, to the per-query
+    bound ``chip_smoke.py`` holds a float32 evaluation to (2e-2·var + 5e-4;
+    the std differs by up to 3.4e-4 at N=300)."""
+    rng = np.random.default_rng(6)
+    X, Xq = _f32(rng, N, 3), _f32(rng, Nq, 3)
+    Y = np.sin(X[:, :2])
+    ls = jnp.asarray([0.9, 1.15, 1.4])
+    gp = jgp.condition(JK.Constant(2.0) * JK.RBF(ls) + JK.White(0.05), jnp.asarray(X),
+                       jnp.asarray(Y), cache_k_inv=True)
+    alpha, K_inv = np.asarray(gp.alpha, np.float32), np.asarray(gp.K_inv, np.float32)
+    wm, wv = jpg.fused_gp_predict_mean_var(jnp.asarray(Xq), jnp.asarray(X), jnp.asarray(alpha),
+                                           jnp.asarray(K_inv), ls, 2.0, 2.05, tile_q=64,
+                                           tile_k=128, interpret=True)
+    gm, gv = tpg.fused_gp_predict_mean_var(_t(Xq), _t(X), _t(alpha), _t(K_inv),
+                                           _t(np.asarray(ls, np.float32)), 2.0, 2.05)
+    assert gm.shape == (Nq, 2) and gv.shape == (Nq,)
+    np.testing.assert_allclose(gm.numpy(), np.asarray(wm), atol=3e-4)
+    wv = np.asarray(wv)
+    assert (np.abs(gv.numpy() - wv) <= 2e-2 * wv + 5e-4).all()
 
 
 def test_mean_var_twin_clamps_at_zero():

@@ -31,6 +31,16 @@ def test_predict_check_passes_a_sound_f32_evaluation(family):
     assert ex_m < 0.5 and ex_v < 0.5
 
 
+@pytest.mark.parametrize("Nq,N", [(1, 1), (127, 129), (129, 300), (300, 128)])
+def test_predict_check_passes_the_twin_at_the_tile_edges(Nq, N):
+    """Phase 7's ragged shapes around the kernel's 128-wide tiles: the f32
+    twin reads below half the bound there too."""
+    args = chip_smoke.posterior_case("cpu", Nq, N, "rbf")
+    em, ev, ex_m, ex_v = chip_smoke.check_predicts("cpu", *args, "rbf")
+    assert em == 0.0 and ev == 0.0
+    assert ex_m < 0.5 and ex_v < 0.5
+
+
 def test_predict_check_rejects_planted_faults():
     gp, Xq = _grid_gp()
     faults = chip_smoke.planted_faults(Xq, gp.X, gp.alpha, gp.K_inv, torch.ones(2), 2.0, 2.1)

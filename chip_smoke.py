@@ -23,7 +23,9 @@ Phases, one line each on stdout:
 6. the builds of ``factor_panel`` and ``stationary_gram`` (seconds; ptxas
    registers and spills to stderr);
 7. those kernels against their twins on the card: ``factor_panel`` at
-   B in {128, 256, 512} against numpy's f64 factor, ``stationary_gram``
+   B in {128, 256, 512, 1024} against numpy's f64 factor (its device
+   launches per call and its one-CTA diagonal step's device time from the
+   profiler at B=512), ``stationary_gram``
    for the four families at ragged sizes, the fused predicts at the grid
    size, a ragged one and every Nq, N in {1, 127, 128, 129, 300} (the edges
    of the mean-and-variance kernel's 128-wide tiles; D=3, P=2), per query
@@ -54,9 +56,10 @@ Phases, one line each on stdout:
     phase 6) against their twins and, per lane, against the same formula in
     float64 (error over the bound of ``lml_f64``): four families × n in
     {8, 20, 32} × D in {2, 3} × p in {1, 3} × both lengthscale forms × noise
-    or not at a ragged E, and the paths' own E; two planted faults (the
-    amplitude gradient negated, two lanes' datasets swapped) must be
-    rejected;
+    or not at a ragged E, the shapes past the kernel's eight coordinates
+    or columns, (D, p) in {(12, 1), (2, 12), (12, 12)} at n in {20, 32},
+    and the paths' own E; two planted faults (the amplitude gradient
+    negated, two lanes' datasets swapped) must be rejected;
 13. the per-member-hyperopt transport ``fit_and_transport_batched_opt`` at
     E=4096, Q=400, n=20 (6 restarts, 30 L-BFGS iterations: 28,672 lanes,
     211 launches of #3, one of #1): every member's fitted LML (f64) at
@@ -64,8 +67,10 @@ Phases, one line each on stdout:
     their fitted kernels, fits/s and traj/s, peak memory;
 14. ``sample_gp_posterior`` at ``bench.py``'s hmc workload (256 chains,
     48+48 steps of 16 leapfrog: 1,537 launches of #2): finite samples, #2 at
-    the final positions against the f64 formula, posterior means against a
-    run through the twin, ``hmc_samples_per_s`` (median of 3);
+    the final positions against the f64 formula, a run of 64 chains equal
+    bit for bit to the first 64 of the 256 (each chain's draws depend on
+    its own index only), posterior means against a run through the twin,
+    ``hmc_samples_per_s`` (median of 3);
 15. the ``GaussianProcessTransportation`` façade on the card with the
     default L-BFGS-B fit: finite fields, a positive std, the fitted LML at
     least the initial one, its wall time; then the times of #2 and #3.
@@ -122,6 +127,10 @@ LML_VAL_REL, LML_GRAD_REL, LML_COND, LML_FLOOR = 1e-4, 1e-3, 4.0, 1e-30
 F32_EPS = 2.0**-24
 LML_CASES = [(fam, n, D, p, n_ls, noise) for fam in FAMILIES for n in (8, 20, 32)
              for D in (2, 3) for p in (1, 3) for n_ls in (1, D) for noise in (True, False)]
+# past the kernel's eight coordinates (chunked in the kernel) or columns (one
+# launch per eight, summed by the wrapper)
+LML_WIDE_CASES = [(fam, n, D, p, n_ls, True) for fam in FAMILIES for n in (20, 32)
+                  for D, p in ((12, 1), (2, 12), (12, 12)) for n_ls in (1, D)]
 E_LML_SMALL = 37  # ragged against the kernel's four lanes a block
 E_FIT, RESTARTS, MAXITER = 4096, 6, 30  # fit_and_transport_batched_opt (JAX's defaults)
 HMC_CHAINS, HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 256, 48, 48, 16  # bench.py:327-352
@@ -351,6 +360,34 @@ def gram_flops(rows, cols, D):
 
 # ---- phase 7: the new kernels against their twins -------------------------
 
+def panel_spd(B):
+    """A Aᵀ + B·I from a standard-normal A (seed B), float32 numpy."""
+    A = np.random.default_rng(B).standard_normal((B, B))
+    return (A @ A.T + B * np.eye(B)).astype(np.float32)
+
+
+def panel_profile(A):
+    """``factor_panel`` on the card traced over REPS calls after a warm-up
+    (torch.profiler): (device launches per call, device ms per launch of
+    its one-CTA diagonal step ``diag_kernel``).  A trace that records no
+    diagonal step is taken again, as in ``device_ms``; twice raises."""
+    from gaussian_process_transportation_tpu_torch.ops.blocked_chol import factor_panel
+
+    factor_panel(A)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                factor_panel(A)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        diag = [e for e in rows if "diag_kernel" in e.key]
+        if diag:
+            return (sum(e.count for e in rows) / REPS,
+                    sum(e.self_device_time_total for e in diag) / sum(e.count for e in diag) / 1e3)
+    raise AssertionError("torch.profiler recorded no launch of factor_panel's diag_kernel")
+
+
 def check_factor_panel(device, B):
     """L and L⁻¹ against numpy's f64 factor to 5e-6 relative (the JAX
     kernel's bound, tests/test_blocked_chol.py:28-29), exact zeros above the
@@ -359,9 +396,7 @@ def check_factor_panel(device, B):
         factor_panel, factor_panel_plain,
     )
 
-    rng = np.random.default_rng(B)
-    A = rng.standard_normal((B, B))
-    K = (A @ A.T + B * np.eye(B)).astype(np.float32)
+    K = panel_spd(B)
     Kd = torch.as_tensor(K, device=device)
     L, Linv = factor_panel(Kd)
     L0, Linv0 = factor_panel_plain(Kd)
@@ -812,7 +847,7 @@ def main() -> None:
     pool.shutdown()
 
     # 7. the new kernels against their twins
-    fp_errs = {B: check_factor_panel(device, B) for B in (128, 256, 512)}
+    fp_errs = {B: check_factor_panel(device, B) for B in (128, 256, 512, 1024)}
     gram_errs = {(fam, N, M): check_gram(device, N, M, 3, fam)
                  for fam in FAMILIES for (N, M) in ((1037, 531), (10240, 512))}
     Xg, Yg, Xqg = (torch.as_tensor(a, **f32) for a in grid_inputs())
@@ -841,8 +876,12 @@ def main() -> None:
         raise AssertionError("two runs of fused_gp_predict_mean_var on the same inputs differ")
     del run_a, run_b
     faults = planted_faults(*grid_args)
+    fp_launches, fp_diag_ms = panel_profile(torch.as_tensor(panel_spd(BLOCK), device=device))
     print("new kernels vs twins: factor_panel |kernel-twin| (rel err vs f64) "
           + ", ".join(f"B={B}: {e:.3g} ({r:.3g})" for B, (e, r) in fp_errs.items())
+          + f" (< 5e-6, exact zeros above the diagonal); at B={BLOCK} {fp_launches:g} device "
+          f"launches per call, its diag_kernel {fp_diag_ms:.4f} ms a launch (CUPTI, mean of "
+          f"{BLOCK // bc.SUB_BLOCK * REPS})"
           + "; stationary_gram max " + f"{max(gram_errs.values()):.3g} over "
           + f"{len(gram_errs)} cases; fused mean/var |kernel-twin| max (error/bound vs the f64 "
           + f"formula, bound mean {MEAN_REL:g}*sum|k alpha|, var {VAR_REL:g}*var64+{VAR_FLOOR:g}) "
@@ -1068,7 +1107,7 @@ def main() -> None:
         for name, (diff, ex) in out.items():
             lml_errs[name] = [max(lml_errs[name][0], diff), max(lml_errs[name][1], ex)]
 
-    for case in LML_CASES:
+    for case in LML_CASES + LML_WIDE_CASES:
         note(check_lml_case(device, case, E_LML_SMALL))
     main_cases = {"small_lml_value_grad": ("rbf", N_MAIN, 2, 1, 2, True),
                   "small_lml_value_grad_md": ("rbf", N_MAIN, 2, 2, 2, True)}
@@ -1082,7 +1121,9 @@ def main() -> None:
     lml_fault = lml_faults(device, E_FIT)
     print(f"fused LML kernels vs twins and the f64 formula (bound {LML_VAL_REL:g}*value terms, "
           f"{LML_GRAD_REL:g}*gradient terms) over {len(LML_CASES)} cases (4 families, n in "
-          f"8/20/32, D 2/3, p 1/3, both n_ls, noise or not) at E={E_LML_SMALL} and the paths' E "
+          f"8/20/32, D 2/3, p 1/3, both n_ls, noise or not) and {len(LML_WIDE_CASES)} past eight "
+          f"coordinates or columns (D, p in 12/1, 2/12, 12/12, n 20/32, both n_ls) at "
+          f"E={E_LML_SMALL} and the paths' E "
           + ", ".join(f"{lanes[k]} and {lanes[k] + 3}" for k in lanes) + ": "
           + ", ".join(f"{k} |kernel-twin| max {d:.3g}, error/bound max {ex:.3g}"
                       for k, (d, ex) in lml_errs.items())
@@ -1189,6 +1230,11 @@ def main() -> None:
                                         1e-10))
     if not max(ex14) < 1:
         raise AssertionError(f"kernel #2 at the chains' final positions: error/bound {ex14}")
+    s64, _ = samplers.sample_gp_posterior(kern14, X14, Y14, seed=0,
+                                          **dict(hmc_kw, num_chains=HMC_CHAINS // 4))
+    if not torch.equal(s64, s14[:HMC_CHAINS // 4]):
+        raise AssertionError(f"a run of {HMC_CHAINS // 4} chains differs from the first "
+                             f"{HMC_CHAINS // 4} of {HMC_CHAINS}")
     s_twin, _ = hmc_path(use_kernel=False)
     m_k = s14.reshape(-1, 4).double().mean(0)
     flat_t = s_twin.reshape(-1, 4).double()
@@ -1202,7 +1248,8 @@ def main() -> None:
           f"{HMC_SAMPLES} steps of {HMC_LEAPFROG} leapfrog, n=20 D=2 p=1 f32: "
           f"small_lml_value_grad launches {counts14['small_lml_value_grad']}; samples finite; "
           f"kernel at the final positions error/bound vs f64 value {ex14[0]:.3g}, gradient "
-          f"{ex14[1]:.3g}; posterior means {[round(v, 4) for v in m_k.tolist()]} vs the twin "
+          f"{ex14[1]:.3g}; {HMC_CHAINS // 4} chains alone equal the first {HMC_CHAINS // 4} of "
+          f"{HMC_CHAINS} bit for bit; posterior means {[round(v, 4) for v in m_k.tolist()]} vs the twin "
           f"run's {[round(v, 4) for v in m_t.tolist()]} (within 0.8*sd+0.3); mean accept "
           f"{d14['mean_accept'].mean().item():.4f}; {hmc_ms:.4f} ms {hmc_all} (median of 3, "
           f"CUDA events) = hmc_samples_per_s {HMC_CHAINS * HMC_SAMPLES / (hmc_ms / 1e3):.1f}; "

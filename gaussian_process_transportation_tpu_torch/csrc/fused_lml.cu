@@ -32,8 +32,17 @@
 // solved entry broadcast by __shfl_sync, K^-1 is solved one column per
 // thread against L, and the gradient is a row sum per thread closed by a
 // fixed-order warp reduction, so runs are bitwise repeatable.  One kernel
-// serves every n <= 32, D <= 8, p <= 8 and family (runtime arguments, no
-// template per shape).  A lane whose pivot goes non-positive turns its own
+// serves every n <= 32, D, p <= 8 and family (runtime arguments, no
+// template per shape).  Up to kMaxD = 8 coordinates the points sit in
+// shared memory whole; past that the Gram and gradient passes walk the
+// coordinates in chunks of kMaxD through the same buffer: the Gram pass
+// sums the scaled distance s over every chunk (in the row of K it will
+// become) before phi(s), and the gradient pass sums s again into the rows
+// of L, which are free by then, replaces it by W_tj dK_tj/ds, and then
+// reduces the lengthscale gradient chunk by chunk.  So the shared memory
+// a block takes does not grow with D.  A wider Y is split into launches of
+// at most kMaxP columns by the wrapper (ops/fused_lml.py), whose values and
+// gradients add up.  A lane whose pivot goes non-positive turns its own
 // value and gradient into NaN and nothing else; the callers map that to
 // 1e25.
 //
@@ -101,6 +110,49 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Coordinates [c0, c0 + kMaxD) of the lane's points into w.x (zeros past
+// D) and their 1 / l_d^2 into il (zeros past D), for D > kMaxD.  The first
+// __syncwarp lets every thread finish reading the previous chunk.
+__device__ __forceinline__ void stage_chunk(LaneScratch& w, const float* x, const float* theta,
+                                            long long E, long long e, int D, int n_ls, int c0,
+                                            int t, bool row, float il[kMaxD]) {
+#pragma unroll
+  for (int d = 0; d < kMaxD; ++d)
+    il[d] = c0 + d < D ? expf(-2.0f * theta[(1 + (n_ls > 1 ? c0 + d : 0)) * E + e]) : 0.0f;
+  __syncwarp();
+  if (row) {
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) w.x[t][d] = c0 + d < D ? x[t * D + c0 + d] : 0.0f;
+  }
+  __syncwarp();
+}
+
+// rowbuf[j] = s(t, j) = sum over every coordinate of (x_t,d - x_j,d)^2 / l_d^2,
+// chunk by chunk (D > kMaxD); rowbuf is row t of a lane matrix, which only
+// thread t touches here.
+__device__ __forceinline__ void scaled_dist_row(LaneScratch& w, float* rowbuf, const float* x,
+                                                const float* theta, long long E, long long e,
+                                                int n, int D, int n_ls, int t, bool row) {
+  float il[kMaxD];
+  for (int c0 = 0; c0 < D; c0 += kMaxD) {
+    stage_chunk(w, x, theta, E, e, D, n_ls, c0, t, row, il);
+    if (row) {
+      for (int j = 0; j < n; ++j) {
+        float s = c0 ? rowbuf[j] : 0.0f;
+#pragma unroll
+        for (int d = 0; d < kMaxD; ++d) {
+          const float diff = w.x[t][d] - w.x[j][d];
+          s += diff * diff * il[d];
+        }
+        rowbuf[j] = s;
+      }
+    }
+  }
+}
+
+// kChunked: D > kMaxD, the coordinates walked in chunks; the D <= kMaxD
+// instance compiles without that code, so it keeps its registers.
+template <bool kChunked>
 __global__ void __launch_bounds__(kWarps * 32)
 lml_kernel(const float* __restrict__ X, const float* __restrict__ Y,
            const float* __restrict__ theta, float* __restrict__ val,
@@ -136,7 +188,16 @@ lml_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   __syncwarp();
 
   // Gram row t
-  if (row) {
+  if (kChunked) {
+    scaled_dist_row(w, w.A[t], x, theta, E, e, n, D, n_ls, t, row);
+    if (row) {
+      for (int j = 0; j < n; ++j) {
+        float ph, dph;
+        phi_dphi(w.A[t][j], family, &ph, &dph);
+        w.A[t][j] = amp * ph + (t == j ? noise + jitter : 0.0f);
+      }
+    }
+  } else if (row) {
     for (int j = 0; j < n; ++j) {
       float s = 0.0f;
 #pragma unroll
@@ -229,6 +290,62 @@ lml_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   __syncwarp();
 
   // gradient: row t of W = 1/2 (alpha alpha^T - p K^-1) against dK/dtheta
+  if (kChunked) {
+    // s of row t into row t of L (no longer read), then W_tj amp dphi_tj there
+    float g_amp = 0.0f, g_noise = 0.0f, g_iso = 0.0f;
+    scaled_dist_row(w, w.A[t], x, theta, E, e, n, D, n_ls, t, row);
+    if (row) {
+      for (int j = 0; j < n; ++j) {
+        float ph, dph;
+        phi_dphi(w.A[t][j], family, &ph, &dph);
+        float aa = 0.0f;
+#pragma unroll
+        for (int q = 0; q < kMaxP; ++q) {
+          if (q < p) aa += z[q] * w.al[j][q];
+        }
+        const float wtj = 0.5f * (aa - p * w.B[t][j]);
+        g_amp += wtj * (amp * ph);
+        w.A[t][j] = wtj * (amp * dph);
+        if (j == t) g_noise += wtj;
+      }
+    }
+    g_amp = warp_sum(g_amp);
+    g_noise = warp_sum(g_noise);
+    float il[kMaxD];
+    for (int c0 = 0; c0 < D; c0 += kMaxD) {
+      stage_chunk(w, x, theta, E, e, D, n_ls, c0, t, row, il);
+      float gl[kMaxD];
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d) gl[d] = 0.0f;
+      if (row) {
+        for (int j = 0; j < n; ++j) {
+          const float wdk = w.A[t][j];
+#pragma unroll
+          for (int d = 0; d < kMaxD; ++d) {
+            const float diff = w.x[t][d] - w.x[j][d];
+            gl[d] += wdk * (diff * diff);
+          }
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d) {
+        if (c0 + d < D) {
+          gl[d] = warp_sum(gl[d]);
+          if (n_ls > 1) {
+            if (t == 0) grad[(1 + c0 + d) * E + e] = gl[d] * (-2.0f * il[d]);
+          } else {
+            g_iso += gl[d];
+          }
+        }
+      }
+    }
+    if (t == 0) {
+      grad[e] = g_amp;
+      if (n_ls == 1) grad[E + e] = g_iso * (-2.0f * inv_ls2[0]);
+      if (has_noise) grad[(1 + n_ls) * E + e] = noise * g_noise;
+    }
+    return;
+  }
   float g_amp = 0.0f, g_noise = 0.0f;
   float g_ls[kMaxD];
 #pragma unroll
@@ -288,8 +405,8 @@ int launch(const void* X, const void* Y, const void* theta, void* val, void* gra
            int D, int p, int n_ls, int has_noise, int family, float jitter, long long E,
            long long x_stride, long long y_stride, void* stream) {
   const long long blocks = (E + kWarps - 1) / kWarps;
-  lml_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0,
-               static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = D > kMaxD ? lml_kernel<true> : lml_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(X), static_cast<const float*>(Y),
       static_cast<const float*>(theta), static_cast<float*>(val), static_cast<float*>(grad),
       n, D, p, n_ls, has_noise, family, jitter, E, x_stride, y_stride);
@@ -300,7 +417,7 @@ int launch(const void* X, const void* Y, const void* theta, void* val, void* gra
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // Contiguous float32 device buffers: X (n, D), Y (n, p), theta (T, E),
-// val (E,), grad (T, E) with T = 1 + n_ls + has_noise; n <= 32, D <= 8,
+// val (E,), grad (T, E) with T = 1 + n_ls + has_noise; n <= 32, any D,
 // p <= 8; family 0 rbf, 1 matern12, 2 matern32, 3 matern52.
 extern "C" int small_lml_value_grad_f32(const void* X, const void* Y, const void* theta,
                                         void* val, void* grad, int n, int D, int p, int n_ls,

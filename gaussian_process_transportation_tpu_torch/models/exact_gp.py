@@ -75,10 +75,13 @@ def _eff_jitter(dtype: torch.dtype, jitter: float) -> float:
 
 # condition() takes the blocked Cholesky from this N, for float32 CUDA
 # tensors and a C·stationary(+White) kernel; below it, it takes
-# torch.linalg.cholesky.  On an NVIDIA H100 80GB HBM3 (700 W) chip_smoke.py
-# measured the blocked path slower than the dense one at every N it timed
-# (4096, 10240, 20480), so the value is twice the largest N measured.
-BLOCKED_CHOL_MIN_N = 40960
+# torch.linalg.cholesky.  On an NVIDIA H100 80GB HBM3 (700 W), with the
+# many-CTA factor_panel of 0.26 ms, chip_smoke.py and
+# scripts/time_port_routes.py timed the blocked solve slower at N=4096
+# (5.3-6.9 vs 4.1-4.3 ms) and faster in every reading at N=10240 (20.6-21.2
+# vs 22.1-22.2 ms) and N=20480 (95.1-95.5 vs 106.8-107.0 ms): the smallest
+# N measured from which it always wins.
+BLOCKED_CHOL_MIN_N = 10240
 
 
 def condition(

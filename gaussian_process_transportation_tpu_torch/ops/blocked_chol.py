@@ -49,7 +49,7 @@ def factor_panel_plain(A: Tensor) -> Tuple[Tensor, Tensor]:
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _cuda.library("factor_panel").factor_panel_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -57,9 +57,11 @@ def _entry():
 def factor_panel(A: Tensor) -> Tuple[Tensor, Tensor]:
     """(L, L⁻¹) of one (B, B) SPD block, B a multiple of 128.
 
-    A CUDA tensor goes to one launch of the panel kernel (float32 only;
-    counted in ``factor_panel.launches``); both outputs are exactly
-    lower-triangular.  A CPU tensor goes to :func:`factor_panel_plain`."""
+    A CUDA tensor goes to the panel kernels of ``csrc/factor_panel.cu``
+    (float32 only): a short sequence of launches on the current stream
+    (15 at B = 512), counted as one in ``factor_panel.launches``; both
+    outputs are exactly lower-triangular.  A CPU tensor goes to
+    :func:`factor_panel_plain`."""
     if A.dim() != 2 or A.shape[0] != A.shape[1] or A.shape[0] % SUB_BLOCK or not A.shape[0]:
         raise ValueError(f"factor_panel takes a (B, B) block, B a positive multiple of "
                          f"{SUB_BLOCK}, got {tuple(A.shape)}")
@@ -68,11 +70,14 @@ def factor_panel(A: Tensor) -> Tuple[Tensor, Tensor]:
     if A.dtype != torch.float32:
         raise TypeError(f"factor_panel takes float32 on the card, got {A.dtype}")
     A = A.contiguous()
+    B = A.shape[0]
     L = torch.empty_like(A)
     Linv = torch.empty_like(A)
+    scratch = torch.empty(B * B // 4, dtype=A.dtype, device=A.device)  # the doubling's T
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = _entry()(A.data_ptr(), L.data_ptr(), Linv.data_ptr(), A.shape[0], stream)
+        err = _entry()(A.data_ptr(), L.data_ptr(), Linv.data_ptr(), scratch.data_ptr(), B,
+                       stream)
     if err != 0:
         raise RuntimeError(f"factor_panel kernel launch failed: CUDA error {err}")
     factor_panel.launches += 1

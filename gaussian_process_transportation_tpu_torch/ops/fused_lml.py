@@ -19,10 +19,13 @@ defined beside them for CPU tensors:
 * ``small_lml_value_grad_md``: lane e has its own (Xe[e], Ye[e]) (the
   per-member hyperparameter fits).
 
-Both count their launches in ``<wrapper>.launches``.  As in JAX, n ≤ 32 and
-p ≤ 8; the kernels also take D ≤ 8.  The twins compute in theta's dtype
-and give a lane whose Gram is not positive definite a NaN value and
-gradient, as the kernels do.
+Both count their launches in ``<wrapper>.launches``.  As in JAX, n ≤ 32
+and nothing else is limited: the kernel takes any D (coordinates in
+chunks of eight) and at most ``KERNEL_P`` columns of Y a launch, so a
+wider Y is split into column chunks, one launch each, whose values and
+gradients add up (the LML and its gradient are sums over Y's columns).
+The twins compute in theta's dtype and give a lane whose Gram is not
+positive definite a NaN value and gradient, as the kernels do.
 """
 from __future__ import annotations
 
@@ -38,8 +41,7 @@ from . import _cuda
 from .pallas_gram import STATIONARY_FAMILIES, stationary_from_sqdist
 
 MAX_N = 32
-MAX_D = 8
-MAX_P = 8
+KERNEL_P = 8  # columns of Y one launch takes (kMaxP in csrc/fused_lml.cu)
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _SQRT3 = math.sqrt(3.0)
@@ -65,8 +67,8 @@ def _check_layout(name: str, n: int, D: int, p: int, theta: Tensor, family: str,
                   has_noise: bool) -> None:
     if not 1 <= n <= MAX_N:
         raise ValueError(f"{name}: the fused small-LML kernel is for 1 <= n <= {MAX_N}, got {n}")
-    if not 1 <= p <= MAX_P:
-        raise ValueError(f"{name}: takes 1 <= p <= {MAX_P} output columns, got {p}")
+    if p < 1:
+        raise ValueError(f"{name}: Y needs at least one column, got {p}")
     if family not in STATIONARY_FAMILIES:
         raise ValueError(f"{name}: unknown stationary family {family!r}")
     if n_ls not in (1, D):
@@ -161,8 +163,10 @@ def _on_card(*tensors: Tensor) -> bool:
 
 
 def _launch(name: str, entry: str, X: Tensor, Y: Tensor, theta: Tensor, family: str,
-            n_ls: int, has_noise: bool, jitter: float) -> Tuple[Tensor, Tensor]:
-    """Checks the card's inputs and launches ``entry`` once."""
+            n_ls: int, has_noise: bool, jitter: float) -> Tuple[Tensor, Tensor, int]:
+    """Checks the card's inputs and launches ``entry`` once per chunk of
+    ``KERNEL_P`` columns of Y, summing the chunks' values and gradients;
+    returns (values, gradients, launches)."""
     device = theta.device
     for t in (X, Y, theta):
         if t.device != device:
@@ -172,21 +176,26 @@ def _launch(name: str, entry: str, X: Tensor, Y: Tensor, theta: Tensor, family: 
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors")
     n, D = X.shape[-2:]
-    if D > MAX_D:
-        raise ValueError(f"{name}: the kernel takes D <= {MAX_D}, got {D}")
-    E = theta.shape[1]
-    val = torch.empty(E, dtype=torch.float32, device=device)
-    grad = torch.empty(theta.shape, dtype=torch.float32, device=device)
+    E, p = theta.shape[1], Y.shape[-1]
     if E == 0:
-        return val, grad
+        return theta.new_empty(E), torch.empty_like(theta), 0
     fn = _entry(entry)
-    with torch.cuda.device(device):
-        err = fn(X.data_ptr(), Y.data_ptr(), theta.data_ptr(), val.data_ptr(), grad.data_ptr(),
-                 n, D, Y.shape[-1], n_ls, int(has_noise), STATIONARY_FAMILIES.index(family),
-                 float(jitter), E, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
-    return val, grad
+    val = grad = None
+    launches = 0
+    for c0 in range(0, p, KERNEL_P):
+        Yc = Y if p <= KERNEL_P else Y[..., c0:c0 + KERNEL_P].contiguous()
+        v = torch.empty(E, dtype=torch.float32, device=device)
+        g = torch.empty(theta.shape, dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            err = fn(X.data_ptr(), Yc.data_ptr(), theta.data_ptr(), v.data_ptr(), g.data_ptr(),
+                     n, D, Yc.shape[-1], n_ls, int(has_noise),
+                     STATIONARY_FAMILIES.index(family), float(jitter), E,
+                     torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+        launches += 1
+        val, grad = (v, g) if val is None else (val + v, grad + g)
+    return val, grad, launches
 
 
 def small_lml_value_grad(X: Tensor, Y: Tensor, theta: Tensor, family: str = "rbf",
@@ -195,8 +204,8 @@ def small_lml_value_grad(X: Tensor, Y: Tensor, theta: Tensor, family: str = "rbf
     """(LML values (E,), gradients (T, E)) of E lanes sharing X (n, D) and
     Y (n, p) or (n,), at theta (T, E) in the canonical layout.
 
-    For CUDA tensors one launch of the kernel (float32, contiguous, n ≤ 32,
-    p ≤ 8, D ≤ 8); for CPU tensors the plain twin."""
+    For CUDA tensors one launch of the kernel per eight columns of Y
+    (float32, contiguous, n ≤ 32); for CPU tensors the plain twin."""
     Y2 = Y[:, None] if Y.dim() == 1 else Y
     if X.dim() != 2 or Y2.dim() != 2 or Y2.shape[0] != X.shape[0]:
         raise ValueError(f"small_lml_value_grad: X (n, D) and Y (n, p), got "
@@ -205,10 +214,10 @@ def small_lml_value_grad(X: Tensor, Y: Tensor, theta: Tensor, family: str = "rbf
                   n_ls, has_noise)
     if not _on_card(X, Y2, theta):
         return small_lml_value_grad_ref(X, Y2, theta, family, n_ls, has_noise, jitter)
-    out = _launch("small_lml_value_grad", "small_lml_value_grad_f32", X, Y2, theta, family,
-                  n_ls, has_noise, jitter)
-    small_lml_value_grad.launches += 1
-    return out
+    val, grad, launches = _launch("small_lml_value_grad", "small_lml_value_grad_f32", X, Y2,
+                                  theta, family, n_ls, has_noise, jitter)
+    small_lml_value_grad.launches += launches
+    return val, grad
 
 
 small_lml_value_grad.launches = 0
@@ -220,8 +229,8 @@ def small_lml_value_grad_md(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str =
     """(LML values (E,), gradients (T, E)) where lane e evaluates its own
     dataset (Xe[e] (n, D), Ye[e] (n, p)) at theta[:, e].
 
-    For CUDA tensors one launch of the kernel (float32, contiguous, n ≤ 32,
-    p ≤ 8, D ≤ 8); for CPU tensors the plain twin."""
+    For CUDA tensors one launch of the kernel per eight columns of Y
+    (float32, contiguous, n ≤ 32); for CPU tensors the plain twin."""
     Ye3 = Ye[:, :, None] if Ye.dim() == 2 else Ye
     if Xe.dim() != 3 or Ye3.dim() != 3 or Ye3.shape[:2] != Xe.shape[:2]:
         raise ValueError(f"small_lml_value_grad_md: Xe (E, n, D) and Ye (E, n, p), got "
@@ -233,10 +242,10 @@ def small_lml_value_grad_md(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str =
                          f"{Xe.shape[0]}")
     if not _on_card(Xe, Ye3, theta):
         return small_lml_value_grad_md_ref(Xe, Ye3, theta, family, n_ls, has_noise, jitter)
-    out = _launch("small_lml_value_grad_md", "small_lml_value_grad_md_f32", Xe, Ye3, theta,
-                  family, n_ls, has_noise, jitter)
-    small_lml_value_grad_md.launches += 1
-    return out
+    val, grad, launches = _launch("small_lml_value_grad_md", "small_lml_value_grad_md_f32", Xe,
+                                  Ye3, theta, family, n_ls, has_noise, jitter)
+    small_lml_value_grad_md.launches += launches
+    return val, grad
 
 
 small_lml_value_grad_md.launches = 0

@@ -7,9 +7,9 @@ source point set onto a target one and Ψ the GP on the residuals:
 * ``fit_and_transport`` does it for one target;
 * ``fit_and_transport_batched`` for E targets at once (the ensemble
   workload): members of n ≤ 64 points with one Cholesky/inverse kernel
-  launch for all E Grams, members of n ≥ 768 points (stationary kernels)
-  one by one through the blocked Cholesky, the sizes between one by one
-  through the dense path.
+  launch for all E Grams, members of n ≥ ``BLOCKED_MIN_N`` points
+  (stationary kernels) one by one through the blocked Cholesky, the sizes
+  between one by one through the dense path.
 
 * ``fit_and_transport_batched_opt`` for E targets with each member's
   hyperparameters fitted to its own residuals first (the original
@@ -233,8 +233,15 @@ def fit_and_transport(
 # Largest member size that the batched kernel route takes.
 BATCHED_MAX_N = 64
 # From this member size (stationary kernels) each member is conditioned
-# through the blocked Cholesky, as in the JAX package.
-BLOCKED_MIN_N = 768
+# through the blocked Cholesky, below it through the dense route
+# (torch.linalg.cholesky and K^-1).  On an NVIDIA H100 80GB HBM3 (700 W),
+# with the many-CTA factor_panel, scripts/time_port_routes.py timed one 3-D
+# member (Q=1000) both ways, in pairs: the dense route faster in every pair
+# at n = 768 (4.3-5.0 vs 5.1-7.1 ms) and 1536 (5.2-6.5 vs 6.1-7.0 ms), the
+# blocked one in every pair at n = 2500 (7.4-8.6 vs 8.1-9.1 ms) and 4096
+# (9.7-12.2 vs 16.0-16.7 ms).  (The JAX package takes the blocked path from
+# 768.)
+BLOCKED_MIN_N = 2500
 BLOCKED_PANEL = 512
 
 
@@ -257,7 +264,7 @@ def fit_and_transport_batched(
     in 2-D), E Grams in one call, one launch of the Cholesky/inverse
     kernel over all of them (the plain twin for CPU tensors), and the
     batched ``transport_apply``.  Larger members are transported one by
-    one: from n = 768 with a stationary kernel each through
+    one: from n = ``BLOCKED_MIN_N`` with a stationary kernel each through
     ``condition_blocked`` (panels of 512, one ``factor_panel`` launch per
     panel on the card) and ``transport_apply`` without K⁻¹, below that
     through the dense ``fit_and_transport``."""

@@ -1,37 +1,49 @@
 #!/usr/bin/env python3
-"""Time the two routes of the PyTorch port's exact GP whose thresholds are
-set from measurements (``models/exact_gp.py``), on one CUDA card:
+"""Time the routes of the PyTorch port whose thresholds are set from
+measurements, and the panel kernel they rest on, on one CUDA card:
 
-* ``predict(return_std)`` with a cached K⁻¹: the fused mean-and-variance
-  kernel against the dense path (k K⁻¹ through cuBLAS) on a 100×100 query
-  grid, at each N of ``--predict-n`` (``FUSED_MEAN_VAR_MAX_N``).  An N that
-  is no multiple of 4 leaves K⁻¹'s rows unaligned, the kernel's 4-byte copies;
-* ``condition()``: the blocked Cholesky solve against
+* ``predict``: ``predict(return_std)`` with a cached K⁻¹, the fused
+  mean-and-variance kernel against the dense path (k K⁻¹ through cuBLAS) on
+  a 100×100 query grid, at each N of ``--predict-n``
+  (``models/exact_gp.py::FUSED_MEAN_VAR_MAX_N``).  An N that is no multiple
+  of 4 leaves K⁻¹'s rows unaligned, the kernel's 4-byte copies;
+* ``chol``: ``condition()``'s solve, the blocked Cholesky against
   ``torch.linalg.cholesky`` on the dense Gram, at each N of ``--chol-n``
-  (``BLOCKED_CHOL_MIN_N``).
+  (``models/exact_gp.py::BLOCKED_CHOL_MIN_N``);
+* ``member``: one member of the 3-D ensemble transport
+  (``fit_and_transport_batched`` with E=1, D=3, Q=1000, the inputs of
+  ``chip_smoke.ensemble_3d_inputs`` at n points) through the blocked
+  Cholesky and through the dense route (``torch.linalg.cholesky`` and K⁻¹),
+  at each n of ``--member-n`` (``transport/gpt.py::BLOCKED_MIN_N``);
+* ``panel``: ``factor_panel`` at B=512 (the panels of both routes above)
+  and the cuSOLVER pair (``cholesky`` then ``solve_triangular``) on the
+  same block (``chip_smoke.py`` phase 7 prints its launches per call and
+  its diagonal step's time);
+* ``lml``: the fused-LML kernels #2 and #3 at their paths' shapes;
+* ``paths``: fits/s of ``fit_ensemble_fused`` and ``hmc_samples_per_s`` of
+  ``sample_gp_posterior``, at ``chip_smoke.py``'s phase 13 and 14 sizes.
 
-Run from the repository root: ``python3 scripts/time_port_routes.py``.
-One line per N: device ms (CUPTI, mean of 5) and CUDA-event ms (median of 5)
-for the predicts, CUDA-event ms for the solves, each after a warm-up, twice
-in turn, with the card's name and power limit first.
+Run from the repository root: ``python3 scripts/time_port_routes.py``
+(``--what`` picks the parts).  ``--root DIR`` imports the port and
+``chip_smoke.py`` from another checkout instead, so that two trees are
+timed on one card in one call.  One line per size: device ms (CUPTI, mean of
+5) and CUDA-event ms (median of 5), each after a warm-up, twice in turn, with
+the card's name and power limit first (``paths``: CUDA-event ms only,
+medians of 5 and 3).
 """
 import argparse
+import importlib
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
-import chip_smoke as cs  # noqa: E402
-from gaussian_process_transportation_tpu_torch import kernels as K  # noqa: E402
-from gaussian_process_transportation_tpu_torch.models import exact_gp as gp_core  # noqa: E402
-from gaussian_process_transportation_tpu_torch.ops import blocked_chol as bc  # noqa: E402
-from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg  # noqa: E402
+PARTS = ("predict", "chol", "member", "panel", "lml", "paths")
 
 
-def time_predicts(device, sizes):
+def time_predicts(cs, pkg, device, sizes):
+    K, gp_core, pg = pkg["kernels"], pkg["exact_gp"], pkg["pallas_gram"]
     f32 = dict(dtype=torch.float32, device=device)
     Xq = torch.as_tensor(cs.grid_inputs()[2], **f32)
     kern = K.Constant(2.0) * K.RBF(torch.ones(2, **f32)) + K.White(0.1)
@@ -54,7 +66,8 @@ def time_predicts(device, sizes):
                   f"dense path {cs.device_ms(dense):.4f} / {cs.cuda_ms(dense)[0]:.4f}", flush=True)
 
 
-def time_solves(device, sizes):
+def time_solves(cs, pkg, device, sizes):
+    bc, pg = pkg["blocked_chol"], pkg["pallas_gram"]
     ls3 = torch.ones(cs.D_SOLVE, dtype=torch.float32, device=device)
     for N in sizes:
         X, Y = cs.solve_inputs(device, N)
@@ -72,18 +85,154 @@ def time_solves(device, sizes):
                   f"dense {cs.cuda_ms(dense)[0]:.4f}", flush=True)
 
 
+def member_inputs(n, device):
+    """chip_smoke.ensemble_3d_inputs's recipe at n points: a surface S (n, 3)
+    scaled by 2, one target S + 0.05·noise, a Q=1000 demo; seed 0, f32."""
+    rng = np.random.default_rng(0)
+    S = rng.standard_normal((n, 3)).astype(np.float32) * 2.0
+    T = S[None] + 0.05 * rng.standard_normal((1, n, 3)).astype(np.float32)
+    X = rng.standard_normal((1000, 3)).astype(np.float32) * 2.0
+    dX = np.zeros_like(X)
+    dX[:-1] = np.diff(X, axis=0)
+    return tuple(torch.as_tensor(a, device=device) for a in (S, T, X, dX))
+
+
+def time_members(cs, pkg, device, sizes):
+    K, gpt = pkg["kernels"], pkg["gpt"]
+    kern = (K.Constant(2.0) * K.RBF(2.0 * torch.ones(3, dtype=torch.float32, device=device))
+            + K.White(0.01))
+    default = gpt.BLOCKED_MIN_N
+    for n in sizes:
+        args = member_inputs(n, device)
+
+        def route(min_n):
+            def run():
+                gpt.BLOCKED_MIN_N = min_n
+                try:
+                    return gpt.fit_and_transport_batched(kern, *args)
+                finally:
+                    gpt.BLOCKED_MIN_N = default
+            return run
+
+        blocked, dense = route(0), route(n + 1)
+        for _ in range(2):
+            print(f"3-D member n={n}: blocked {cs.cuda_ms(blocked)[0]:.4f} event ms, dense "
+                  f"(torch.linalg.cholesky + K^-1) {cs.cuda_ms(dense)[0]:.4f}; "
+                  f"BLOCKED_MIN_N = {default}", flush=True)
+
+
+def time_panel(cs, pkg, device, B=512):
+    """The first diagonal block of the N=10240 solve's Gram, as chip_smoke's
+    kernel record times it."""
+    bc = pkg["blocked_chol"]
+    X = cs.solve_inputs(device)[0]
+    ls3 = torch.ones(cs.D_SOLVE, dtype=torch.float32, device=device)
+    A = bc.stationary_gram_panels(X, ls3, 2.0, 0.1, B)[0][0][:B].contiguous()
+    eye = torch.eye(B, dtype=torch.float32, device=device)
+
+    def kernel():
+        return bc.factor_panel(A)
+
+    def library():
+        return torch.linalg.solve_triangular(torch.linalg.cholesky(A), eye, upper=False)
+
+    for _ in range(2):
+        print(f"factor_panel B={B}: {cs.device_ms(kernel):.4f} device / "
+              f"{cs.cuda_ms(kernel)[0]:.4f} event ms; cholesky + solve_triangular "
+              f"{cs.device_ms(library):.4f} / {cs.cuda_ms(library)[0]:.4f}", flush=True)
+
+
+def time_lml(cs, pkg, device):
+    """Kernels #2 and #3 at their paths' shapes (phase 12's main cases)."""
+    fl = pkg["fused_lml"]
+    for name, lanes, case in (
+            ("small_lml_value_grad", cs.HMC_CHAINS, ("rbf", cs.N_MAIN, 2, 1, 2, True)),
+            ("small_lml_value_grad_md", cs.E_FIT * (cs.RESTARTS + 1),
+             ("rbf", cs.N_MAIN, 2, 2, 2, True))):
+        fam, n, D, p, n_ls, noise = case
+        X, Y, th = cs.lml_inputs(device, lanes, n, D, p, n_ls, noise, name.endswith("_md"))
+        fn = getattr(fl, name)
+
+        def kernel():
+            return fn(X, Y, th, fam, n_ls, noise)
+
+        for _ in range(2):
+            print(f"{name} lanes={lanes} n={n} D={D} p={p}: {cs.device_ms(kernel):.4f} device / "
+                  f"{cs.cuda_ms(kernel)[0]:.4f} event ms", flush=True)
+
+
+def time_paths(cs, pkg, device):
+    """fits/s and hmc_samples_per_s as chip_smoke's phases 13 and 14 time
+    them (CUDA events; median of 5 and of 3)."""
+    K, gp_core, samplers = pkg["kernels"], pkg["exact_gp"], pkg["samplers"]
+    affine = pkg["affine"]
+    f32 = dict(dtype=torch.float32, device=device)
+    X, dX, S, S1 = cs.make_workload()
+    Sd = torch.as_tensor(S, **f32)
+    T = torch.as_tensor(cs.fit_targets(S1, cs.E_FIT), **f32)
+    kern = cs.fit_kernel(**f32)
+    src = affine.predict(affine.fit_batched(Sd, T), Sd)
+
+    def fit():
+        return gp_core.fit_ensemble_fused(kern, src, T - src, n_restarts=cs.RESTARTS,
+                                          maxiter=cs.MAXITER,
+                                          generator=torch.Generator(device=device).manual_seed(0))
+
+    X14, Y14 = (torch.as_tensor(a, **f32) for a in cs.hmc_inputs())
+    kern14 = K.Constant(1.0) * K.RBF(torch.ones(2, **f32)) + K.White(0.01)
+
+    def hmc():
+        return samplers.sample_gp_posterior(
+            kern14, X14, Y14, seed=0, num_chains=cs.HMC_CHAINS, num_warmup=cs.HMC_WARMUP,
+            num_samples=cs.HMC_SAMPLES, num_leapfrog=cs.HMC_LEAPFROG)
+
+    for _ in range(2):
+        fit_ms = cs.cuda_ms(fit)[0]
+        hmc_ms = cs.cuda_ms(hmc, reps=3)[0]
+        print(f"fit_ensemble_fused E={cs.E_FIT}: {fit_ms:.4f} event ms = fits_per_s "
+              f"{cs.E_FIT / (fit_ms / 1e3):.1f}; sample_gp_posterior {cs.HMC_CHAINS} chains: "
+              f"{hmc_ms:.4f} event ms = hmc_samples_per_s "
+              f"{cs.HMC_CHAINS * cs.HMC_SAMPLES / (hmc_ms / 1e3):.1f}", flush=True)
+
+
+def load(root):
+    """chip_smoke and the port's modules from the checkout at ``root``."""
+    sys.path.insert(0, str(root))
+    port = "gaussian_process_transportation_tpu_torch"
+    mods = {name: importlib.import_module(f"{port}.{path}") for name, path in (
+        ("kernels", "kernels"), ("exact_gp", "models.exact_gp"),
+        ("blocked_chol", "ops.blocked_chol"), ("pallas_gram", "ops.pallas_gram"),
+        ("gpt", "transport.gpt"), ("fused_lml", "ops.fused_lml"), ("affine", "models.affine"),
+        ("samplers", "parallel.samplers"))}
+    return importlib.import_module("chip_smoke"), mods
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--what", nargs="*", choices=PARTS, default=list(PARTS))
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--predict-n", type=int, nargs="*",
                     default=[512, 1024, 2047, 2048, 3072, 4096, 8192])
     ap.add_argument("--chol-n", type=int, nargs="*", default=[4096, 10240, 20480])
+    ap.add_argument("--member-n", type=int, nargs="*", default=[768, 1536, 2500, 4096])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_port_routes: needs a CUDA card")
+    cs, pkg = load(Path(args.root).resolve())
     device = torch.device("cuda", 0)
-    print(cs.card_line(), flush=True)
-    time_predicts(device, args.predict_n)
-    time_solves(device, args.chol_n)
+    print(f"{cs.card_line()}; port from {Path(pkg['kernels'].__file__).parent}", flush=True)
+    if "predict" in args.what:
+        time_predicts(cs, pkg, device, args.predict_n)
+    if "chol" in args.what:
+        time_solves(cs, pkg, device, args.chol_n)
+    if "member" in args.what:
+        time_members(cs, pkg, device, args.member_n)
+    if "panel" in args.what:
+        time_panel(cs, pkg, device)
+    if "lml" in args.what:
+        time_lml(cs, pkg, device)
+    if "paths" in args.what:
+        time_paths(cs, pkg, device)
 
 
 if __name__ == "__main__":

@@ -43,6 +43,85 @@ def test_factor_panel_matches_jax_kernel(B):
     assert not np.triu(tL.numpy(), 1).any() and not np.triu(tLinv.numpy(), 1).any()
 
 
+def _doubling(L, X, w0):
+    """X = L⁻¹ from its diagonal tiles of width w0 by recursive doubling,
+    in place: for pairs of width w, T = L₂₁X₁₁, then X₂₁ = −X₂₂T."""
+    B = L.shape[0]
+    w = w0
+    while w < B:
+        for st in range(0, B - w, 2 * w):
+            first, second = slice(st, st + w), slice(st + w, min(st + 2 * w, B))
+            T = L[second, first] @ X[first, first]
+            X[second, first] = -X[second, second] @ T
+        w *= 2
+
+
+def _diag_twin(D, tile=32):
+    """The diag step of the panel kernel on one sub-block: right-looking over
+    32-wide panels (factor the 32 × 32 tile, solve the rows below against
+    it, update the trailing block), then the tiles' inverses and X's
+    off-diagonal tiles by doubling; reads the lower part of D only."""
+    n = D.shape[0]
+    M = torch.tril(D) + torch.tril(D, -1).T
+    X = torch.zeros_like(D)
+    for c in range(0, n, tile):
+        t, below = slice(c, c + tile), slice(c + tile, n)
+        Ltt = torch.linalg.cholesky(M[t, t])
+        Xtt = torch.linalg.solve_triangular(Ltt, torch.eye(tile, dtype=D.dtype), upper=False)
+        M[t, t], X[t, t] = Ltt, Xtt
+        M[below, t] = M[below, t] @ Xtt.T
+        M[below, below] -= M[below, t] @ M[below, t].T
+    L = torch.tril(M)
+    _doubling(L, X, tile)
+    return L, X
+
+
+def _panel_schedule_twin(A, sb=tbc.SUB_BLOCK):
+    """The launch sequence of ``csrc/factor_panel.cu`` step for step in
+    torch ops (tests only): init, then for each sub-block s diag (chol and
+    inverse of the updated block, as ``_diag_twin``), col_solve (L_is =
+    A'_is X_ssᵀ) and trail
+    (A'_ij −= L_is L_jsᵀ over the lower blocks, j > s), then the recursive
+    doubling of L⁻¹ (T = L₂₁X₁₁, X₂₁ = −X₂₂T) level by level."""
+    B = A.shape[0]
+    NB = B // sb
+    blk = lambda s: slice(s * sb, (s + 1) * sb)
+    L = A.clone()
+    X = torch.zeros_like(A)
+    for s in range(NB):
+        Lss, Xss = _diag_twin(L[blk(s), blk(s)])
+        L[blk(s), blk(s)] = Lss
+        X[blk(s), blk(s)] = Xss
+        below = slice((s + 1) * sb, B)
+        L[below, blk(s)] = L[below, blk(s)] @ Xss.T
+        for j in range(s + 1, NB):
+            for i in range(j, NB):
+                L[blk(i), blk(j)] -= L[blk(i), blk(s)] @ L[blk(j), blk(s)].T
+    L = torch.tril(L)
+    _doubling(L, X, sb)
+    return L, X
+
+
+@pytest.mark.parametrize("B", [128, 256, 384, 512])
+def test_panel_schedule_matches_f64_and_jax(B):
+    """The schedule of the card's kernels, in float32, against f64 to the
+    JAX panel kernel's 5e-6 bound, against JAX's ``factor_panel`` in
+    interpret mode, and exactly lower-triangular; in float64 against numpy
+    tightly.  B = 384 is a ragged doubling (three sub-blocks)."""
+    K = _spd(B, seed=B)
+    L, Linv = _panel_schedule_twin(torch.as_tensor(K.astype(np.float32)))
+    L64 = np.linalg.cholesky(K)
+    Linv64 = np.linalg.inv(L64)
+    assert _rel(L, L64) < 5e-6 and _rel(Linv, Linv64) < 5e-6
+    assert not np.triu(L.numpy(), 1).any() and not np.triu(Linv.numpy(), 1).any()
+    if B != 384:
+        jL, jLinv = jbc.factor_panel(jnp.asarray(K, jnp.float32), interpret=True)
+        assert _rel(L, jL) < 1e-5 and _rel(Linv, jLinv) < 1e-5
+    L_d, Linv_d = _panel_schedule_twin(torch.as_tensor(K))
+    np.testing.assert_allclose(L_d.numpy(), L64, rtol=1e-11, atol=1e-12)
+    np.testing.assert_allclose(Linv_d.numpy(), Linv64, rtol=1e-10, atol=1e-12)
+
+
 def test_factor_panel_keeps_float64_and_refuses_bad_blocks():
     K = _spd(128)
     L, Linv = tbc.factor_panel(torch.as_tensor(K))

@@ -104,13 +104,11 @@ def test_batched_transport_launches_the_kernel_once(device, monkeypatch):
 FAMILIES = ("rbf", "matern12", "matern32", "matern52")
 
 
-@pytest.mark.parametrize("B", [128, 256, 512])
+@pytest.mark.parametrize("B", [128, 256, 384, 512, 1024])
 def test_factor_panel_matches_f64(device, B):
     """L and L⁻¹ to 5e-6 relative (the JAX panel kernel's bound), exactly
-    lower-triangular."""
-    rng = np.random.default_rng(B)
-    A = rng.standard_normal((B, B))
-    K_ = (A @ A.T + B * np.eye(B)).astype(np.float32)
+    lower-triangular; B = 384 a ragged doubling of L⁻¹."""
+    K_ = chip_smoke.panel_spd(B)
     L, Linv = tbc.factor_panel(torch.as_tensor(K_, device=device))
     torch.cuda.synchronize()
     L64 = np.linalg.cholesky(K_.astype(np.float64))
@@ -119,6 +117,17 @@ def test_factor_panel_matches_f64(device, B):
     assert np.abs(L - L64).max() / np.abs(L64).max() < 5e-6
     assert np.abs(Linv - Linv64).max() / np.abs(Linv64).max() < 5e-6
     assert not np.triu(L, 1).any() and not np.triu(Linv, 1).any()
+
+
+def test_factor_panel_issues_its_launch_sequence_and_counts_one(device, monkeypatch):
+    """At B = 512: init, four diagonal steps, three col_solve and three
+    trail launches, two doubling levels of two: 15 device launches, one
+    wrapper launch."""
+    monkeypatch.setattr(tbc.factor_panel, "launches", 0)
+    launches, diag_ms = chip_smoke.panel_profile(torch.as_tensor(chip_smoke.panel_spd(512),
+                                                                 device=device))
+    assert launches == 15 and diag_ms > 0
+    assert tbc.factor_panel.launches == 1 + chip_smoke.REPS
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -303,7 +312,7 @@ def test_dense_grid_predict_launches_each_fused_kernel_once(device, monkeypatch)
 def test_batched_transport_of_large_members_launches_a_panel_each(device, monkeypatch):
     _reset_counts(monkeypatch)
     rng = np.random.default_rng(5)
-    n, Q, E = 800, 60, 2
+    n, Q, E = gpt.BLOCKED_MIN_N, 60, 2
     S = 2 * rng.standard_normal((n, 3))
     targets = S[None] + np.linspace(0, 1, E)[:, None, None] + 0.05 * rng.standard_normal((E, n, 3))
     X = 2 * rng.standard_normal((Q, 3))
@@ -317,7 +326,7 @@ def test_batched_transport_of_large_members_launches_a_panel_each(device, monkey
 
     got = run(torch.float32, device)
     torch.cuda.synchronize()
-    assert tbc.factor_panel.launches == 2 * E
+    assert tbc.factor_panel.launches == -(-n // gpt.BLOCKED_PANEL) * E
     ref = run(torch.float64, "cpu")
     scale = np.abs(X).max()
     for name in ("traj", "std", "delta"):
@@ -333,8 +342,9 @@ from gaussian_process_transportation_tpu_torch.parallel import samplers as tsm  
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_fused_lml_kernels_match_twins_and_the_f64_formula(device, family):
-    """Every phase-12 shape of the family, E ragged, to chip_smoke's bound."""
-    for case in chip_smoke.LML_CASES:
+    """Every phase-12 shape of the family, those past eight coordinates or
+    columns included, E ragged, to chip_smoke's bound."""
+    for case in chip_smoke.LML_CASES + chip_smoke.LML_WIDE_CASES:
         if case[0] == family:
             for name, (diff, excess) in chip_smoke.check_lml_case(device, case, 37).items():
                 assert excess < 1 and diff < 1e-3, (name, case, diff, excess)
@@ -360,8 +370,6 @@ def test_fused_lml_wrappers_refuse_what_the_kernels_do_not_take(device):
     X33, Y33, th33 = chip_smoke.lml_inputs(device, 8, 33, 2, 1, 1, True, True)
     with pytest.raises(ValueError, match="n <= 32"):
         md(X33, Y33, th33)
-    with pytest.raises(ValueError, match="p <= 8"):
-        md(X, Y.expand(8, 10, 9).contiguous(), th)
     with pytest.raises(ValueError, match="theta"):
         md(X, Y, th[:2])
     with pytest.raises(ValueError, match="tensors on"):
@@ -370,9 +378,19 @@ def test_fused_lml_wrappers_refuse_what_the_kernels_do_not_take(device):
         md(X.double(), Y.double(), th.double())
     with pytest.raises(ValueError, match="contiguous"):
         md(X, Y, th.T.contiguous().T)
-    X9, Y9, th9 = chip_smoke.lml_inputs(device, 8, 10, 9, 1, 1, True, True)
-    with pytest.raises(ValueError, match="D <= 8"):
-        md(X9, Y9, th9)
+
+
+
+def test_fused_lml_wide_y_launches_once_per_eight_columns(device, monkeypatch):
+    """p = 12 is two launches whose values and gradients add up; D = 12
+    is one."""
+    _reset_lml_counts(monkeypatch)
+    X, Y, th = chip_smoke.lml_inputs(device, 8, 10, 12, 12, 12, True, True)
+    tfl.small_lml_value_grad_md(X, Y, th, "rbf", 12, True)
+    assert tfl.small_lml_value_grad_md.launches == 2
+    Xs, Ys, ths = chip_smoke.lml_inputs(device, 8, 10, 12, 3, 1, True, False)
+    tfl.small_lml_value_grad(Xs, Ys, ths, "rbf", 1, True)
+    assert tfl.small_lml_value_grad.launches == 1
 
 
 def _reset_lml_counts(monkeypatch):
@@ -393,6 +411,18 @@ def test_batched_opt_transport_launches_the_fused_fit(device, monkeypatch):
     assert tfl.small_lml_value_grad_md.launches == 1 + 3 * 7
     assert tbl.spd_inverse_elast_fused.launches == 1 and tfl.small_lml_value_grad.launches == 0
     assert torch.isfinite(res.traj).all() and res.traj.shape == (16, 50, 2)
+
+
+def test_sample_gp_posterior_chains_do_not_depend_on_the_number_of_chains(device):
+    """Phase 14's check at a small size: 8 chains alone equal the first 8
+    of 32 bit for bit on the card."""
+    X, Y = (torch.as_tensor(a, device=device) for a in chip_smoke.hmc_inputs())
+    kern = K.Constant(1.0) * K.RBF(torch.ones(2, device=device)) + K.White(0.01)
+    kw = dict(seed=2, num_warmup=6, num_samples=6, num_leapfrog=4)
+    s32, _ = tsm.sample_gp_posterior(kern, X, Y, num_chains=32, **kw)
+    s8, _ = tsm.sample_gp_posterior(kern, X, Y, num_chains=8, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(s8, s32[:8])
 
 
 def test_sample_gp_posterior_launches_the_fused_lml_each_leapfrog(device, monkeypatch):

@@ -238,10 +238,11 @@ def test_predict_on_cpu_takes_the_dense_path(monkeypatch):
 
 
 def test_route_thresholds_are_the_measured_ones():
-    """The routes' constants, as set from ``chip_smoke.py``'s readings on the
-    card: the blocked Cholesky lost to the dense one at every N timed up to
-    20480, and the mean-and-variance kernel won up to N=2048."""
-    assert tgp.BLOCKED_CHOL_MIN_N == 2 * 20480
+    """The routes' constants, as set from ``chip_smoke.py``'s and
+    ``scripts/time_port_routes.py``'s readings on the card: the blocked
+    Cholesky won in every reading from N=10240 (and not at N=4096), and
+    the mean-and-variance kernel won up to N=2048."""
+    assert tgp.BLOCKED_CHOL_MIN_N == 10240
     assert tgp.FUSED_MEAN_VAR_MAX_N == 2048
     assert tgp.FUSED_PREDICT_MIN_ELEMS == 2**21
 

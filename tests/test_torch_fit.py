@@ -177,6 +177,24 @@ def test_fit_ensemble_fused_with_restarts_improves_every_member(monkeypatch):
     assert ((fitted - lml.double()).abs() < 2e-2 * torch.clamp(lml.double().abs(), min=1)).all()
 
 
+@pytest.mark.parametrize("D,p", [(12, 2), (2, 12)])
+def test_fit_ensemble_fused_wide_shapes_match_jax(D, p):
+    """D and p past the card kernel's eight: JAX's fit, run as its CPU
+    tests run it, and the port's agree as at D=2, p=1."""
+    rng = np.random.default_rng(D + p)
+    Xe = rng.standard_normal((3, 10, D))
+    Ye = np.sin(Xe[..., :1]) + 0.05 * rng.standard_normal((3, 10, p))
+    jk = (JK.Constant(1.0, bounds=(1e-2, 1e2)) * JK.RBF(jnp.ones(D), bounds=(1e-1, 1e1))
+          + JK.White(0.2, bounds=(1e-4, 1.0)))
+    th_j, lml_j = jgp.fit_ensemble_fused(jk, jnp.asarray(Xe), jnp.asarray(Ye), n_restarts=0,
+                                         maxiter=6)
+    th_t, lml_t = tgp.fit_ensemble_fused(kernel_from_tree(jk, device="cpu"), _t(Xe), _t(Ye),
+                                         n_restarts=0, maxiter=6)
+    assert th_t.shape == (3, D + 2) and torch.isfinite(lml_t).all()
+    lml_j = np.asarray(lml_j)
+    np.testing.assert_array_less(np.abs(lml_t.numpy() - lml_j), 1e-3 * np.maximum(1, np.abs(lml_j)))
+
+
 def test_gaussian_process_refuses_the_jit_fit():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GaussianProcess(TK.RBF(1.0), jit_fit=True)

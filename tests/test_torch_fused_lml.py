@@ -114,12 +114,17 @@ def test_cpu_route_takes_the_twin_and_launches_nothing(monkeypatch):
 
 
 def test_wrappers_raise_beyond_the_limits():
+    """n > 32 raises, as in JAX; p and D are not limited."""
     X, Y = _data(33, 2, 1)
     with pytest.raises(ValueError, match="n <= 32"):
         tfl.small_lml_value_grad(_t(X), _t(Y), _t(_thetas(3, 4)), "rbf", 1, True)
+    X12, Y12 = _data(8, 12, 12)
+    val, grad = tfl.small_lml_value_grad(_t(X12), _t(Y12), _t(_thetas(14, 4)), "rbf", 12, True)
+    assert val.shape == (4,) and grad.shape == (14, 4) and torch.isfinite(grad).all()
+    Xe, Ye = _data(8, 12, 9, E=4)
+    val, grad = tfl.small_lml_value_grad_md(_t(Xe), _t(Ye), _t(_thetas(3, 4)), "rbf", 1, True)
+    assert val.shape == (4,) and grad.shape == (3, 4) and torch.isfinite(val).all()
     X, Y = _data(8, 2, 9)
-    with pytest.raises(ValueError, match="p <= 8"):
-        tfl.small_lml_value_grad(_t(X), _t(Y), _t(_thetas(3, 4)), "rbf", 1, True)
     with pytest.raises(ValueError, match="theta"):
         tfl.small_lml_value_grad(_t(X), _t(Y[:, :2]), _t(_thetas(4, 4)), "rbf", 1, True)
     Xe, Ye = _data(8, 2, 1, E=3)
@@ -138,3 +143,48 @@ def test_a_lane_that_is_not_positive_definite_is_nan_there_only():
     val, grad = tfl.small_lml_value_grad_md(_t(Xe), _t(Ye), th, "rbf", 1, False, jitter=-1e-4)
     assert torch.isnan(val[1]) and torch.isnan(grad[:, 1]).all()
     assert torch.isfinite(val[[0, 2]]).all() and torch.isfinite(grad[:, [0, 2]]).all()
+
+
+# (D, p, n_ls) past the kernel's eight coordinates or columns
+WIDE = [(12, 1, 12), (2, 12, 1), (12, 12, 1)]
+
+
+@pytest.mark.parametrize("D,p,n_ls", WIDE, ids=[f"D{d}-p{q}-nls{k}" for d, q, k in WIDE])
+def test_wide_shapes_match_jax_pallas_interpret(D, p, n_ls):
+    """D and p past eight, as JAX takes them: both wrappers against the JAX
+    package's Pallas kernels in interpret mode (eb=8, as its tests run
+    them), to the JAX tests' kernel-vs-reference tolerances."""
+    T = 2 + n_ls
+    X, Y = _data(8, D, p, seed=D + p)
+    Xe, Ye = _data(7, D, p, E=9, seed=D * p)
+    th = _thetas(T, 9, seed=p).astype(np.float32)
+    f32 = lambda a: jnp.asarray(a, jnp.float32)
+    for got, want in (
+        (tfl.small_lml_value_grad(_t(X), _t(Y), _t(th), "matern52", n_ls, True, 1e-8),
+         jfl.small_lml_value_grad(f32(X), f32(Y), f32(th), "matern52", n_ls, True, 1e-8, eb=8,
+                                  interpret=True)),
+        (tfl.small_lml_value_grad_md(_t(Xe), _t(Ye), _t(th), "rbf", n_ls, True, 1e-8),
+         jfl.small_lml_value_grad_md(f32(Xe), f32(Ye), f32(th), "rbf", n_ls, True, 1e-8, eb=8,
+                                     interpret=True)),
+    ):
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=VAL_RTOL,
+                                   atol=VAL_RTOL)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL)
+
+
+@pytest.mark.parametrize("p", [9, 12, 17])
+def test_column_chunks_add_up_to_the_whole(p):
+    """What the card's wrappers do for p > 8: one launch per chunk of
+    ``KERNEL_P`` columns, values and gradients summed.  The twin over the
+    chunks, summed, is the twin over all of Y, in float64."""
+    Xe, Ye = _data(10, 3, p, E=5, seed=p)
+    th = _t(_thetas(5, 5), torch.float64)
+    Xe, Ye = _t(Xe, torch.float64), _t(Ye, torch.float64)
+    whole = tfl.small_lml_value_grad_md(Xe, Ye, th, "matern32", 3, True, 1e-8)
+    parts = [tfl.small_lml_value_grad_md(Xe, Ye[..., c:c + tfl.KERNEL_P].contiguous(), th,
+                                         "matern32", 3, True, 1e-8)
+             for c in range(0, p, tfl.KERNEL_P)]
+    assert len(parts) == -(-p // tfl.KERNEL_P)
+    torch.testing.assert_close(sum(v for v, _ in parts), whole[0], rtol=1e-12, atol=1e-10)
+    torch.testing.assert_close(sum(g for _, g in parts), whole[1], rtol=1e-12, atol=1e-10)

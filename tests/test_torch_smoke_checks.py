@@ -54,9 +54,9 @@ def test_predict_check_rejects_planted_faults():
 @pytest.mark.parametrize("family", chip_smoke.FAMILIES)
 def test_lml_check_passes_a_sound_f32_evaluation(family):
     """The f32 twin (what the wrappers take on the CPU) against the per-lane
-    f64 formula, over the phase-12 shapes of the family, below half the
-    bound."""
-    for case in chip_smoke.LML_CASES:
+    f64 formula, over the phase-12 shapes of the family (those past eight
+    coordinates or columns included), below half the bound."""
+    for case in chip_smoke.LML_CASES + chip_smoke.LML_WIDE_CASES:
         if case[0] == family:
             for name, (diff, excess) in chip_smoke.check_lml_case("cpu", case, 37).items():
                 assert diff == 0.0 and excess < 0.5, (name, case, excess)

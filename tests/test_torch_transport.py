@@ -142,18 +142,37 @@ def test_n80_per_member_branch_matches_jax():
     _assert_result(got, want)
 
 
-def test_large_members_go_through_the_blocked_factor_like_the_dense_path(monkeypatch):
-    """n >= 768 with a stationary kernel: per member, condition_blocked and
-    transport_apply without K⁻¹, equal to the dense per-member path."""
-    from gaussian_process_transportation_tpu_torch.ops import blocked_chol as tbc
-
+def _members_case(n, Q=30):
     rng = np.random.default_rng(3)
-    n, Q = 800, 30
     S = 2.0 * rng.standard_normal((n, 3))
     targets = S[None] + np.array([0.0, 1.0])[:, None, None] + 0.05 * rng.standard_normal((2, n, 3))
     X = 2.0 * rng.standard_normal((Q, 3))
     dX = np.zeros_like(X)
     dX[:-1] = np.diff(X, axis=0)
+    return S, targets, X, dX
+
+
+def test_members_below_the_blocked_threshold_take_the_dense_path(monkeypatch):
+    """64 < n < BLOCKED_MIN_N: one by one through the dense path (the
+    faster one there on the card), no blocked factor."""
+    S, targets, X, dX = _members_case(800)
+    kern = kernel_from_tree(_jax_kernel(3, amp=2.0, ls=2.0), device="cpu")
+    monkeypatch.setattr(tgpt.gp_core, "condition_blocked",
+                        lambda *a, **k: pytest.fail("condition_blocked below BLOCKED_MIN_N"))
+    got = tgpt.fit_and_transport_batched(kern, _t(S), _t(targets), _t(X), _t(dX))
+    one = tgpt.fit_and_transport(kern, _t(S), _t(targets[1]), _t(X), _t(dX))
+    for name in FIELDS[:5]:
+        torch.testing.assert_close(getattr(got, name)[1], getattr(one, name), rtol=0, atol=0,
+                                   msg=name)
+
+
+def test_large_members_go_through_the_blocked_factor_like_the_dense_path(monkeypatch):
+    """n >= BLOCKED_MIN_N with a stationary kernel: per member,
+    condition_blocked and transport_apply without K⁻¹, equal to the dense
+    per-member path."""
+    from gaussian_process_transportation_tpu_torch.ops import blocked_chol as tbc
+
+    S, targets, X, dX = _members_case(tgpt.BLOCKED_MIN_N)
     kern = kernel_from_tree(_jax_kernel(3, amp=2.0, ls=2.0), device="cpu")
     seen = []
     real = tgpt.gp_core.condition_blocked

@@ -20,8 +20,9 @@ Phases, one line each on stdout:
    against the port's own f64 run on the CPU to err/max|X| < 1e-3;
 5. times of phase 3's kernel and twin and of phase 4's path (median of 5
    CUDA-event timed runs after a warm-up), and peak device memory;
-6. the builds of ``factor_panel`` and ``stationary_gram`` (seconds; ptxas
-   registers and spills to stderr);
+6. the builds of ``factor_panel``, ``stationary_gram`` and ``fused_lml``
+   (seconds; ptxas registers and spills, and the fused-LML instances'
+   registers and resident warps per SM);
 7. those kernels against their twins on the card: ``factor_panel`` at
    B in {128, 256, 512, 1024} against numpy's f64 factor (its device
    launches per call and its one-CTA diagonal step's device time from the
@@ -58,13 +59,20 @@ Phases, one line each on stdout:
     {8, 20, 32} × D in {2, 3} × p in {1, 3} × both lengthscale forms × noise
     or not at a ragged E, the shapes past the kernel's eight coordinates
     or columns, (D, p) in {(12, 1), (2, 12), (12, 12)} at n in {20, 32},
-    and the paths' own E; two planted faults (the amplitude gradient
-    negated, two lanes' datasets swapped) must be rejected;
+    and the paths' own E, #3's value-only instance at every shape bit for
+    bit the full kernel's value; three planted faults (the amplitude
+    gradient negated, two lanes' datasets swapped, and that swap in the
+    value-only instance) and a value-only result one ulp off must be
+    rejected; then the times of #2, #3 and #3's value-only instance at the
+    paths' shapes, with the SM clock just after;
 13. the per-member-hyperopt transport ``fit_and_transport_batched_opt`` at
     E=4096, Q=400, n=20 (6 restarts, 30 L-BFGS iterations: 28,672 lanes,
-    211 launches of #3, one of #1): every member's fitted LML (f64) at
-    least its initial one, three members against the f64 CPU transport at
-    their fitted kernels, fits/s and traj/s, peak memory;
+    211 launches of #3, 180 of them its value-only instance for the line
+    search's candidates, one of #1): every member's fitted LML (f64) at
+    least its initial one, the fit's theta and LML bit for bit the same
+    with the candidates through the full kernel, three members against the
+    f64 CPU transport at their fitted kernels, fits/s and traj/s, peak
+    memory, the device launches and idle share of a traced call;
 14. ``sample_gp_posterior`` at ``bench.py``'s hmc workload (256 chains,
     48+48 steps of 16 leapfrog: 1,537 launches of #2): finite samples, #2 at
     the final positions against the f64 formula, a run of 64 chains equal
@@ -73,13 +81,15 @@ Phases, one line each on stdout:
     ``hmc_samples_per_s`` (median of 3);
 15. the ``GaussianProcessTransportation`` façade on the card with the
     default L-BFGS-B fit: finite fields, a positive std, the fitted LML at
-    least the initial one, its wall time; then the times of #2 and #3.
+    least the initial one, its wall time.
 
 Each path is driven with every launch count set to 0 just before and read
 just after.  Then one JSON line with the kernels' record and, last, the
 JSON status line.  Any failed check raises, and the exit code is not 0.
 With no CUDA card it exits at once with a non-zero code.
 """
+import contextlib
+import ctypes
 import json
 import math
 import subprocess
@@ -132,6 +142,9 @@ LML_CASES = [(fam, n, D, p, n_ls, noise) for fam in FAMILIES for n in (8, 20, 32
 LML_WIDE_CASES = [(fam, n, D, p, n_ls, True) for fam in FAMILIES for n in (20, 32)
                   for D, p in ((12, 1), (2, 12), (12, 12)) for n_ls in (1, D)]
 E_LML_SMALL = 37  # ragged against the kernel's four lanes a block
+VALUE_ONLY = "_small_lml_value_md"  # #3's value-only instance (the line search's candidates)
+# the kernel's instances (csrc/fused_lml.cu, small_lml_occupancy's order)
+LML_INSTANCES = ("n<=24 D<=2 p<=2", "n<=32 D<=8 p<=8", "n<=32 D>8 p<=8")
 E_FIT, RESTARTS, MAXITER = 4096, 6, 30  # fit_and_transport_batched_opt (JAX's defaults)
 HMC_CHAINS, HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 256, 48, 48, 16  # bench.py:327-352
 
@@ -145,6 +158,16 @@ TPU_PKG = "gaussian_process_transportation_tpu"
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def sm_clocks() -> str:
+    """The card's SM clock and its maximum now (MHz), as nvidia-smi reports
+    them, to stand beside a kernel's time."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0].strip()
@@ -219,6 +242,25 @@ def cuda_ms(fn, reps=REPS):
     return float(np.median(times)), times
 
 
+@contextlib.contextmanager
+def traced():
+    """A torch.profiler session of CUDA activity that opens with a throwaway
+    launch (``torch.cuda._sleep``): late in a long run, after phase 14's
+    trace of ~141k launches, CUPTI lost the first kernel record of every
+    session (``scripts/profiler_records.py``), and isolated times read low.
+    ``kernel_rows`` gives the session's kernels without that launch."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        yield prof
+
+
+def kernel_rows(prof):
+    """The device rows of a ``traced`` session (kernels, copies, fills), not
+    the CUDA runtime's host-side rows and not the opening launch."""
+    return [e for e in prof.key_averages() if e.self_device_time_total > 0
+            and "spin" not in e.key.lower() and "sleep" not in e.key.lower()]
+
+
 def device_ms(fn, reps=REPS):
     """Device time of every CUDA kernel that one call of ``fn`` launches
     (torch.profiler, CUPTI), in milliseconds: the mean over ``reps`` calls
@@ -228,11 +270,11 @@ def device_ms(fn, reps=REPS):
     fn()
     torch.cuda.synchronize()
     for _ in range(2):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with traced() as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages())
+        total_us = sum(e.self_device_time_total for e in kernel_rows(prof))
         if total_us > 0:
             return total_us / reps / 1e3
     raise AssertionError("torch.profiler recorded no device time")
@@ -241,15 +283,17 @@ def device_ms(fn, reps=REPS):
 def path_breakdown(fn, kernel_key):
     """One call of ``fn`` traced (torch.profiler, CUDA activity): (wall ms
     of the call, device ms of all its kernels, device ms and launches of
-    those whose name holds ``kernel_key``, launches of all kernels)."""
+    those whose name holds ``kernel_key``, launches of all kernels: device
+    rows only, not the CUDA runtime's host-side ones)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = prof.key_averages()
+    rows = kernel_rows(prof)
     mine = [e for e in rows if kernel_key in e.key]
     return dict(wall_ms=wall, device_ms=sum(e.self_device_time_total for e in rows) / 1e3,
                 kernel_ms=sum(e.self_device_time_total for e in mine) / 1e3,
@@ -332,12 +376,16 @@ def drive(path):
     """Run ``path`` once with every launch count set to 0 just before;
     returns its result and the counts read just after."""
     wrappers = counted()
+    md = wrappers["small_lml_value_grad_md"]
     torch.cuda.synchronize()
     for f in wrappers.values():
         f.launches = 0
+    md.value_only_launches = 0
     out = path()
     torch.cuda.synchronize()
-    return out, {name: f.launches for name, f in wrappers.items()}
+    counts = {name: f.launches for name, f in wrappers.items()}
+    counts[VALUE_ONLY] = md.value_only_launches
+    return out, counts
 
 
 def expect_launches(what, counts, want):
@@ -376,11 +424,11 @@ def panel_profile(A):
     factor_panel(A)
     torch.cuda.synchronize()
     for _ in range(2):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with traced() as prof:
             for _ in range(REPS):
                 factor_panel(A)
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        rows = kernel_rows(prof)
         diag = [e for e in rows if "diag_kernel" in e.key]
         if diag:
             return (sum(e.count for e in rows) / REPS,
@@ -646,6 +694,13 @@ def check_lml_case(device, case, E, seed=0):
         if not out[name][1] < 1:
             raise AssertionError(f"{name} {case} E={E}: error/bound vs the f64 formula "
                                  f"{out[name][1]:.3g}")
+        if per_lane:
+            # the value-only instance: bit for bit the full one's value
+            vo = fl._small_lml_value_md(X, Y, th, fam, n_ls, noise, jit)
+            if not torch.equal(vo, v):
+                raise AssertionError(f"{VALUE_ONLY} {case} E={E}: values differ from "
+                                     f"{name}'s by up to {(vo - v).abs().max().item():.3g}")
+            out[VALUE_ONLY] = ((vo - v).abs().max().item(), lml_excess(vo, g, ref)[0])
     return out
 
 
@@ -673,11 +728,57 @@ def lml_faults(device, E, n=20, D=2, p=2):
     return faults
 
 
+def lml_occupancy():
+    """Registers and resident warps (= lanes) per SM of each instance of the
+    fused-LML kernel, as the runtime reports them."""
+    from gaussian_process_transportation_tpu_torch.ops import _cuda
+
+    k = 2 * len(LML_INSTANCES)
+    regs, warps = (ctypes.c_int * k)(), (ctypes.c_int * k)()
+    err = _cuda.library("fused_lml").small_lml_occupancy(regs, warps)
+    if err != 0:
+        raise RuntimeError(f"small_lml_occupancy: CUDA error {err}")
+    return "fused_lml registers / warps per SM, value+gradient and value only: " + ", ".join(
+        f"{c}: {regs[2 * i]}/{warps[2 * i]} and {regs[2 * i + 1]}/{warps[2 * i + 1]}"
+        for i, c in enumerate(LML_INSTANCES))
+
+
+def lml_value_faults(device, E, n=20, D=2, p=2):
+    """The value-only instance's checks must reject a wrong one: its values
+    with lanes 0 and 1's datasets swapped (the f64 bound), and its values
+    one unit in the last place off in one lane (the bitwise comparison with
+    the full kernel).  Returns the first fault's error/bound ratio."""
+    from gaussian_process_transportation_tpu_torch.ops import fused_lml as fl
+
+    X, Y, th = lml_inputs(device, E, n, D, p, D, True, True)
+    ref = lml_f64(X, Y, th, "rbf", D, True, 1e-8)
+    v, g = fl.small_lml_value_grad_md(X, Y, th, "rbf", D, True, 1e-8)
+    swap = torch.arange(E, device=X.device)
+    swap[:2] = swap[[1, 0]]
+    v_sw = fl._small_lml_value_md(X[swap].contiguous(), Y[swap].contiguous(), th, "rbf", D, True,
+                                  1e-8)
+    ex = lml_excess(v_sw, g, ref)[0]
+    if not ex >= 1:
+        raise AssertionError(f"the LML check passes a planted fault of the value-only instance "
+                             f"(error/bound {ex:.3g})")
+    v_ulp = fl._small_lml_value_md(X, Y, th, "rbf", D, True, 1e-8)
+    v_ulp[E // 2] = torch.nextafter(v_ulp[E // 2], torch.full_like(v_ulp[E // 2], math.inf))
+    if torch.equal(v_ulp, v):
+        raise AssertionError("the bitwise check passes a value-only result one ulp off")
+    return ex
+
+
 def lml_flops(n, D, p):
     """Operations of one lane: the Gram (D differences, squares and sums,
     the profile), the Cholesky n³/3 and the inverse 2n³/3, the two solves
     for α, and the gradient's row sums (W, φ and ∂φ again, D products)."""
     return n**3 + n * n * (4 * p + 8 * D + 20)
+
+
+def lml_value_flops(n, D, p):
+    """Operations of one lane's value alone: the Gram (D differences,
+    squares and sums, the profile), the Cholesky n³/3 and the two solves."""
+    return n**3 / 3 + n * n * (2 * p + 3 * D + 6)
 
 
 def fit_targets(S1, E):
@@ -843,6 +944,7 @@ def main() -> None:
               + (f"; mean_var_kernel dynamic smem "
                  f"{_cuda.library(name).predict_mean_var_smem_bytes()} bytes"
                  if name == "stationary_gram" else "")
+              + (f"; {lml_occupancy()}" if name == "fused_lml" else "")
               + f") {tag}", flush=True)
     pool.shutdown()
 
@@ -1101,7 +1203,8 @@ def main() -> None:
           f"{pm_ms:.4f} ms, predict(return_std) {pv_ms:.4f} ms {tag}", flush=True)
 
     # 12. the fused small-LML kernels against their twins and the f64 formula
-    lml_errs = {name: [0.0, 0.0] for name in ("small_lml_value_grad", "small_lml_value_grad_md")}
+    lml_errs = {name: [0.0, 0.0] for name in ("small_lml_value_grad", "small_lml_value_grad_md",
+                                              VALUE_ONLY)}
 
     def note(out):
         for name, (diff, ex) in out.items():
@@ -1119,6 +1222,7 @@ def main() -> None:
             note({name: out[name]})
             main_errs.setdefault(name, out[name][0])
     lml_fault = lml_faults(device, E_FIT)
+    lml_fault["value-only lanes 0 and 1 datasets swapped"] = lml_value_faults(device, E_FIT)
     print(f"fused LML kernels vs twins and the f64 formula (bound {LML_VAL_REL:g}*value terms, "
           f"{LML_GRAD_REL:g}*gradient terms) over {len(LML_CASES)} cases (4 families, n in "
           f"8/20/32, D 2/3, p 1/3, both n_ls, noise or not) and {len(LML_WIDE_CASES)} past eight "
@@ -1126,9 +1230,48 @@ def main() -> None:
           f"E={E_LML_SMALL} and the paths' E "
           + ", ".join(f"{lanes[k]} and {lanes[k] + 3}" for k in lanes) + ": "
           + ", ".join(f"{k} |kernel-twin| max {d:.3g}, error/bound max {ex:.3g}"
-                      for k, (d, ex) in lml_errs.items())
-          + "; planted faults rejected, error/bound "
+                      for k, (d, ex) in lml_errs.items() if k != VALUE_ONLY)
+          + f"; the value-only instance {VALUE_ONLY} bit for bit the full kernel's value at "
+          f"every shape (value error/bound max {lml_errs[VALUE_ONLY][1]:.3g})"
+          + "; planted faults rejected (and a value-only result one ulp off), error/bound "
           + ", ".join(f"{k} {ex:.3g}" for k, ex in lml_fault.items()) + f" {tag}", flush=True)
+
+    # times of kernels #2 and #3 at their paths' shapes, before the traces of
+    # phases 13-14 (after phase 14's, sessions lose kernel records)
+    from gaussian_process_transportation_tpu_torch.ops import fused_lml as fl
+
+    for name, case in main_cases.items():
+        fam, n, D, p, n_ls, noise = case
+        per_lane = name.endswith("_md")
+        X_, Y_, th_ = lml_inputs(device, lanes[name], n, D, p, n_ls, noise, per_lane)
+        kern_fn, twin_fn = getattr(fl, name), getattr(fl, name + "_ref")
+        L_ = lanes[name]
+        data_bytes = (n * D + n * p) * 4 * (L_ if per_lane else 1)
+        kernels_json[name] = dict(
+            source=f"{PKG}/csrc/fused_lml.cu",
+            replaces=f"{TPU_PKG}/ops/fused_lml.py:{279 if per_lane else 88}",
+            max_abs_err=main_errs[name],
+            bound=bound(data_bytes + L_ * (2 * th_.shape[0] + 1) * 4, L_ * lml_flops(n, D, p)),
+            shape=f"lanes={L_} n={n} D={D} p={p}",
+            calls=(lambda f=kern_fn, a=(X_, Y_, th_, fam, n_ls, noise): f(*a),
+                   lambda f=twin_fn, a=(X_, Y_, th_, fam, n_ls, noise): f(*a), None))
+        kernels_json[name].update(timed(*kernels_json[name].pop("calls")))
+        if per_lane:  # the value-only instance at the same inputs
+            vo_fn = lambda a=(X_, Y_, th_, fam, n_ls, noise): fl._small_lml_value_md(*a)
+            kernels_json[name].update(
+                value_only_ms=(device_ms(vo_fn), cuda_ms(vo_fn)[0]),
+                value_only_bound=bound(data_bytes + L_ * (th_.shape[0] + 1) * 4,
+                                       L_ * lml_value_flops(n, D, p)))
+    clocks = sm_clocks()
+    print("times of the fused LML kernels (device ms from CUPTI / CUDA-event ms): "
+          + "; ".join(f"{name} {kernels_json[name]['shape']}: kernel "
+                      f"{fmt(kernels_json[name]['ms'])}, twin {fmt(kernels_json[name]['plain_ms'])}"
+                      f", bound {kernels_json[name]['bound'][0]:.4f} by "
+                      f"{kernels_json[name]['bound'][1]}" for name in main_cases)
+          + f"; {VALUE_ONLY} (the same lanes) "
+          + fmt(kernels_json["small_lml_value_grad_md"]["value_only_ms"])
+          + f", bound {kernels_json['small_lml_value_grad_md']['value_only_bound'][0]:.4f}; "
+          f"clocks.sm, clocks.max.sm just after: {clocks} {tag}", flush=True)
 
     # 13. the per-member-hyperopt transport at full width
     from gaussian_process_transportation_tpu_torch.models import affine as affine_core
@@ -1159,7 +1302,7 @@ def main() -> None:
     thetas13 = fitted[0][0]
     want13 = 1 + MAXITER * (6 + 1)  # _lbfgs_elast's max_backtrack = 6
     expect_launches("fit_and_transport_batched_opt", counts13, {
-        "small_lml_value_grad_md": want13, "spd_inverse_elast_fused": 1,
+        "small_lml_value_grad_md": want13, VALUE_ONLY: MAXITER * 6, "spd_inverse_elast_fused": 1,
         "small_lml_value_grad": 0})
     for name in ("traj", "std", "delta", "delta_var", "min_abs_det"):
         if not torch.isfinite(getattr(res13, name)).all():
@@ -1190,20 +1333,43 @@ def main() -> None:
     fit_only = lambda: gp_core.fit_ensemble_fused(
         kern13, src32, T13d - src32, n_restarts=RESTARTS, maxiter=MAXITER,
         generator=torch.Generator(device=device).manual_seed(0))
+    # the line search's candidates through the full kernel instead of the
+    # value-only instance: the same fitted theta and LML, bit for bit
+    th_a, lml_a = fit_only()
+    real_value = fl._small_lml_value_md
+    fl._small_lml_value_md = lambda *a, **k: fl.small_lml_value_grad_md(*a, **k)[0]
+    try:
+        th_b, lml_b = fit_only()
+    finally:
+        fl._small_lml_value_md = real_value
+    if not (torch.equal(th_a, th_b) and torch.equal(lml_a, lml_b)):
+        raise AssertionError("fit_ensemble_fused's theta or LML differ with the value-only route "
+                             f"and without it: |dtheta| max {(th_a - th_b).abs().max().item():.3g}")
+    lml_b64 = gp_core.log_marginal_likelihood(kern13_64.with_theta(th_b.double()), src64,
+                                              T64 - src64)
+    gain_b = (lml_b64 - lml0).min().item()
+    if not gain_b >= -1e-3:
+        raise AssertionError(f"without the value-only route a member's fitted LML is below its "
+                             f"initial one by {-gain_b:.3g}")
     fit_ms, fit_all = cuda_ms(fit_only)
     opt_ms, opt_all = cuda_ms(opt_path)
     brk13 = path_breakdown(opt_path, "lml_kernel")
+    brk_fit = path_breakdown(fit_only, "lml_kernel")
     print(f"per-member hyperopt transport: fit_and_transport_batched_opt E={E_FIT} Q={Q_MAIN} "
           f"n={N_MAIN} f32, {RESTARTS} restarts, maxiter {MAXITER} ({E_FIT * (RESTARTS + 1)} "
-          f"lanes): small_lml_value_grad_md launches {counts13['small_lml_value_grad_md']}, "
+          f"lanes): small_lml_value_grad_md launches {counts13['small_lml_value_grad_md']} (of "
+          f"them value-only {counts13[VALUE_ONLY]}), "
           f"spd_inverse_elast_fused {counts13['spd_inverse_elast_fused']}; fields finite; fitted "
-          f"LML - initial LML (f64) min {gain:.4g} (>= -1e-3); err/max|X| vs f64 CPU "
+          f"LML - initial LML (f64) min {gain:.4g} (>= -1e-3); fit_ensemble_fused's theta and LML "
+          f"bit for bit the same with the value-only route and without it (LML gain min "
+          f"{gain_b:.4g}); err/max|X| vs f64 CPU "
           "fit_and_transport at the fitted kernel "
           + ", ".join(f"{k}: {v:.3g}" for k, v in rel13.items())
           + f" (< {TRAJ_TOL}); fit_ensemble_fused {fit_ms:.4f} ms {fit_all} = fits_per_s "
           f"{E_FIT / (fit_ms / 1e3):.1f}; the path {opt_ms:.4f} ms {opt_all} = traj/s "
           f"{E_FIT / (opt_ms / 1e3):.1f} (medians of {REPS}, CUDA events); peak memory "
-          f"{peak13:.3f} GiB; {fmt_breakdown(brk13)} {tag}", flush=True)
+          f"{peak13:.3f} GiB; {fmt_breakdown(brk13)}; fit_ensemble_fused alone: "
+          f"{fmt_breakdown(brk_fit)} {tag}", flush=True)
 
     # 14. the HMC hyperposterior at bench.py's hmc workload
     X14, Y14 = (torch.as_tensor(a, **f32) for a in hmc_inputs())
@@ -1223,8 +1389,6 @@ def main() -> None:
         raise AssertionError(f"HMC samples {tuple(s14.shape)} not finite or misshapen")
     fam14, nls14, noise14, perm14 = gp_core.small_lml_theta_layout(kern14)
     th_final = s14[:, -1, :][:, torch.as_tensor(perm14, device=device)].T.contiguous()
-    from gaussian_process_transportation_tpu_torch.ops import fused_lml as fl
-
     v14, g14 = fl.small_lml_value_grad(X14, Y14, th_final, fam14, nls14, noise14, 1e-10)
     ex14 = lml_excess(v14, g14, lml_f64(X14[None], Y14[None], th_final, fam14, nls14, noise14,
                                         1e-10))
@@ -1286,29 +1450,10 @@ def main() -> None:
           f"diffeomorphic {tr.method.is_diffeomorphic}; fit + apply {wall15:.3f} s wall {tag}",
           flush=True)
 
-    # times of kernels #2 and #3 at their paths' shapes
-    for name, case in main_cases.items():
-        fam, n, D, p, n_ls, noise = case
-        per_lane = name.endswith("_md")
-        X_, Y_, th_ = lml_inputs(device, lanes[name], n, D, p, n_ls, noise, per_lane)
-        kern_fn, twin_fn = getattr(fl, name), getattr(fl, name + "_ref")
-        L_ = lanes[name]
-        data_bytes = (n * D + n * p) * 4 * (L_ if per_lane else 1)
-        kernels_json[name] = dict(
-            source=f"{PKG}/csrc/fused_lml.cu",
-            replaces=f"{TPU_PKG}/ops/fused_lml.py:{279 if per_lane else 88}",
-            launches=(counts13 if per_lane else counts14)[name], max_abs_err=main_errs[name],
-            bound=bound(data_bytes + L_ * (2 * th_.shape[0] + 1) * 4, L_ * lml_flops(n, D, p)),
-            shape=f"lanes={L_} n={n} D={D} p={p}",
-            calls=(lambda f=kern_fn, a=(X_, Y_, th_, fam, n_ls, noise): f(*a),
-                   lambda f=twin_fn, a=(X_, Y_, th_, fam, n_ls, noise): f(*a), None))
-        kernels_json[name].update(timed(*kernels_json[name].pop("calls")))
-    print("times of the fused LML kernels (device ms from CUPTI / CUDA-event ms): "
-          + "; ".join(f"{name} {kernels_json[name]['shape']}: kernel "
-                      f"{fmt(kernels_json[name]['ms'])}, twin {fmt(kernels_json[name]['plain_ms'])}"
-                      f", bound {kernels_json[name]['bound'][0]:.4f} by "
-                      f"{kernels_json[name]['bound'][1]}" for name in main_cases)
-          + f" {tag}", flush=True)
+    # the launches of #2 and #3 in their paths' runs (phases 13 and 14)
+    kernels_json["small_lml_value_grad"]["launches"] = counts14["small_lml_value_grad"]
+    kernels_json["small_lml_value_grad_md"].update(
+        launches=counts13["small_lml_value_grad_md"], value_only_launches=counts13[VALUE_ONLY])
 
     # the record's times are the kernels' device times (CUPTI), named so by
     # "timing"; the CUDA-event times of the calls stand beside them
@@ -1319,7 +1464,12 @@ def main() -> None:
                "plain_ms": dev(v["plain_ms"]), "bound_ms": v["bound"][0],
                "bound_by": v["bound"][1], "library_ms": dev(v["library_ms"]),
                "timing": "cupti_device", "event_ms": event(v["ms"]),
-               "plain_event_ms": event(v["plain_ms"]), "library_event_ms": event(v["library_ms"])}
+               "plain_event_ms": event(v["plain_ms"]), "library_event_ms": event(v["library_ms"]),
+               **({"value_only_ms": dev(v["value_only_ms"]),
+                   "value_only_event_ms": event(v["value_only_ms"]),
+                   "value_only_launches": v["value_only_launches"],
+                   "value_only_bound_ms": v["value_only_bound"][0]}
+                  if "value_only_ms" in v else {})}
               for name, v in kernels_json.items()]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

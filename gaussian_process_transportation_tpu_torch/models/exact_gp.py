@@ -502,15 +502,23 @@ def _lbfgs_elast(
     m: int = 8,
     armijo_c: float = 1e-4,
     max_backtrack: int = 6,
+    value_b: Optional[Callable[[Tensor], Tensor]] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Per-lane projected L-BFGS (minimization) on (T, L) parameters.
 
     Every lane optimizes on its own: the two-loop recursion's inner
     products are per-lane sums over the T rows, the histories are (m, T, L)
     buffers with ρ = 0 marking empty or degenerate slots, and the Armijo
-    backtracking halves each lane's step by itself.  One batched
-    value-and-gradient call per candidate: 1 + maxiter·(max_backtrack + 1)
-    in all.  Returns (x, value)."""
+    backtracking halves each lane's step by itself.  One batched call per
+    candidate: 1 + maxiter·(max_backtrack + 1) in all, of which the
+    maxiter·max_backtrack Armijo candidates, whose gradient is not used, go
+    to ``value_b`` (values only; by default the value of
+    ``value_and_grad_b``).  ``value_b`` must give the values
+    ``value_and_grad_b`` gives, bit for bit, or the path changes.  Returns
+    (x, value)."""
+    if value_b is None:
+        def value_b(x):
+            return value_and_grad_b(x)[0]
     T, L = x0.shape
 
     def dot(a, b):
@@ -543,7 +551,7 @@ def _lbfgs_elast(
         dg = torch.clamp(dot(d, g), max=-1e-30)
         t = x0.new_ones(L)
         for _ in range(max_backtrack):
-            v_try, _ = value_and_grad_b(clip(x + t[None, :] * d))
+            v_try = value_b(clip(x + t[None, :] * d))
             t = torch.where(v_try <= v + armijo_c * t * dg, t, 0.5 * t)
         x_new = clip(x + t[None, :] * d)
         v_new, g_new = value_and_grad_b(x_new)
@@ -576,7 +584,9 @@ def fit_ensemble_fused(
     dataset (Xe[e] (n, D), Ye[e] (n, p)); all members × (1 + n_restarts)
     starts optimize as lanes of one :func:`_lbfgs_elast`, whose value and
     gradient is one call of ``ops.fused_lml.small_lml_value_grad_md`` per
-    candidate: the kernel for CUDA tensors, its plain twin for CPU ones.
+    candidate (the Armijo candidates' values alone from its value-only
+    twin ``_small_lml_value_md``, the same bits): the kernels for CUDA
+    tensors, their plain twins for CPU ones.
 
     The first start of each member is ``kernel.theta``, the others uniform
     in the log-space bounds, drawn from ``generator`` (on Xe's device;
@@ -606,17 +616,24 @@ def fit_ensemble_fused(
     Xe_t = Xe.to(torch.float32).repeat_interleave(R, 0).contiguous()
     Ye_t = Ye3.to(torch.float32).repeat_interleave(R, 0).contiguous()
 
-    def nll_b(th):
-        val, grad = fused_lml.small_lml_value_grad_md(
-            Xe_t, Ye_t, th.contiguous(), family=family, n_ls=n_ls, has_noise=has_noise,
-            jitter=jitter)
+    lml_kw = dict(family=family, n_ls=n_ls, has_noise=has_noise, jitter=jitter)
+
+    def nll(val):
         v = -val
         bad = ~torch.isfinite(v)
-        v = torch.where(bad, torch.full_like(v, 1e25), v)
+        return torch.where(bad, torch.full_like(v, 1e25), v), bad
+
+    def nll_b(th):
+        val, grad = fused_lml.small_lml_value_grad_md(Xe_t, Ye_t, th.contiguous(), **lml_kw)
+        v, bad = nll(val)
         g = torch.where(torch.isfinite(grad) & ~bad[None, :], -grad, torch.zeros_like(grad))
         return v, g
 
-    x, v = _lbfgs_elast(nll_b, x0, lo[perm][:, None], hi[perm][:, None], maxiter)
+    def nll_value_b(th):  # the line search's candidates: the same values, no gradient
+        return nll(fused_lml._small_lml_value_md(Xe_t, Ye_t, th.contiguous(), **lml_kw))[0]
+
+    x, v = _lbfgs_elast(nll_b, x0, lo[perm][:, None], hi[perm][:, None], maxiter,
+                        value_b=nll_value_b)
     v_er = v.reshape(E, R)
     best = v_er.argmin(1)
     x_er = x.T.reshape(E, R, T)

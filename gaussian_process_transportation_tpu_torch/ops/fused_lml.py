@@ -19,7 +19,14 @@ defined beside them for CPU tensors:
 * ``small_lml_value_grad_md``: lane e has its own (Xe[e], Ye[e]) (the
   per-member hyperparameter fits).
 
-Both count their launches in ``<wrapper>.launches``.  As in JAX, n ≤ 32
+The module-private ``_small_lml_value_md`` gives the per-lane values
+alone, bit for bit those of ``small_lml_value_grad_md``, from the kernel's
+value-only instance, for callers that discard the gradient (the L-BFGS line
+search of ``models/exact_gp.py::fit_ensemble_fused``).
+
+Both count their launches in ``<wrapper>.launches`` (the value-only
+launches in ``small_lml_value_grad_md``'s, and also in its
+``value_only_launches``).  As in JAX, n ≤ 32
 and nothing else is limited: the kernel takes any D (coordinates in
 chunks of eight) and at most ``KERNEL_P`` columns of Y a launch, so a
 wider Y is split into column chunks, one launch each, whose values and
@@ -32,7 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -81,9 +88,11 @@ def _check_layout(name: str, n: int, D: int, p: int, theta: Tensor, family: str,
 # -- plain twins ------------------------------------------------------------
 
 
-def _value_grad_plain(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str, n_ls: int,
-                      has_noise: bool, jitter: float) -> Tuple[Tensor, Tensor]:
-    """Lanes first: Xe (E or 1, n, D), Ye (E or 1, n, p), theta (T, E)."""
+def _value_parts(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str, n_ls: int,
+                 has_noise: bool, jitter: float):
+    """The value and what the gradient reuses, lanes first: Xe (E or 1, n,
+    D), Ye (E or 1, n, p), theta (T, E).  The value-only and the full twin
+    both take their value from here, so the two agree bit for bit."""
     dtype = theta.dtype
     Xe, Ye = Xe.to(dtype), Ye.to(dtype)
     E = theta.shape[1]
@@ -105,11 +114,21 @@ def _value_grad_plain(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str, n_ls: 
     L = torch.where(bad[:, None, None], eye, L)
     Yb = Ye.expand(E, n, p)
     alpha = torch.cholesky_solve(Yb, L)
-    K_inv = torch.cholesky_inverse(L)
     logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
     quad = (alpha * Yb).sum((-2, -1))
     val = -0.5 * quad - p * (0.5 * logdet + 0.5 * n * _LOG_2PI)
+    val = torch.where(bad, torch.full((), math.nan, dtype=dtype, device=theta.device), val)
+    return val, dict(amp=amp, inv_ls2=inv_ls2, noise=noise, d2=d2, s=s, ph=ph, L=L, bad=bad,
+                     alpha=alpha)
 
+
+def _value_grad_plain(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str, n_ls: int,
+                      has_noise: bool, jitter: float) -> Tuple[Tensor, Tensor]:
+    """Lanes first: Xe (E or 1, n, D), Ye (E or 1, n, p), theta (T, E)."""
+    val, c = _value_parts(Xe, Ye, theta, family, n_ls, has_noise, jitter)
+    amp, inv_ls2, noise, d2, s, ph = (c[k] for k in ("amp", "inv_ls2", "noise", "d2", "s", "ph"))
+    alpha, p = c["alpha"], Ye.shape[-1]
+    K_inv = torch.cholesky_inverse(c["L"])
     W = 0.5 * (alpha @ alpha.transpose(-1, -2) - p * K_inv)
     g_amp = (W * (amp[:, None, None] * ph)).sum((-2, -1))
     Wdk = W * (amp[:, None, None] * _dphi(s, family))
@@ -120,8 +139,8 @@ def _value_grad_plain(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str, n_ls: 
     if has_noise:
         rows.append((noise * torch.diagonal(W, dim1=-2, dim2=-1).sum(-1))[:, None])
     grad = torch.cat(rows, 1).T
-    nan = torch.full((), math.nan, dtype=dtype, device=theta.device)
-    return torch.where(bad, nan, val), torch.where(bad[None, :], nan, grad)
+    nan = torch.full((), math.nan, dtype=theta.dtype, device=theta.device)
+    return val, torch.where(c["bad"][None, :], nan, grad)
 
 
 def small_lml_value_grad_ref(X: Tensor, Y: Tensor, theta: Tensor, family: str = "rbf",
@@ -142,16 +161,28 @@ def small_lml_value_grad_md_ref(Xe: Tensor, Ye: Tensor, theta: Tensor, family: s
     return _value_grad_plain(Xe, Ye3, theta, family, n_ls, has_noise, jitter)
 
 
+def _small_lml_value_md_ref(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str = "rbf",
+                            n_ls: int = 1, has_noise: bool = True,
+                            jitter: float = 1e-10) -> Tensor:
+    """Plain twin of :func:`_small_lml_value_md`: the values (E,) of
+    :func:`small_lml_value_grad_md_ref`, bit for bit, without the inverse
+    and the gradient."""
+    Ye3 = Ye[:, :, None] if Ye.dim() == 2 else Ye
+    return _value_parts(Xe, Ye3, theta, family, n_ls, has_noise, jitter)[0]
+
+
 # -- kernel wrappers --------------------------------------------------------
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
+_COMMON = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
+_ARGTYPES = {"small_lml_value_grad_f32": [ctypes.c_void_p] * 5 + _COMMON,
+             "small_lml_value_grad_md_f32": [ctypes.c_void_p] * 5 + _COMMON,
+             "small_lml_value_md_f32": [ctypes.c_void_p] * 4 + _COMMON}
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(entry: str):
     fn = getattr(_cuda.library("fused_lml"), entry)
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
     return fn
 
@@ -163,10 +194,11 @@ def _on_card(*tensors: Tensor) -> bool:
 
 
 def _launch(name: str, entry: str, X: Tensor, Y: Tensor, theta: Tensor, family: str,
-            n_ls: int, has_noise: bool, jitter: float) -> Tuple[Tensor, Tensor, int]:
+            n_ls: int, has_noise: bool, jitter: float,
+            with_grad: bool = True) -> Tuple[Tensor, Optional[Tensor], int]:
     """Checks the card's inputs and launches ``entry`` once per chunk of
     ``KERNEL_P`` columns of Y, summing the chunks' values and gradients;
-    returns (values, gradients, launches)."""
+    returns (values, gradients or None, launches)."""
     device = theta.device
     for t in (X, Y, theta):
         if t.device != device:
@@ -178,23 +210,28 @@ def _launch(name: str, entry: str, X: Tensor, Y: Tensor, theta: Tensor, family: 
     n, D = X.shape[-2:]
     E, p = theta.shape[1], Y.shape[-1]
     if E == 0:
-        return theta.new_empty(E), torch.empty_like(theta), 0
+        return theta.new_empty(E), torch.empty_like(theta) if with_grad else None, 0
     fn = _entry(entry)
     val = grad = None
     launches = 0
     for c0 in range(0, p, KERNEL_P):
         Yc = Y if p <= KERNEL_P else Y[..., c0:c0 + KERNEL_P].contiguous()
         v = torch.empty(E, dtype=torch.float32, device=device)
-        g = torch.empty(theta.shape, dtype=torch.float32, device=device)
+        g = torch.empty(theta.shape, dtype=torch.float32, device=device) if with_grad else None
+        outs = (v.data_ptr(), g.data_ptr()) if with_grad else (v.data_ptr(),)
         with torch.cuda.device(device):
-            err = fn(X.data_ptr(), Yc.data_ptr(), theta.data_ptr(), v.data_ptr(), g.data_ptr(),
+            err = fn(X.data_ptr(), Yc.data_ptr(), theta.data_ptr(), *outs,
                      n, D, Yc.shape[-1], n_ls, int(has_noise),
                      STATIONARY_FAMILIES.index(family), float(jitter), E,
                      torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
         launches += 1
-        val, grad = (v, g) if val is None else (val + v, grad + g)
+        if val is None:
+            val, grad = v, g
+        else:
+            val = val + v
+            grad = grad + g if with_grad else None
     return val, grad, launches
 
 
@@ -223,6 +260,19 @@ def small_lml_value_grad(X: Tensor, Y: Tensor, theta: Tensor, family: str = "rbf
 small_lml_value_grad.launches = 0
 
 
+def _check_md(name: str, Xe: Tensor, Ye: Tensor, theta: Tensor, family: str, n_ls: int,
+              has_noise: bool) -> Tensor:
+    """The per-lane entries' checks; returns Ye as (E, n, p)."""
+    Ye3 = Ye[:, :, None] if Ye.dim() == 2 else Ye
+    if Xe.dim() != 3 or Ye3.dim() != 3 or Ye3.shape[:2] != Xe.shape[:2]:
+        raise ValueError(f"{name}: Xe (E, n, D) and Ye (E, n, p), got "
+                         f"{tuple(Xe.shape)} and {tuple(Ye.shape)}")
+    _check_layout(name, Xe.shape[1], Xe.shape[2], Ye3.shape[2], theta, family, n_ls, has_noise)
+    if theta.shape[1] != Xe.shape[0]:
+        raise ValueError(f"{name}: theta has {theta.shape[1]} lanes, the data {Xe.shape[0]}")
+    return Ye3
+
+
 def small_lml_value_grad_md(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str = "rbf",
                             n_ls: int = 1, has_noise: bool = True,
                             jitter: float = 1e-10) -> Tuple[Tensor, Tensor]:
@@ -231,15 +281,7 @@ def small_lml_value_grad_md(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str =
 
     For CUDA tensors one launch of the kernel per eight columns of Y
     (float32, contiguous, n ≤ 32); for CPU tensors the plain twin."""
-    Ye3 = Ye[:, :, None] if Ye.dim() == 2 else Ye
-    if Xe.dim() != 3 or Ye3.dim() != 3 or Ye3.shape[:2] != Xe.shape[:2]:
-        raise ValueError(f"small_lml_value_grad_md: Xe (E, n, D) and Ye (E, n, p), got "
-                         f"{tuple(Xe.shape)} and {tuple(Ye.shape)}")
-    _check_layout("small_lml_value_grad_md", Xe.shape[1], Xe.shape[2], Ye3.shape[2], theta,
-                  family, n_ls, has_noise)
-    if theta.shape[1] != Xe.shape[0]:
-        raise ValueError(f"small_lml_value_grad_md: theta has {theta.shape[1]} lanes, the data "
-                         f"{Xe.shape[0]}")
+    Ye3 = _check_md("small_lml_value_grad_md", Xe, Ye, theta, family, n_ls, has_noise)
     if not _on_card(Xe, Ye3, theta):
         return small_lml_value_grad_md_ref(Xe, Ye3, theta, family, n_ls, has_noise, jitter)
     val, grad, launches = _launch("small_lml_value_grad_md", "small_lml_value_grad_md_f32", Xe,
@@ -249,3 +291,23 @@ def small_lml_value_grad_md(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str =
 
 
 small_lml_value_grad_md.launches = 0
+small_lml_value_grad_md.value_only_launches = 0
+
+
+def _small_lml_value_md(Xe: Tensor, Ye: Tensor, theta: Tensor, family: str = "rbf",
+                        n_ls: int = 1, has_noise: bool = True, jitter: float = 1e-10) -> Tensor:
+    """The values (E,) of :func:`small_lml_value_grad_md`, bit for bit,
+    without the inverse and the gradient: for callers that would discard
+    the gradient (the line search's candidates).
+
+    For CUDA tensors the kernel's value-only instance, one launch per eight
+    columns of Y, counted in ``small_lml_value_grad_md.launches`` and in its
+    ``value_only_launches``; for CPU tensors the plain twin."""
+    Ye3 = _check_md("small_lml_value_grad_md", Xe, Ye, theta, family, n_ls, has_noise)
+    if not _on_card(Xe, Ye3, theta):
+        return _small_lml_value_md_ref(Xe, Ye3, theta, family, n_ls, has_noise, jitter)
+    val, _, launches = _launch("small_lml_value_grad_md", "small_lml_value_md_f32", Xe, Ye3,
+                               theta, family, n_ls, has_noise, jitter, with_grad=False)
+    small_lml_value_grad_md.launches += launches
+    small_lml_value_grad_md.value_only_launches += launches
+    return val

@@ -19,7 +19,9 @@ measurements, and the panel kernel they rest on, on one CUDA card:
   and the cuSOLVER pair (``cholesky`` then ``solve_triangular``) on the
   same block (``chip_smoke.py`` phase 7 prints its launches per call and
   its diagonal step's time);
-* ``lml``: the fused-LML kernels #2 and #3 at their paths' shapes;
+* ``lml``: the fused-LML kernels #2 and #3 at their paths' shapes, #3's
+  value-only instance where the tree has one, each reading with the SM
+  clock (``nvidia-smi`` clocks.sm and clocks.max.sm) before and after it;
 * ``paths``: fits/s of ``fit_ensemble_fused`` and ``hmc_samples_per_s`` of
   ``sample_gp_posterior``, at ``chip_smoke.py``'s phase 13 and 14 sizes.
 
@@ -33,6 +35,7 @@ medians of 5 and 3).
 """
 import argparse
 import importlib
+import subprocess
 import sys
 from pathlib import Path
 
@@ -142,23 +145,38 @@ def time_panel(cs, pkg, device, B=512):
               f"{cs.device_ms(library):.4f} / {cs.cuda_ms(library)[0]:.4f}", flush=True)
 
 
+def sm_clocks():
+    """clocks.sm and clocks.max.sm (MHz) as nvidia-smi reads them now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True,
+                         timeout=60)
+    return out.stdout.strip().splitlines()[0].strip()
+
+
 def time_lml(cs, pkg, device):
-    """Kernels #2 and #3 at their paths' shapes (phase 12's main cases)."""
+    """Kernels #2 and #3 at their paths' shapes (phase 12's main cases), and
+    #3's value-only instance where the tree has one; the SM clock sampled
+    just before and just after each reading."""
     fl = pkg["fused_lml"]
-    for name, lanes, case in (
-            ("small_lml_value_grad", cs.HMC_CHAINS, ("rbf", cs.N_MAIN, 2, 1, 2, True)),
+    runs = [("small_lml_value_grad", cs.HMC_CHAINS, ("rbf", cs.N_MAIN, 2, 1, 2, True)),
             ("small_lml_value_grad_md", cs.E_FIT * (cs.RESTARTS + 1),
-             ("rbf", cs.N_MAIN, 2, 2, 2, True))):
+             ("rbf", cs.N_MAIN, 2, 2, 2, True))]
+    if hasattr(fl, "_small_lml_value_md"):
+        runs.append(("_small_lml_value_md", runs[1][1], runs[1][2]))
+    for name, lanes, case in runs:
         fam, n, D, p, n_ls, noise = case
-        X, Y, th = cs.lml_inputs(device, lanes, n, D, p, n_ls, noise, name.endswith("_md"))
+        X, Y, th = cs.lml_inputs(device, lanes, n, D, p, n_ls, noise, "_md" in name)
         fn = getattr(fl, name)
 
         def kernel():
             return fn(X, Y, th, fam, n_ls, noise)
 
         for _ in range(2):
-            print(f"{name} lanes={lanes} n={n} D={D} p={p}: {cs.device_ms(kernel):.4f} device / "
-                  f"{cs.cuda_ms(kernel)[0]:.4f} event ms", flush=True)
+            before = sm_clocks()
+            dev, event = cs.device_ms(kernel), cs.cuda_ms(kernel)[0]
+            print(f"{name} lanes={lanes} n={n} D={D} p={p}: {dev:.4f} device / {event:.4f} event "
+                  f"ms; clocks.sm, clocks.max.sm before {before}, after {sm_clocks()}",
+                  flush=True)
 
 
 def time_paths(cs, pkg, device):

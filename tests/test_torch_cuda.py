@@ -363,6 +363,36 @@ def test_fused_lml_repeat_runs_are_bitwise_equal(device):
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+@pytest.mark.parametrize("n", [1, 8, 9, 16, 17, 20, 24, 25, 32])
+def test_fused_lml_value_only_is_the_full_value_bit_for_bit(device, n):
+    """Every register capacity and its edges, a wide X and a wide Y: the
+    value-only instance gives the full instance's values, bit for bit."""
+    for D, p, n_ls in ((2, 2, 2), (12, 1, 12), (3, 12, 1)):
+        X, Y, th = chip_smoke.lml_inputs(device, 37, n, D, p, n_ls, True, True, seed=n)
+        v, _ = tfl.small_lml_value_grad_md(X, Y, th, "matern32", n_ls, True, 1e-8)
+        vo = tfl._small_lml_value_md(X, Y, th, "matern32", n_ls, True, 1e-8)
+        torch.cuda.synchronize()
+        assert torch.equal(v, vo), (n, D, p)
+
+
+def test_fused_lml_value_only_planted_faults_are_rejected(device):
+    assert chip_smoke.lml_value_faults(device, 1024) > 10
+
+
+def test_fused_lml_a_bad_lane_is_nan_there_only(device):
+    """Two equal points in lane 1 and a negative jitter: both instances give
+    lane 1 a NaN value (and gradient), the other lanes finite ones."""
+    X, Y, _ = chip_smoke.lml_inputs(device, 3, 6, 2, 1, 1, True, True)
+    X[1, 1] = X[1, 0]
+    th = torch.zeros(2, 3, device=device)
+    val, grad = tfl.small_lml_value_grad_md(X, Y, th, "rbf", 1, False, jitter=-1e-4)
+    vo = tfl._small_lml_value_md(X, Y, th, "rbf", 1, False, jitter=-1e-4)
+    torch.cuda.synchronize()
+    for v in (val, vo):
+        assert torch.isnan(v[1]) and torch.isfinite(v[[0, 2]]).all()
+    assert torch.isnan(grad[:, 1]).all() and torch.isfinite(grad[:, [0, 2]]).all()
+
+
 def test_fused_lml_wrappers_refuse_what_the_kernels_do_not_take(device):
     X, Y, th = chip_smoke.lml_inputs(device, 8, 10, 2, 1, 1, True, True)
     md = tfl.small_lml_value_grad_md
@@ -397,6 +427,7 @@ def _reset_lml_counts(monkeypatch):
     for fn in (tfl.small_lml_value_grad, tfl.small_lml_value_grad_md,
                tbl.spd_inverse_elast_fused):
         monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(tfl.small_lml_value_grad_md, "value_only_launches", 0)
 
 
 def test_batched_opt_transport_launches_the_fused_fit(device, monkeypatch):
@@ -409,6 +440,7 @@ def test_batched_opt_transport_launches_the_fused_fit(device, monkeypatch):
         n_restarts=2, maxiter=3)
     torch.cuda.synchronize()
     assert tfl.small_lml_value_grad_md.launches == 1 + 3 * 7
+    assert tfl.small_lml_value_grad_md.value_only_launches == 3 * 6
     assert tbl.spd_inverse_elast_fused.launches == 1 and tfl.small_lml_value_grad.launches == 0
     assert torch.isfinite(res.traj).all() and res.traj.shape == (16, 50, 2)
 

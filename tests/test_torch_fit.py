@@ -162,13 +162,17 @@ def test_fit_ensemble_fused_with_restarts_improves_every_member(monkeypatch):
     jk = _bounded_kernel()
     tk = kernel_from_tree(jk, device="cpu")
     Xe, Ye = _ensemble()
-    calls = []
-    real = tfl.small_lml_value_grad_md
+    calls, value_calls = [], []
+    real, real_value = tfl.small_lml_value_grad_md, tfl._small_lml_value_md
     monkeypatch.setattr(tfl, "small_lml_value_grad_md",
                         lambda *a, **k: calls.append(a[2].shape) or real(*a, **k))
+    monkeypatch.setattr(tfl, "_small_lml_value_md",
+                        lambda *a, **k: value_calls.append(a[2].shape) or real_value(*a, **k))
     th, lml = tgp.fit_ensemble_fused(tk, _t(Xe), _t(Ye), n_restarts=4, maxiter=12,
                                      generator=torch.Generator().manual_seed(1))
-    assert calls == [(4, 4 * 5)] * (1 + 12 * 7) and real.launches == 0
+    # one batched call a candidate: the Armijo candidates' values alone
+    assert calls == [(4, 4 * 5)] * (1 + 12) and value_calls == [(4, 4 * 5)] * (12 * 6)
+    assert real.launches == 0
     X64, Y64 = _t(Xe), _t(Ye)
     initial = tgp.log_marginal_likelihood(tk, X64, Y64, 1e-10)
     fitted = tgp.log_marginal_likelihood(tk.with_theta(th.double()), X64, Y64, 1e-10)

@@ -68,6 +68,12 @@ def test_lml_check_rejects_planted_faults():
     assert min(faults.values()) > 10
 
 
+def test_lml_check_rejects_a_planted_fault_of_the_value_only_instance():
+    """Phase 12's checks of the value-only instance, on its twin: a
+    dataset swap reads far above the bound, a one-ulp change is caught."""
+    assert chip_smoke.lml_value_faults("cpu", 512) > 10
+
+
 def test_lml_check_holds_at_the_hmc_chains_final_positions():
     """Phase 14 holds kernel #2 at the chains' final positions to the same
     bound; on the CPU the f32 twin of a short run reads below half of it."""

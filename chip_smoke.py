@@ -12,8 +12,10 @@ Phases, one line each on stdout:
 2. the build of the ``spd_inverse_elast`` kernel from ``csrc/`` (seconds;
    all three kernel sources start building together here, one nvcc each);
 3. ``spd_inverse_elast_fused`` against its plain PyTorch twin on the card,
-   n in {8, 20, 24, 32, 64}, E a full and a ragged block, f32 to 2e-5 (and
-   K^-1 to 1e-4 against numpy's f64 inverse), one f64 case to 1e-10;
+   n in {1, 8, 16, 20, 24, 32, 33, 64} (every instance of the kernel, each
+   case printed with the instance it took), E the bench size and a ragged
+   one, f32 to 2e-5 (and K^-1 to 1e-4 against numpy's f64 inverse), one
+   f64 case to 1e-10, two runs at the bench shape bitwise equal;
 4. the ensemble transport ``fit_and_transport_batched`` at the bench size
    (E=16384 targets of n=20 points, a Q=400 demo, C(10)*RBF(4)+White(0.01),
    f32): finite fields, exactly one kernel launch, and three members
@@ -21,8 +23,9 @@ Phases, one line each on stdout:
 5. times of phase 3's kernel and twin and of phase 4's path (median of 5
    CUDA-event timed runs after a warm-up), and peak device memory;
 6. the builds of ``factor_panel``, ``stationary_gram`` and ``fused_lml``
-   (seconds; ptxas registers and spills, and the fused-LML instances'
-   registers and resident warps per SM);
+   (seconds; ptxas registers and spills of every kernel instance, those of
+   ``spd_inverse_elast`` too, and the fused-LML instances' registers and
+   resident warps per SM);
 7. those kernels against their twins on the card: ``factor_panel`` at
    B in {128, 256, 512, 1024} against numpy's f64 factor (its device
    launches per call and its one-CTA diagonal step's device time from the
@@ -32,7 +35,11 @@ Phases, one line each on stdout:
    of the mean-and-variance kernel's 128-wide tiles; D=3, P=2), per query
    against their formula in float64 on the same inputs (tolerances and
    reasons in ``check_*`` and beside ``VAR_REL``), two runs bitwise equal,
-   and two planted faults of the variance that the check must reject;
+   and two planted faults of the variance that the check must reject; the
+   mean kernel alone at the edges of its 128-point chunks and 256-query
+   blocks (every Nq, N in ``MEAN_EDGES``, and the four families, D in
+   {2, 3, 5}, P in {1, 2, 8} at a ragged shape), two runs bitwise equal,
+   and two planted faults of the mean;
 8. the large-N solve ``gram_cholesky_solve`` at N=10240 (the bench's
    inputs): 20 panel launches, alpha against an f64 solve on the card,
    TFLOP/s beside the card's f32 matmul rate, and the blocked path beside
@@ -41,14 +48,18 @@ Phases, one line each on stdout:
 9. the slice's main path, the 3-D ensemble transport at the original
    project's surface scale (E=16 members of n=2500 points, Q=1000, D=3):
    80 panel launches, members 0 and 15 against the port's f64 dense run on
-   the CPU;
+   the CPU; then the Gram kernel's device total over phase 8's 20 and this
+   phase's 80 launches (one traced call each) beside its byte bound;
 10. the dense-grid predicts (a 100x100 grid, N=2048): one launch of each
     fused kernel, as ``fused_predict_route`` says, the result against the
     f64 dense path on the card;
 11. times of each kernel at the path's shapes, its twin and the nearest
     library call, each as the device time of the kernels the call launched
     (torch.profiler, mean of 5 after a warm-up) and as the CUDA-event time
-    of the call (median of 5), the mean-and-variance kernel beside the dense
+    of the call (median of 5), ``spd_inverse_elast_fused`` beside its thread
+    instance (the design every member took before the warp instances; the
+    mean kernel's parent design is timed by ``scripts/time_port_routes.py
+    --what kernels --root``), the mean-and-variance kernel beside the dense
     path at N in {512, 2048, 4096} with the one ``predict(return_std)``
     takes at each, and phases 8-10 end to end (CUDA events).
     The kernels' record carries the device times (``"timing":
@@ -92,6 +103,7 @@ import contextlib
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -102,7 +114,8 @@ import torch
 
 E_MAIN, Q_MAIN, N_MAIN = 16384, 400, 20
 F32_ATOL, F32_INV_TOL, F64_ATOL, TRAJ_TOL = 2e-5, 1e-4, 1e-10, 1e-3
-KERNEL_CASES = [(n, E) for n in (8, 20, 24, 32, 64) for E in (E_MAIN, E_MAIN + 37)]
+# every instance of kernel #1 (ops/batched_linalg.py::spd_inverse_instance)
+KERNEL_CASES = [(n, E) for n in (1, 8, 16, 20, 24, 32, 33, 64) for E in (E_MAIN, E_MAIN + 37)]
 REPS = 5
 SOURCES = ("spd_inverse_elast", "factor_panel", "stationary_gram", "fused_lml")
 
@@ -110,6 +123,9 @@ N_SOLVE, D_SOLVE, BLOCK = 10240, 3, 512
 E_3D, N_3D, Q_3D = 16, 2500, 1000
 NQ_GRID, N_GRID = 100, 2048
 TILE_EDGES = (1, 127, 128, 129, 300)  # around the mean-and-variance kernel's 128-wide tiles
+# around the mean kernel's 128-point chunks (129, 257: one past a chunk) and
+# its 256-query blocks
+MEAN_EDGES = (1, 127, 128, 129, 255, 256, 257, 300)
 N_CHOL_ROUTE = (4096, N_SOLVE, 20480)  # condition()'s two paths are timed at these N
 N_VAR_ROUTE = (512, N_GRID, 4096)  # predict(return_std)'s two paths, at Nq = NQ_GRID^2
 FAMILIES = ("rbf", "matern12", "matern32", "matern52")
@@ -148,8 +164,12 @@ LML_INSTANCES = ("n<=24 D<=2 p<=2", "n<=32 D<=8 p<=8", "n<=32 D>8 p<=8")
 E_FIT, RESTARTS, MAXITER = 4096, 6, 30  # fit_and_transport_batched_opt (JAX's defaults)
 HMC_CHAINS, HMC_WARMUP, HMC_SAMPLES, HMC_LEAPFROG = 256, 48, 48, 16  # bench.py:327-352
 
-# published H100 SXM peaks (NVIDIA data sheet), for the kernels' bounds
+# published H100 SXM peaks (NVIDIA data sheet), for the kernels' bounds;
+# and the special-function units' rate (expf, sqrtf): 16 results a clock on
+# each of the 132 SMs (CUDA C++ Programming Guide, arithmetic instructions,
+# compute capability 9.0) at the 1,980 MHz maximum SM clock
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
+SFU_PER_S = 132 * 16 * 1.98e9
 
 PKG = "gaussian_process_transportation_tpu_torch"
 TPU_PKG = "gaussian_process_transportation_tpu"
@@ -191,14 +211,16 @@ def spd_batch(n: int, E: int, seed: int = 0) -> np.ndarray:
 
 def check_kernel(n, E, dtype, device, atol, inv_tol):
     """Kernel against twin and against numpy's f64 inverse; returns the
-    largest kernel-vs-twin difference."""
+    largest kernel-vs-twin difference and the instance the launch took."""
     from gaussian_process_transportation_tpu_torch.ops.batched_linalg import (
         spd_inverse_elast, spd_inverse_elast_fused,
     )
 
     K = spd_batch(n, E)
     Ke = torch.from_numpy(np.transpose(K, (1, 2, 0))).to(device, dtype).contiguous()
+    before = dict(spd_inverse_elast_fused.instance_launches)
     L1, Ki1 = spd_inverse_elast_fused(Ke)
+    taken = [k for k, v in spd_inverse_elast_fused.instance_launches.items() if v != before[k]]
     L0, Ki0 = spd_inverse_elast(Ke)
     torch.cuda.synchronize()
     err = max((L1 - L0).abs().max().item(), (Ki1 - Ki0).abs().max().item())
@@ -211,7 +233,7 @@ def check_kernel(n, E, dtype, device, atol, inv_tol):
             f"(atol {atol}), |K^-1 - inv|={inv_err:.3g} (tol {inv_tol}), "
             f"max above diagonal of L={upper:.3g}"
         )
-    return err
+    return err, taken[0]
 
 
 def make_workload(n_traj=Q_MAIN, n_dist=N_MAIN):
@@ -308,11 +330,49 @@ def fmt_breakdown(b):
             f"{b['kernel_launches']} launches")
 
 
-def timed(kernel, twin, library=None):
-    """(device ms, CUDA-event ms) of a kernel's wrapper call, its twin and
-    the library call (None where there is none)."""
-    return {role: None if fn is None else (device_ms(fn), cuda_ms(fn)[0])
-            for role, fn in (("ms", kernel), ("plain_ms", twin), ("library_ms", library))}
+def timed(kernel, twin, library=None, parent=None):
+    """(device ms, CUDA-event ms) of a kernel's wrapper call, its twin, the
+    library call (None where there is none) and, where given, the parent
+    design on the same inputs."""
+    roles = (("ms", kernel), ("plain_ms", twin), ("library_ms", library))
+    out = {role: None if fn is None else (device_ms(fn), cuda_ms(fn)[0]) for role, fn in roles}
+    if parent is not None:
+        out["parent_ms"] = (device_ms(parent), cuda_ms(parent)[0])
+    return out
+
+
+def kernel_name(symbol):
+    """``name<template arguments>`` of a mangled kernel symbol: the last
+    length-prefixed name (after any namespace), its integer, boolean and
+    type arguments."""
+    pos, name, args = 2 + (symbol[2:3] == "N"), symbol, []
+    while (m := re.match(r"\d+", symbol[pos:])):
+        pos += m.end()
+        name = symbol[pos:pos + int(m.group())]
+        pos += int(m.group())
+    if symbol.startswith("I", pos):
+        pos += 1
+        while (m := re.match(r"L[ib](\d+)E|([fd])", symbol[pos:])):
+            args.append(m.group(1) or {"f": "float", "d": "double"}[m.group(2)])
+            pos += m.end()
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_summary(log):
+    """One ``kernel<arguments>: registers, spill stores`` entry per kernel
+    that ptxas compiled, from nvcc's ``-Xptxas -v`` output."""
+    out, name, spill = [], None, "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = kernel_name(m.group(1)), "?"
+        elif name and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, {spill} B spill stores")
+            name = None
+    return "; ".join(out)
 
 
 def layer_ms(kernel, S, targets, X, dX) -> dict:
@@ -394,10 +454,22 @@ def expect_launches(what, counts, want):
             raise AssertionError(f"{what}: {name} launched {counts[name]} times, expected {n}")
 
 
-def bound(bytes_moved, flops):
-    """(bound_ms, bound_by): the larger of the memory and f32 compute times."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound(bytes_moved, flops, transcendentals=0):
+    """(bound_ms, bound_by): the larger of the memory time and the
+    operations' time, which is the larger of the f32 time and the special
+    function units' time for ``transcendentals`` (the two pipes run side by
+    side)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = max(flops / F32_FLOP_PER_S, transcendentals / SFU_PER_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def panel_bytes(n, B):
+    """Bytes the Gram kernel writes for the lower column panels of an n-point
+    Gram in blocks of B (``stationary_gram_panels``: n padded to P = ⌈n/B⌉
+    blocks, panel k of (P − k)·B rows)."""
+    P = -(-n // B)
+    return 4 * B * B * P * (P + 1) // 2
 
 
 def gram_flops(rows, cols, D):
@@ -538,6 +610,63 @@ def planted_faults(Xq, X, alpha, K_inv, ls, amp, prior):
     for name, ex in faults.items():
         if not ex >= 1:
             raise AssertionError(f"the fused-variance check passes a planted fault, {name} "
+                                 f"(error/bound {ex:.3g})")
+    return faults
+
+
+def mean_case(device, Nq, N, D, P, seed=0):
+    """Standard-normal queries (Nq, D), training points (N, D) and α (N, P),
+    lengthscales linspace(0.9, 1.4, D), float32: (Xq, X, alpha, lengthscale)."""
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (*(torch.as_tensor(rng.standard_normal(s), **f32) for s in ((Nq, D), (N, D), (N, P))),
+            torch.linspace(0.9, 1.4, D, **f32))
+
+
+def mean_excess(mean, Xq, X, alpha, ls, amp, family):
+    """The largest error over the bound, per output, of a mean against the
+    formula in float64 on the same float32 inputs: MEAN_REL of Σ_n|k α|, as
+    ``predict_excess`` holds it.  A sound kernel reads below 1."""
+    from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
+
+    k = pg.stationary_gram_plain(Xq.double(), X.double(), ls.double(), amp, family)
+    a = alpha.double()
+    return ((mean.double() - k @ a).abs() / (MEAN_REL * (k.abs() @ a.abs()))).max().item()
+
+
+def check_mean(device, Nq, N, D, P, family, amp=2.0):
+    """The mean kernel on ``mean_case``'s inputs against its twin on the
+    card and per output against the f64 formula; returns (|kernel − twin|
+    max, error/bound max)."""
+    from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
+
+    Xq, X, alpha, ls = mean_case(device, Nq, N, D, P, seed=Nq * 1000 + N)
+    m = pg.fused_gp_predict_mean(Xq, X, alpha, ls, amp, family)
+    m0 = pg.fused_gp_predict_mean_plain(Xq, X, alpha, ls, amp, family)
+    ex = mean_excess(m, Xq, X, alpha, ls, amp, family)
+    if not (m.shape == (Nq, P) and ex < 1):
+        raise AssertionError(f"fused_gp_predict_mean {family} Nq={Nq} N={N} D={D} P={P}: "
+                             f"shape {tuple(m.shape)}, error/bound vs the f64 formula {ex:.3g}")
+    return (m - m0).abs().max().item(), ex
+
+
+def mean_faults(device, Nq=300, N=300, D=2, P=2):
+    """``mean_excess`` must reject a wrong mean kernel: the kernel run with
+    the α rows of training chunk 1 (``MEAN_CHUNK`` wide) set to zero, and
+    its means shifted by one query.  Returns each fault's error/bound."""
+    from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
+
+    Xq, X, alpha, ls = mean_case(device, Nq, N, D, P, seed=5)
+    a_drop = alpha.clone()
+    a_drop[pg.MEAN_CHUNK:2 * pg.MEAN_CHUNK] = 0
+    m = pg.fused_gp_predict_mean(Xq, X, alpha, ls, 2.0)
+    faults = {"chunk 1 dropped": mean_excess(pg.fused_gp_predict_mean(Xq, X, a_drop, ls, 2.0),
+                                             Xq, X, alpha, ls, 2.0, "rbf"),
+              "queries shifted by one": mean_excess(torch.roll(m, 1, 0), Xq, X, alpha, ls, 2.0,
+                                                    "rbf")}
+    for name, ex in faults.items():
+        if not ex >= 1:
+            raise AssertionError(f"the mean check passes a planted fault, {name} "
                                  f"(error/bound {ex:.3g})")
     return faults
 
@@ -820,6 +949,7 @@ def main() -> None:
     from gaussian_process_transportation_tpu_torch import kernels as K
     from gaussian_process_transportation_tpu_torch.models import exact_gp as gp_core
     from gaussian_process_transportation_tpu_torch.ops import _cuda
+    from gaussian_process_transportation_tpu_torch.ops import batched_linalg as bl
     from gaussian_process_transportation_tpu_torch.ops import blocked_chol as bc
     from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
     from gaussian_process_transportation_tpu_torch.ops.batched_linalg import (
@@ -847,16 +977,27 @@ def main() -> None:
     print(f"build: spd_inverse_elast in {build_s:.2f} s ({lib_path.name}) {tag}", flush=True)
     print(lib_path.with_suffix(".log").read_text(), file=sys.stderr)
 
-    # 3. kernel against twin
+    # 3. kernel against twin, every instance
     errs = {}
     for n, E in KERNEL_CASES:
         errs[f"f32 n={n} E={E}"] = check_kernel(n, E, torch.float32, device,
                                                 F32_ATOL, F32_INV_TOL)
     errs[f"f64 n=20 E={E_MAIN + 37}"] = check_kernel(N_MAIN, E_MAIN + 37, torch.float64,
                                                      device, F64_ATOL, F64_ATOL)
-    main_err = errs[f"f32 n={N_MAIN} E={E_MAIN}"]
-    print("kernel vs twin: max|diff| " + ", ".join(f"{k}: {v:.3g}" for k, v in errs.items())
-          + f"; all within tolerance {tag}", flush=True)
+    main_err, main_instance = errs[f"f32 n={N_MAIN} E={E_MAIN}"]
+    taken = {inst for _, inst in errs.values()}
+    if taken != set(bl.SPD_INVERSE_INSTANCES):
+        raise AssertionError(f"phase 3 launched the instances {sorted(taken)}, not all of "
+                             f"{bl.SPD_INVERSE_INSTANCES}")
+    Ke3 = torch.from_numpy(np.transpose(spd_batch(N_MAIN, E_MAIN), (1, 2, 0))).to(device).contiguous()
+    run_a, run_b = spd_inverse_elast_fused(Ke3), spd_inverse_elast_fused(Ke3)
+    if not (torch.equal(run_a[0], run_b[0]) and torch.equal(run_a[1], run_b[1])):
+        raise AssertionError("two runs of spd_inverse_elast_fused on the same inputs differ")
+    del run_a, run_b, Ke3
+    print("kernel vs twin: max|diff| [instance] " + ", ".join(
+        f"{k} [{inst}]: {v:.3g}" for k, (v, inst) in errs.items())
+        + f"; all within tolerance; two runs at n={N_MAIN} E={E_MAIN} bitwise equal {tag}",
+        flush=True)
 
     # 4. ensemble transport
     X, dX, S, S1 = make_workload()
@@ -928,19 +1069,22 @@ def main() -> None:
     kernels_json["spd_inverse_elast_fused"] = dict(
         source=f"{PKG}/csrc/spd_inverse_elast.cu",
         replaces=f"{TPU_PKG}/ops/batched_linalg.py:80", launches=launches, max_abs_err=main_err,
-        bound=bound(3 * n * n * E * 4, n**3 * E), shape=f"n={n} E={E}",
+        bound=bound(3 * n * n * E * 4, n**3 * E), shape=f"n={n} E={E} [{main_instance}]",
+        instance=main_instance,
         calls=(lambda: spd_inverse_elast_fused(Ke), lambda: spd_inverse_elast(Ke),
-               lambda: torch.cholesky_inverse(torch.linalg.cholesky(Kb))))
+               lambda: torch.cholesky_inverse(torch.linalg.cholesky(Kb)),
+               lambda: bl._launch(Ke, "thread")))
 
     # 6. build of the large-N kernels (started in phase 2)
+    print(f"ptxas: spd_inverse_elast: {ptxas_summary(lib_path.with_suffix('.log').read_text())} "
+          f"{tag}", flush=True)
     for name in ("factor_panel", "stationary_gram", "fused_lml"):
         path, build_s = builds[name].result()
         _cuda.library(name)
         log = path.with_suffix(".log").read_text()
         print(log, file=sys.stderr)
         print(f"build: {name} in {build_s:.2f} s, beside the others ({path.name}; ptxas: "
-              + "; ".join(line.split(":", 1)[-1].strip() for line in log.splitlines()
-                          if "registers" in line or "spill" in line)
+              + ptxas_summary(log)
               + (f"; mean_var_kernel dynamic smem "
                  f"{_cuda.library(name).predict_mean_var_smem_bytes()} bytes"
                  if name == "stationary_gram" else "")
@@ -978,6 +1122,21 @@ def main() -> None:
         raise AssertionError("two runs of fused_gp_predict_mean_var on the same inputs differ")
     del run_a, run_b
     faults = planted_faults(*grid_args)
+    # the mean kernel alone at the edges of its chunks and query blocks, then
+    # every family, D and P capacity at a ragged shape
+    mean_errs = [0.0, 0.0]
+    for nq in MEAN_EDGES:
+        for nn in MEAN_EDGES:
+            mean_errs = [max(a, b) for a, b in zip(mean_errs, check_mean(device, nq, nn, 3, 2, "rbf"))]
+    mean_shapes = [(fam, D_, P_) for fam in FAMILIES for D_ in (2, 3, 5) for P_ in (1, 2, 8)]
+    for fam, D_, P_ in mean_shapes:
+        mean_errs = [max(a, b) for a, b in zip(mean_errs, check_mean(device, 257, 300, D_, P_, fam))]
+    mean_a = pg.fused_gp_predict_mean(Xqg, Xg, gp_grid.alpha, ones2, 2.0, "matern52")
+    if not torch.equal(mean_a, pg.fused_gp_predict_mean(Xqg, Xg, gp_grid.alpha, ones2, 2.0,
+                                                        "matern52")):
+        raise AssertionError("two runs of fused_gp_predict_mean on the same inputs differ")
+    del mean_a
+    m_faults = mean_faults(device)
     fp_launches, fp_diag_ms = panel_profile(torch.as_tensor(panel_spd(BLOCK), device=device))
     print("new kernels vs twins: factor_panel |kernel-twin| (rel err vs f64) "
           + ", ".join(f"B={B}: {e:.3g} ({r:.3g})" for B, (e, r) in fp_errs.items())
@@ -993,6 +1152,11 @@ def main() -> None:
           + f"{edge_excess[0]:.3g}/{edge_excess[1]:.3g}; two runs bitwise equal"
           + "; planted faults rejected, error/bound "
           + ", ".join(f"{name} {ex:.3g}" for name, ex in faults.items())
+          + f"; fused_gp_predict_mean at every Nq, N in {MEAN_EDGES} (rbf D=3 P=2) and "
+          + f"{len(mean_shapes)} family/D/P cases at 257x300 (D in 2/3/5, P in 1/2/8): "
+          + f"|kernel-twin| max {mean_errs[0]:.3g}, error/bound max {mean_errs[1]:.3g}; two runs "
+          + "on the grid bitwise equal; planted mean faults rejected, error/bound "
+          + ", ".join(f"{name} {ex:.3g}" for name, ex in m_faults.items())
           + f"; all within tolerance {tag}", flush=True)
 
     # 8. large-N solve
@@ -1046,6 +1210,8 @@ def main() -> None:
         torch.cuda.synchronize()
     print(f"profile of gram_cholesky_solve N={n} {tag}\n"
           + prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), file=sys.stderr)
+    gram8 = path_breakdown(solve_path, "gram_kernel")
+    gram8["bound"] = bound(panel_bytes(N_SOLVE, BLOCK), 0)
 
     # 9. the 3-D ensemble transport (the slice's main path)
     S3, T3, X3, dX3 = ensemble_3d_inputs()
@@ -1089,6 +1255,14 @@ def main() -> None:
         torch.cuda.synchronize()
     print(f"profile of the 3-D ensemble {tag}\n"
           + prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), file=sys.stderr)
+    gram9 = path_breakdown(ensemble_3d, "gram_kernel")
+    gram9["bound"] = bound(E_3D * panel_bytes(N_3D, gpt.BLOCKED_PANEL), 0)
+    print("stationary_gram's device total on its paths (CUPTI, one traced call): "
+          + "; ".join(f"{what}: {g['kernel_ms']:.4f} ms in {g['kernel_launches']} launches, bound "
+                      f"{g['bound'][0]:.4f} ms by {g['bound'][1]}"
+                      for what, g in ((f"the N={N_SOLVE} solve", gram8),
+                                      (f"the 3-D ensemble E={E_3D} n={N_3D}", gram9)))
+          + f" {tag}", flush=True)
 
     # 10. dense-grid predicts
     route = lambda n, std: gp_core.fused_predict_route(
@@ -1140,6 +1314,7 @@ def main() -> None:
         launches=counts9["stationary_gram"], max_abs_err=gram_errs[("rbf", N_SOLVE, B)],
         bound=bound(N_SOLVE * B * 4 + (N_SOLVE + B) * D_SOLVE * 4,
                     gram_flops(N_SOLVE, B, D_SOLVE)), shape=f"({N_SOLVE}, {B}) D={D_SOLVE}",
+        path_totals={"solve": gram8, "ensemble_3d": gram9},
         calls=(lambda: pg.stationary_gram(Z, Z[:B], 1.0, 2.0),
                lambda: pg.stationary_gram_plain(Z, Z[:B], 1.0, 2.0), None))
 
@@ -1153,7 +1328,8 @@ def main() -> None:
     kernels_json["fused_gp_predict_mean"] = dict(
         source=f"{PKG}/csrc/stationary_gram.cu", replaces=f"{TPU_PKG}/ops/pallas_gram.py:43",
         launches=counts_m["fused_gp_predict_mean"], max_abs_err=pred_errs[("rbf", Nq, N)][0],
-        bound=bound((Nq * D + N * D + N * P + Nq * P) * 4, gram_flops(Nq, N, D) + 2 * Nq * N * P),
+        bound=bound((Nq * D + N * D + N * P + Nq * P) * 4, gram_flops(Nq, N, D) + 2 * Nq * N * P,
+                    transcendentals=Nq * N),
         shape=f"Nq={Nq} N={N} P={P}",
         calls=(lambda: pg.fused_gp_predict_mean(Xqg, Xg, a_g, ones2, 2.0),
                lambda: pg.fused_gp_predict_mean_plain(Xqg, Xg, a_g, ones2, 2.0),
@@ -1191,13 +1367,18 @@ def main() -> None:
     print(f"times (device ms from CUPTI, mean of {REPS} / CUDA-event ms of the call, median of "
           f"{REPS}): "
           + "; ".join(f"{name} {v['shape']}: kernel {fmt(v['ms'])}, twin {fmt(v['plain_ms'])}, "
-                      f"library {fmt(v['library_ms'])}, bound {v['bound'][0]:.4f} by "
-                      f"{v['bound'][1]}" for name, v in kernels_json.items())
+                      f"library {fmt(v['library_ms'])}, "
+                      + (f"parent design {fmt(v['parent_ms'])}, " if "parent_ms" in v else "")
+                      + f"bound {v['bound'][0]:.4f} by {v['bound'][1]}"
+                      for name, v in kernels_json.items())
           + f"; fused_gp_predict_mean_var vs the dense path at Nq={Nq} (device ms): "
           + ", ".join(f"N={nn}: {var_ms[nn][0]:.4f} vs {var_ms[nn][1]:.4f} (predict(return_std) "
                       f"takes the {'kernel' if route(nn, True) else 'dense path'})"
                       for nn in N_VAR_ROUTE)
           + f", FUSED_MEAN_VAR_MAX_N = {gp_core.FUSED_MEAN_VAR_MAX_N}"
+          + f"; the mean's bound counts {Nq * N} exponentials at {SFU_PER_S:.4g}/s beside "
+          + f"{gram_flops(Nq, N, D) + 2 * Nq * N * P} f32 operations; SM clock now "
+          + f"{sm_clocks()}"
           + f"; end to end (CUDA events): phase 8 gram_cholesky_solve N={N_SOLVE} "
           f"{solve_ms:.4f} ms, phase 9 3-D ensemble {ens_ms:.4f} ms, phase 10 predict "
           f"{pm_ms:.4f} ms, predict(return_std) {pv_ms:.4f} ms {tag}", flush=True)
@@ -1469,7 +1650,16 @@ def main() -> None:
                    "value_only_event_ms": event(v["value_only_ms"]),
                    "value_only_launches": v["value_only_launches"],
                    "value_only_bound_ms": v["value_only_bound"][0]}
-                  if "value_only_ms" in v else {})}
+                  if "value_only_ms" in v else {}),
+               **({"parent_ms": dev(v["parent_ms"]), "parent_event_ms": event(v["parent_ms"])}
+                  if "parent_ms" in v else {}),
+               **({"instance": v["instance"]} if "instance" in v else {}),
+               **({f"{k}_device_ms": g["kernel_ms"] for k, g in v["path_totals"].items()}
+                  if "path_totals" in v else {}),
+               **({f"{k}_launches": g["kernel_launches"] for k, g in v["path_totals"].items()}
+                  if "path_totals" in v else {}),
+               **({f"{k}_bound_ms": g["bound"][0] for k, g in v["path_totals"].items()}
+                  if "path_totals" in v else {})}
               for name, v in kernels_json.items()]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -21,11 +21,19 @@
 // * stationary_gram writes each output once from 32 x 32 tiles whose points
 //   sit in shared memory: memory-bound, e.g. the lower Gram panels at
 //   N = 10240, B = 512 are 210 MB, a 63 us bound.
-// * predict_mean: a block owns 64 queries, 4 slices of 64 threads walk the
-//   training points in shared-memory chunks of 128 and the slices' sums are
-//   added in a fixed order, so the (Nq, N) Gram never reaches device memory.
-//   2 Nq N P FMAs plus Nq N profile evaluations: a few us at Nq = 10^4,
-//   N = 2048.
+// * predict_mean: Nq N profile evaluations (one expf each) and 2 Nq N P
+//   FMAs, so the f32 pipes and the SFU's exponentials bound it: about 5 us
+//   each at Nq = 10^4, N = 2048, D = 2, P = 2.  The training axis is split
+//   over a second grid dimension: block (i, c) takes 256 queries (two a
+//   thread, in registers) against the 128 training points of chunk c, whose
+//   coordinates and alpha rows sit in shared memory and are read as
+//   broadcasts, and writes the chunk's partial sums; at that shape 640
+//   blocks of four warps, about 19 warps an SM.  A second kernel adds the
+//   partials in chunk order and scales by the amplitude: no atomics, so
+//   repeated runs agree bitwise, and the (Nq, N) Gram never reaches device
+//   memory.  The family, D = 2 and D = 3 (other D up to 16 at run time) and
+//   the capacity of P (2 or 8) are template parameters, so the innermost
+//   loop holds no switch and unrolls over the point's coordinates.
 // * predict_mean_var: the TPU kernel carried a (tile_q, N) row of
 //   W = k K^-1 in scratch across sequential grid steps; CUDA blocks run in
 //   no order, so a block owns a 128-query by 128-column tile of W and loops
@@ -63,16 +71,28 @@ constexpr int kMaxD = 16;
 constexpr int kMaxP = 8;
 constexpr int kDP = kMaxD + 1;  // shared-memory pitch of a point's coordinates
 
-__device__ __forceinline__ float profile(float d2, int family) {
-  if (family == 0) return expf(-0.5f * d2);
+// the unit-amplitude profile of family FAM (0..3: rbf, matern12, matern32,
+// matern52) at squared distance d2
+template <int FAM>
+__device__ __forceinline__ float profile_t(float d2) {
+  if (FAM == 0) return expf(-0.5f * d2);
   const float d = sqrtf(d2 + 1e-36f);
-  if (family == 1) return expf(-d);
-  if (family == 2) {
+  if (FAM == 1) return expf(-d);
+  if (FAM == 2) {
     const float s = 1.7320508075688772f * d;
     return (1.f + s) * expf(-s);
   }
   const float s = 2.23606797749979f * d;
   return (1.f + s + s * s / 3.f) * expf(-s);
+}
+
+__device__ __forceinline__ float profile(float d2, int family) {
+  switch (family) {
+    case 0: return profile_t<0>(d2);
+    case 1: return profile_t<1>(d2);
+    case 2: return profile_t<2>(d2);
+    default: return profile_t<3>(d2);
+  }
 }
 
 __device__ __forceinline__ float sqdist(const float* x, const float* z, int D) {
@@ -112,56 +132,94 @@ gram_kernel(const float* __restrict__ X, const float* __restrict__ Z, int N, int
   }
 }
 
-// ---- predict_mean: 64 queries x 4 training slices, 256 threads ------------
-constexpr int kMQ = 64, kMS = 4, kMK = 128;
+// ---- predict_mean: the training axis in chunks over blocks, 128 threads ----
+constexpr int kMThreads = 128, kMR = 2, kMQ = kMThreads * kMR, kMC = 128;
 
-__global__ void __launch_bounds__(kMQ * kMS)
-mean_kernel(const float* __restrict__ Xq, const float* __restrict__ X,
-            const float* __restrict__ alpha, int Nq, int N, int D, int P, float amp, int family,
-            float* __restrict__ mean) {
-  __shared__ float xk[kMK * kDP], ak[kMK * kMaxP], red[kMS * kMQ * kMaxP];
-  const int q = threadIdx.x % kMQ, sl = threadIdx.x / kMQ;
-  const int gq = blockIdx.x * kMQ + q;
-  float xq[kMaxD];
+// partial[c, q, p] = sum over the points a of chunk c, in order, of
+// phi(|xq - xa|^2) alpha[a, p].  KD > 0 fixes D; KD == 0 reads D_any
+// (<= kMaxD).  KP bounds P (2 or 8).
+template <int FAM, int KD, int KP>
+__global__ void __launch_bounds__(kMThreads)
+mean_chunk_kernel(const float* __restrict__ Xq, const float* __restrict__ X,
+                  const float* __restrict__ alpha, int Nq, int N, int D_any, int P,
+                  float* __restrict__ partial) {
+  constexpr int kD = KD > 0 ? KD : kMaxD;
+  const int D = KD > 0 ? KD : D_any;
+  __shared__ float xs[kMC * kD], as[kMC * KP];
+  const int a0 = blockIdx.y * kMC, na = min(kMC, N - a0);
+  for (int e = threadIdx.x; e < kMC * kD; e += kMThreads) {
+    const int a = e / kD, d = e % kD;
+    xs[e] = (a < na && d < D) ? X[static_cast<long long>(a0 + a) * D + d] : 0.f;
+  }
+  for (int e = threadIdx.x; e < kMC * KP; e += kMThreads) {
+    const int a = e / KP, p = e % KP;
+    as[e] = (a < na && p < P) ? alpha[static_cast<long long>(a0 + a) * P + p] : 0.f;
+  }
+  float xq[kMR][kD], acc[kMR][KP];
 #pragma unroll
-  for (int d = 0; d < kMaxD; ++d)
-    xq[d] = (d < D && gq < Nq) ? Xq[static_cast<long long>(gq) * D + d] : 0.f;
-  float acc[kMaxP];
+  for (int r = 0; r < kMR; ++r) {
+    const int q = blockIdx.x * kMQ + r * kMThreads + threadIdx.x;
 #pragma unroll
-  for (int p = 0; p < kMaxP; ++p) acc[p] = 0.f;
-  for (int a0 = 0; a0 < N; a0 += kMK) {
-    __syncthreads();
-    load_points(xk, X, a0, kMK, N, D);
-    for (int e = threadIdx.x; e < kMK * P; e += blockDim.x) {
-      const int a = e / P, p = e % P;
-      ak[a * kMaxP + p] = (a0 + a < N) ? alpha[static_cast<long long>(a0 + a) * P + p] : 0.f;
-    }
-    __syncthreads();
-    const int na = min(kMK, N - a0);
-    for (int a = sl; a < na; a += kMS) {
+    for (int d = 0; d < kD; ++d)
+      xq[r][d] = (q < Nq && (KD > 0 || d < D)) ? Xq[static_cast<long long>(q) * D + d] : 0.f;
+#pragma unroll
+    for (int p = 0; p < KP; ++p) acc[r][p] = 0.f;
+  }
+  __syncthreads();
+#pragma unroll 2
+  for (int a = 0; a < na; ++a) {
+    float xa[kD], al[KP];
+#pragma unroll
+    for (int d = 0; d < kD; ++d) xa[d] = (KD > 0 || d < D) ? xs[a * kD + d] : 0.f;
+#pragma unroll
+    for (int p = 0; p < KP; ++p) al[p] = as[a * KP + p];
+#pragma unroll
+    for (int r = 0; r < kMR; ++r) {
       float d2 = 0.f;
 #pragma unroll
-      for (int d = 0; d < kMaxD; ++d)
-        if (d < D) {
-          const float diff = xq[d] - xk[a * kDP + d];
+      for (int d = 0; d < kD; ++d) {
+        if (KD > 0 || d < D) {
+          const float diff = xq[r][d] - xa[d];
           d2 = fmaf(diff, diff, d2);
         }
-      const float kv = amp * profile(d2, family);
+      }
+      const float k = profile_t<FAM>(d2);
 #pragma unroll
-      for (int p = 0; p < kMaxP; ++p)
-        if (p < P) acc[p] = fmaf(kv, ak[a * kMaxP + p], acc[p]);
+      for (int p = 0; p < KP; ++p)
+        if (KP <= 2 || p < P) acc[r][p] = fmaf(k, al[p], acc[r][p]);
     }
   }
 #pragma unroll
-  for (int p = 0; p < kMaxP; ++p) red[(sl * kMQ + q) * kMaxP + p] = acc[p];
-  __syncthreads();
-  if (sl == 0 && gq < Nq) {
-    for (int p = 0; p < P; ++p) {
-      float s = 0.f;
-      for (int t = 0; t < kMS; ++t) s += red[(t * kMQ + q) * kMaxP + p];
-      mean[static_cast<long long>(gq) * P + p] = s;
+  for (int r = 0; r < kMR; ++r) {
+    const int q = blockIdx.x * kMQ + r * kMThreads + threadIdx.x;
+    if (q < Nq) {
+      float* out = partial + (static_cast<long long>(blockIdx.y) * Nq + q) * P;
+#pragma unroll
+      for (int p = 0; p < KP; ++p)
+        if (p < P) out[p] = acc[r][p];
     }
   }
+}
+
+// mean[i] = amp * sum over the chunks c, in order, of partial[c, i]
+__global__ void combine_mean_kernel(const float* __restrict__ partial, int chunks,
+                                    long long NqP, float amp, float* __restrict__ mean) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= NqP) return;
+  float s = 0.f;
+  for (int c = 0; c < chunks; ++c) s += partial[c * NqP + i];
+  mean[i] = amp * s;
+}
+
+using MeanKernel = void (*)(const float*, const float*, const float*, int, int, int, int, float*);
+
+template <int FAM>
+MeanKernel mean_instance(int D, int P) {
+  if (P <= 2)
+    return D == 2 ? mean_chunk_kernel<FAM, 2, 2>
+                  : D == 3 ? mean_chunk_kernel<FAM, 3, 2> : mean_chunk_kernel<FAM, 0, 2>;
+  return D == 2 ? mean_chunk_kernel<FAM, 2, kMaxP>
+                : D == 3 ? mean_chunk_kernel<FAM, 3, kMaxP> : mean_chunk_kernel<FAM, 0, kMaxP>;
 }
 
 // ---- predict_mean_var: 128 queries x 128 columns of K^-1, 256 threads -----
@@ -368,11 +426,29 @@ extern "C" int stationary_gram_f32(const void* X, const void* Z, int N, int M, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// partial is a (ceil(N / chunk), Nq, P) float32 scratch buffer sized by the
+// caller, who passes the chunk width it sized it for: another width than
+// the kernel's is refused (cudaErrorInvalidValue).
 extern "C" int predict_mean_f32(const void* Xq, const void* X, const void* alpha, int Nq, int N,
-                                int D, int P, float amp, int family, void* mean, void* stream) {
-  mean_kernel<<<cdiv(Nq, kMQ), kMQ * kMS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(Xq), static_cast<const float*>(X),
-      static_cast<const float*>(alpha), Nq, N, D, P, amp, family, static_cast<float*>(mean));
+                                int D, int P, float amp, int family, void* mean, void* partial,
+                                int chunk, void* stream) {
+  if (chunk != kMC) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int chunks = cdiv(N, kMC);
+  if (chunks > 0) {
+    const MeanKernel kernel = family == 0   ? mean_instance<0>(D, P)
+                              : family == 1 ? mean_instance<1>(D, P)
+                              : family == 2 ? mean_instance<2>(D, P)
+                                            : mean_instance<3>(D, P);
+    kernel<<<dim3(cdiv(Nq, kMQ), chunks), kMThreads, 0, s>>>(
+        static_cast<const float*>(Xq), static_cast<const float*>(X),
+        static_cast<const float*>(alpha), Nq, N, D, P, static_cast<float*>(partial));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long NqP = static_cast<long long>(Nq) * P;
+  combine_mean_kernel<<<static_cast<unsigned>((NqP + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(partial), chunks, NqP, amp, static_cast<float*>(mean));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -201,15 +201,27 @@ def _noise_std(kernel: Kernel, like: Tensor) -> Tensor:
     return torch.sqrt(noise)
 
 
-# predict() takes the fused kernels when the (Nq, N) Gram would have this
-# many elements or more (the JAX package's threshold) and, for the
-# mean-and-variance kernel, N up to this one: the largest training size at
-# which chip_smoke.py measured the kernel no slower than the dense path
-# (k K⁻¹ through cuBLAS) at Nq = 10⁴ on an NVIDIA H100 80GB HBM3, 700 W.
+# predict() takes the fused mean kernel when the (Nq, N) Gram would have
+# FUSED_PREDICT_MIN_ELEMS elements or more.  scripts/time_port_routes.py
+# --what route timed predict() both ways on an NVIDIA H100 80GB HBM3,
+# 700 W, SM clock 1980 MHz, at Nq·N from 2,048 to 2.05·10⁷ (Nq = 10⁴ with
+# N = 1 … 2048, N = 2048 with Nq = 1 … 4096), four readings a size over two
+# calls: the kernel won at every size, by device time (0.0121 against
+# 0.0205–0.0206 ms at Nq = 1, N = 2048; 0.0227 against 0.7915–0.7932 at
+# Nq = 10⁴, N = 2048) and by CUDA-event time of the call (0.1649–0.2684
+# against 0.3413–0.5328 ms; 0.1412–0.2412 against 0.8480–1.0000): two
+# launches and no (Nq, N) Gram against the dense path's five.  Smaller
+# Gram sizes were not timed.  The JAX package's threshold was 2²¹.
+#
+# The mean-and-variance kernel is taken from FUSED_MEAN_VAR_MIN_ELEMS (the
+# JAX package's threshold) up to N = FUSED_MEAN_VAR_MAX_N: the largest
+# training size at which chip_smoke.py measured the kernel no slower than
+# the dense path (k K⁻¹ through cuBLAS) at Nq = 10⁴ on the same card.
 # It took 0.55 of the dense path's time at N = 512 and 0.90 at N = 2048,
 # and lost at N = 4096 (1.08): cuBLAS's product runs faster than the
 # kernel's, and the dense path's other passes weigh less as N grows.
-FUSED_PREDICT_MIN_ELEMS = 2**21
+FUSED_PREDICT_MIN_ELEMS = 2**11
+FUSED_MEAN_VAR_MIN_ELEMS = 2**21
 FUSED_MEAN_VAR_MAX_N = 2048
 
 
@@ -219,15 +231,18 @@ def fused_predict_route(device_type: str, x_dtype: torch.dtype, alpha_dtype: tor
     """Which fused kernel predict() takes for 2-D queries (Nq, D) on N
     training points with P outputs: "mean", "mean_var", or None for the
     dense path.  The kernels take float32 CUDA tensors, D ≤ ``MAX_D`` and
-    P ≤ ``MAX_P``, and pay from Nq·N ≥ ``FUSED_PREDICT_MIN_ELEMS``; the
-    std needs a cached K⁻¹ and N ≤ ``FUSED_MEAN_VAR_MAX_N``."""
+    P ≤ ``MAX_P``; the mean pays from Nq·N ≥ ``FUSED_PREDICT_MIN_ELEMS``,
+    the std from Nq·N ≥ ``FUSED_MEAN_VAR_MIN_ELEMS`` with a cached K⁻¹ and
+    N ≤ ``FUSED_MEAN_VAR_MAX_N``."""
     if device_type != "cuda" or x_dtype != torch.float32 or alpha_dtype != torch.float32:
         return None
-    if Nq * N < FUSED_PREDICT_MIN_ELEMS or D > pallas_gram.MAX_D or P > pallas_gram.MAX_P:
+    if D > pallas_gram.MAX_D or P > pallas_gram.MAX_P:
         return None
     if not return_std:
-        return "mean"
-    return "mean_var" if has_k_inv and N <= FUSED_MEAN_VAR_MAX_N else None
+        return "mean" if Nq * N >= FUSED_PREDICT_MIN_ELEMS else None
+    if Nq * N < FUSED_MEAN_VAR_MIN_ELEMS or not has_k_inv or N > FUSED_MEAN_VAR_MAX_N:
+        return None
+    return "mean_var"
 
 
 def _fused_predict_params(gp: ExactGP, x: Tensor, return_std: bool = False):

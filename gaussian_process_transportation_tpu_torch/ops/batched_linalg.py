@@ -17,6 +17,7 @@ Matrices are stacked as (n, n, E): entry (i, j) of member e sits at
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -86,55 +87,90 @@ def cho_solve_elast(L: Tensor, B: Tensor) -> Tensor:
     return torch.stack(x, dim=0)
 
 
-# The kernel keeps no per-member array in registers or shared memory, so
-# it serves any n; the bound is the caller's: past n = 64 the batched
-# transport takes its per-member route (transport/gpt.py), and one
-# thread's O(n³) serial work would dominate.
+# The wrapper picks one of the kernel's instances from n and the dtype
+# alone, before the launch (csrc/spd_inverse_elast.cu): float32 up to
+# n = 32 takes the warp instance of the fewest register rows that hold n
+# (two rows a lane, so a warp takes 32 / (rows / 2) members at once);
+# float64, and float32 past 32, take the thread instance (one thread a
+# member, whose register use does not grow with n).  Past FUSED_MAX_N the
+# batched transport takes its per-member route (transport/gpt.py).
 FUSED_MAX_N = 64
+WARP_ROWS = (8, 16, 20, 24, 32)
+SPD_INVERSE_INSTANCES = tuple(f"warp{r}" for r in WARP_ROWS) + ("thread",)
 
-_ENTRY = {torch.float32: "spd_inverse_elast_f32", torch.float64: "spd_inverse_elast_f64"}
+_THREAD_ENTRY = {torch.float32: "spd_inverse_elast_f32", torch.float64: "spd_inverse_elast_f64"}
+_INT, _PTR, _LL = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+_ARGTYPES = {"spd_inverse_elast_f32": [_PTR, _PTR, _PTR, _INT, _LL, _PTR],
+             "spd_inverse_elast_f64": [_PTR, _PTR, _PTR, _INT, _LL, _PTR],
+             "spd_inverse_elast_warp_f32": [_PTR, _PTR, _PTR, _INT, _LL, _INT, _PTR]}
 
 
-def _entry(dtype: torch.dtype):
-    fn = getattr(_cuda.library("spd_inverse_elast"), _ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+def spd_inverse_instance(n: int, dtype: torch.dtype) -> str:
+    """The kernel instance that ``spd_inverse_elast_fused`` launches for
+    (n, n, E) matrices of ``dtype``: one of ``SPD_INVERSE_INSTANCES``."""
+    if dtype == torch.float32:
+        for rows in WARP_ROWS:
+            if n <= rows:
+                return f"warp{rows}"
+    return "thread"
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    fn = getattr(_cuda.library("spd_inverse_elast"), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(K: Tensor, instance: str) -> Tuple[Tensor, Tensor]:
+    """One launch of ``instance`` on a checked K; counts nothing."""
+    n, _, E = K.shape
+    L = torch.empty_like(K)
+    K_inv = torch.empty_like(K)
+    if E == 0:
+        return L, K_inv
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        ptrs = (K.data_ptr(), L.data_ptr(), K_inv.data_ptr(), n, E)
+        if instance == "thread":
+            err = _entry(_THREAD_ENTRY[K.dtype])(*ptrs, stream)
+        else:
+            err = _entry("spd_inverse_elast_warp_f32")(*ptrs, int(instance[4:]), stream)
+    if err != 0:
+        raise RuntimeError(f"spd_inverse_elast kernel ({instance}) launch failed: CUDA error {err}")
+    return L, K_inv
 
 
 def spd_inverse_elast_fused(K: Tensor) -> Tuple[Tensor, Tensor]:
     """(L, K⁻¹) of SPD K (n, n, E) on the card, in one CUDA kernel launch.
 
     K must be a contiguous float32 or float64 CUDA tensor with n ≤ 64.
-    Same math as :func:`spd_inverse_elast`; each launch adds one to
-    ``spd_inverse_elast_fused.launches``."""
+    Same math as :func:`spd_inverse_elast` (a member whose factor meets a
+    pivot that is not positive comes back NaN).  Each launch adds one to
+    ``spd_inverse_elast_fused.launches`` and to its instance's entry of
+    ``.instance_launches`` (:func:`spd_inverse_instance`)."""
     if K.device.type != "cuda":
         raise ValueError(f"spd_inverse_elast_fused needs a CUDA tensor, got {K.device}")
-    if K.dtype not in _ENTRY:
+    if K.dtype not in _THREAD_ENTRY:
         raise TypeError(f"spd_inverse_elast_fused takes float32 or float64, got {K.dtype}")
     if K.dim() != 3 or K.shape[0] != K.shape[1]:
         raise ValueError(f"expected K of shape (n, n, E), got {tuple(K.shape)}")
     if not K.is_contiguous():
         raise ValueError("spd_inverse_elast_fused needs a contiguous K")
-    n, _, E = K.shape
-    if not 1 <= n <= FUSED_MAX_N:
-        raise ValueError(f"spd_inverse_elast_fused takes 1 <= n <= {FUSED_MAX_N}, got {n}")
-    L = torch.empty_like(K)
-    K_inv = torch.empty_like(K)
-    if E == 0:
-        return L, K_inv
-    fn = _entry(K.dtype)
-    with torch.cuda.device(K.device):
-        stream = torch.cuda.current_stream(K.device).cuda_stream
-        err = fn(K.data_ptr(), L.data_ptr(), K_inv.data_ptr(), n, E, stream)
-    if err != 0:
-        raise RuntimeError(f"spd_inverse_elast kernel launch failed: CUDA error {err}")
-    spd_inverse_elast_fused.launches += 1
-    return L, K_inv
+    if not 1 <= K.shape[0] <= FUSED_MAX_N:
+        raise ValueError(f"spd_inverse_elast_fused takes 1 <= n <= {FUSED_MAX_N}, "
+                         f"got {K.shape[0]}")
+    instance = spd_inverse_instance(K.shape[0], K.dtype)
+    out = _launch(K, instance)
+    if K.shape[2]:
+        spd_inverse_elast_fused.launches += 1
+        spd_inverse_elast_fused.instance_launches[instance] += 1
+    return out
 
 
 spd_inverse_elast_fused.launches = 0
+spd_inverse_elast_fused.instance_launches = dict.fromkeys(SPD_INVERSE_INSTANCES, 0)
 
 
 def spd_inverse_elast_auto(K: Tensor) -> Tuple[Tensor, Tensor]:

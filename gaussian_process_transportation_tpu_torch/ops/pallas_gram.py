@@ -42,6 +42,10 @@ MAX_P = 8
 # sizes the kernel's scratch of partial variances by it and hands it to the
 # kernel, which refuses a width other than its own.
 MEAN_VAR_TILE_B = 128
+# Training points one block of the mean kernel sums (a chunk): the wrapper
+# sizes the kernel's scratch of partial means by it, and the kernel refuses
+# another width.
+MEAN_CHUNK = 128
 
 _SQRT3 = math.sqrt(3.0)
 _SQRT5 = math.sqrt(5.0)
@@ -112,7 +116,7 @@ _ARGTYPES = {
                             ctypes.c_longlong, ctypes.c_void_p],
     "predict_mean_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                         ctypes.c_void_p, ctypes.c_void_p],
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     "predict_mean_var_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
@@ -189,8 +193,10 @@ def fused_gp_predict_mean(Xq: Tensor, X: Tensor, alpha: Tensor, lengthscale, amp
                           family: str = "rbf") -> Tensor:
     """Posterior mean k(X*, X) α (Nq, P) of a C·stationary(+White) GP.
 
-    For CUDA tensors one launch of the fused kernel, which never writes the
-    (Nq, N) Gram (float32 only, P ≤ MAX_P).  For CPU tensors the twin."""
+    For CUDA tensors one call of the fused kernel, which never writes the
+    (Nq, N) Gram (its two CUDA launches: the partial sums of each chunk of
+    ``MEAN_CHUNK`` training points, then their fixed-order sum; float32
+    only, P ≤ MAX_P).  For CPU tensors the twin."""
     if Xq.device.type != "cuda":
         return fused_gp_predict_mean_plain(Xq, X, alpha, lengthscale, amplitude, family)
     device = _check_points("fused_gp_predict_mean", Xq, X, alpha)
@@ -200,10 +206,12 @@ def fused_gp_predict_mean(Xq: Tensor, X: Tensor, alpha: Tensor, lengthscale, amp
                          f"got {tuple(alpha.shape)} for N={X.shape[0]}")
     mean = torch.empty(Nq, P, dtype=torch.float32, device=device)
     if Nq:
+        partial = torch.empty(-(-N // MEAN_CHUNK), Nq, P, dtype=torch.float32, device=device)
         Xqs, Xs = _kernel_points(Xq, lengthscale), _kernel_points(X, lengthscale)
         a = alpha.contiguous()
         _call("predict_mean_f32", device, Xqs.data_ptr(), Xs.data_ptr(), a.data_ptr(), Nq, N, D, P,
-              float(amplitude), _family_code(family), mean.data_ptr())
+              float(amplitude), _family_code(family), mean.data_ptr(), partial.data_ptr(),
+              MEAN_CHUNK)
         fused_gp_predict_mean.launches += 1
     return mean
 

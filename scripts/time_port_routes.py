@@ -23,7 +23,16 @@ measurements, and the panel kernel they rest on, on one CUDA card:
   value-only instance where the tree has one, each reading with the SM
   clock (``nvidia-smi`` clocks.sm and clocks.max.sm) before and after it;
 * ``paths``: fits/s of ``fit_ensemble_fused`` and ``hmc_samples_per_s`` of
-  ``sample_gp_posterior``, at ``chip_smoke.py``'s phase 13 and 14 sizes.
+  ``sample_gp_posterior``, at ``chip_smoke.py``'s phase 13 and 14 sizes;
+* ``kernels``: kernels #1 (``spd_inverse_elast_fused`` at E=16384, n=20)
+  and #5 (``fused_gp_predict_mean`` on the 100×100 grid, N=2048, P=2) at
+  their paths' shapes beside their library calls, each reading with the
+  SM clock before and after it: with ``--root`` the parent tree's kernels;
+* ``route``: ``predict()`` both ways around ``FUSED_PREDICT_MIN_ELEMS`` and
+  ``FUSED_MEAN_VAR_MIN_ELEMS`` (``models/exact_gp.py``): the fused mean
+  kernel against the dense product, and the mean-and-variance kernel
+  against the dense path, at Nq·N from 2,048 to 2·10⁷ (Nq = 10⁴ with N in
+  ``--route-n``, and N = 2048 with Nq in ``--route-nq``).
 
 Run from the repository root: ``python3 scripts/time_port_routes.py``
 (``--what`` picks the parts).  ``--root DIR`` imports the port and
@@ -42,7 +51,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PARTS = ("predict", "chol", "member", "panel", "lml", "paths")
+PARTS = ("predict", "chol", "member", "panel", "lml", "paths", "kernels", "route")
 
 
 def time_predicts(cs, pkg, device, sizes):
@@ -213,6 +222,75 @@ def time_paths(cs, pkg, device):
               f"{cs.HMC_CHAINS * cs.HMC_SAMPLES / (hmc_ms / 1e3):.1f}", flush=True)
 
 
+def time_kernels(cs, pkg, device):
+    """Kernels #1 and #5 at their paths' shapes (chip_smoke.py phase 11's
+    inputs), their library calls beside them."""
+    K, bl, pg = pkg["kernels"], pkg["batched_linalg"], pkg["pallas_gram"]
+    f32 = dict(dtype=torch.float32, device=device)
+    K_main = cs.spd_batch(cs.N_MAIN, cs.E_MAIN)
+    Ke = torch.from_numpy(np.transpose(K_main, (1, 2, 0))).to(**f32).contiguous()
+    Kb = torch.from_numpy(K_main).to(**f32)
+    Xg, Yg, Xqg = (torch.as_tensor(a, **f32) for a in cs.grid_inputs())
+    kern = K.Constant(2.0) * K.RBF(torch.ones(2, **f32)) + K.White(0.1)
+    gp = pkg["exact_gp"].condition(kern, Xg, Yg, cache_k_inv=True)
+    ones2 = torch.ones(2, **f32)
+    runs = [(f"spd_inverse_elast_fused n={cs.N_MAIN} E={cs.E_MAIN}",
+             lambda: bl.spd_inverse_elast_fused(Ke),
+             ("cholesky + cholesky_inverse",
+              lambda: torch.cholesky_inverse(torch.linalg.cholesky(Kb)))),
+            (f"fused_gp_predict_mean Nq={Xqg.shape[0]} N={Xg.shape[0]} P={Yg.shape[1]}",
+             lambda: pg.fused_gp_predict_mean(Xqg, Xg, gp.alpha, ones2, 2.0),
+             ("kern(Xq, X) @ alpha", lambda: kern(Xqg, Xg) @ gp.alpha))]
+    for name, kernel, (lib_name, library) in runs:
+        for _ in range(2):
+            before = sm_clocks()
+            dev, event = cs.device_ms(kernel), cs.cuda_ms(kernel)[0]
+            lib_dev, lib_event = cs.device_ms(library), cs.cuda_ms(library)[0]
+            print(f"{name}: {dev:.4f} device / {event:.4f} event ms; {lib_name} "
+                  f"{lib_dev:.4f} / {lib_event:.4f}; clocks.sm, clocks.max.sm before {before}, "
+                  f"after {sm_clocks()}", flush=True)
+
+
+def time_route(cs, pkg, device, route_n, route_nq):
+    """predict() with the fused route and with the dense one, at Nq·N on
+    both sides of the routes' thresholds: the mean alone, and with the std
+    where N <= FUSED_MEAN_VAR_MAX_N; CUDA-event ms of the call (the host's
+    part included), then device ms."""
+    K, gp_core = pkg["kernels"], pkg["exact_gp"]
+    f32 = dict(dtype=torch.float32, device=device)
+    kern = K.Constant(2.0) * K.RBF(torch.ones(2, **f32)) + K.White(0.1)
+    grid = torch.as_tensor(cs.grid_inputs()[2], **f32)
+    names = [c for c in ("FUSED_PREDICT_MIN_ELEMS", "FUSED_MEAN_VAR_MIN_ELEMS")
+             if hasattr(gp_core, c)]
+    default = {c: getattr(gp_core, c) for c in names}
+    sizes = [(grid.shape[0], n) for n in route_n] + [(nq, 2048) for nq in route_nq]
+    for Nq, N in sizes:
+        X = torch.as_tensor(np.random.default_rng(N).standard_normal((N, 2)), **f32)
+        gp = gp_core.condition(kern, X, torch.sin(X), cache_k_inv=True)
+        Xq = grid[torch.linspace(0, grid.shape[0] - 1, Nq).long()].contiguous()
+
+        def call(min_elems, std):
+            def run():
+                for c in names:
+                    setattr(gp_core, c, min_elems)
+                try:
+                    return gp_core.predict(gp, Xq, return_std=std)
+                finally:
+                    for c in names:
+                        setattr(gp_core, c, default[c])
+            return run
+
+        stds = (False, True) if N <= gp_core.FUSED_MEAN_VAR_MAX_N else (False,)
+        for std in stds:
+            fused, dense = call(0, std), call(Nq * N + 1, std)
+            what = "predict(return_std)" if std else "predict"
+            for _ in range(2):
+                print(f"{what} Nq={Nq} N={N} (Nq*N={Nq * N}): fused {cs.cuda_ms(fused)[0]:.4f} "
+                      f"event / {cs.device_ms(fused):.4f} device ms, dense "
+                      f"{cs.cuda_ms(dense)[0]:.4f} / {cs.device_ms(dense):.4f}; "
+                      + ", ".join(f"{c} = {v}" for c, v in default.items()), flush=True)
+
+
 def load(root):
     """chip_smoke and the port's modules from the checkout at ``root``."""
     sys.path.insert(0, str(root))
@@ -221,7 +299,7 @@ def load(root):
         ("kernels", "kernels"), ("exact_gp", "models.exact_gp"),
         ("blocked_chol", "ops.blocked_chol"), ("pallas_gram", "ops.pallas_gram"),
         ("gpt", "transport.gpt"), ("fused_lml", "ops.fused_lml"), ("affine", "models.affine"),
-        ("samplers", "parallel.samplers"))}
+        ("samplers", "parallel.samplers"), ("batched_linalg", "ops.batched_linalg"))}
     return importlib.import_module("chip_smoke"), mods
 
 
@@ -233,6 +311,8 @@ def main():
                     default=[512, 1024, 2047, 2048, 3072, 4096, 8192])
     ap.add_argument("--chol-n", type=int, nargs="*", default=[4096, 10240, 20480])
     ap.add_argument("--member-n", type=int, nargs="*", default=[768, 1536, 2500, 4096])
+    ap.add_argument("--route-n", type=int, nargs="*", default=[1, 4, 16, 64, 128, 209, 512, 2048])
+    ap.add_argument("--route-nq", type=int, nargs="*", default=[1, 8, 64, 256, 1024, 4096])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_port_routes: needs a CUDA card")
@@ -251,6 +331,10 @@ def main():
         time_lml(cs, pkg, device)
     if "paths" in args.what:
         time_paths(cs, pkg, device)
+    if "kernels" in args.what:
+        time_kernels(cs, pkg, device)
+    if "route" in args.what:
+        time_route(cs, pkg, device, args.route_n, args.route_nq)
 
 
 if __name__ == "__main__":

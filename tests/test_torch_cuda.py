@@ -62,6 +62,54 @@ def test_kernel_matches_twin_f64(device):
     _check(device, 20, E_SMALL + 37, torch.float64, atol=1e-10, inv_tol=1e-10)
 
 
+# every instance of the kernel: warp8 (n = 1, 8), warp16 (16), warp20 (20),
+# warp24 (24), warp32 (31, 32) and the thread instance (33, 64 and float64)
+SPD_INSTANCE_N = [1, 8, 16, 20, 24, 31, 32, 33, 64]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", SPD_INSTANCE_N)
+def test_kernel_every_instance(device, n, dtype, monkeypatch):
+    """E = 133 is ragged against the warp instances' blocks of 32, 16, 24
+    and 8 members and the thread instance's 64: the instance the wrapper names,
+    the twin's and numpy's f64 results to the tolerances above, two runs
+    bitwise equal, exact zeros above the diagonal."""
+    monkeypatch.setattr(tbl.spd_inverse_elast_fused, "instance_launches",
+                        dict.fromkeys(tbl.SPD_INVERSE_INSTANCES, 0))
+    K_, Ke = _spd_elast(n, 133, seed=n)
+    Kd = torch.as_tensor(Ke, dtype=dtype, device=device)
+    first, second = tbl.spd_inverse_elast_fused(Kd), tbl.spd_inverse_elast_fused(Kd)
+    L0, Ki0 = tbl.spd_inverse_elast(Kd)
+    torch.cuda.synchronize()
+    want = tbl.spd_inverse_instance(n, dtype)
+    assert tbl.spd_inverse_elast_fused.instance_launches == {
+        inst: 2 * (inst == want) for inst in tbl.SPD_INVERSE_INSTANCES}
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    atol, inv_tol = (2e-5, 1e-4) if dtype == torch.float32 else (1e-10, 1e-10)
+    L1, Ki1 = first
+    assert (L1 - L0).abs().max().item() <= atol and (Ki1 - Ki0).abs().max().item() <= atol
+    Lb = L1.permute(2, 0, 1)
+    assert torch.equal(Lb, torch.tril(Lb))
+    got = Ki1.permute(2, 0, 1).double().cpu().numpy()
+    assert np.abs(got - np.linalg.inv(K_.astype(np.float64))).max() < inv_tol
+
+
+def test_kernel_a_bad_member_is_nan_there_only(device):
+    _, Ke = _spd_elast(20, 40)
+    Ke[:, :, 3] = -Ke[:, :, 3]
+    L, Ki = tbl.spd_inverse_elast_fused(torch.as_tensor(Ke, device=device))
+    torch.cuda.synchronize()
+    assert torch.isnan(L[:, :, 3]).all() and torch.isnan(Ki[:, :, 3]).all()
+    keep = [e for e in range(40) if e != 3]
+    assert torch.isfinite(L[:, :, keep]).all() and torch.isfinite(Ki[:, :, keep]).all()
+
+
+def test_warp_instance_refuses_more_rows_than_it_holds(device):
+    Kd = torch.as_tensor(_spd_elast(20, 16)[1], device=device)
+    with pytest.raises(RuntimeError, match="warp16"):
+        tbl._launch(Kd, "warp16")
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(device):
     good = torch.eye(4, device=device)[:, :, None].repeat(1, 1, 8)
     tbl.spd_inverse_elast_fused(good)
@@ -192,6 +240,39 @@ def test_fused_mean_var_matches_the_f64_formula_at_the_tile_edges(device, Nq, N,
     assert max(chip_smoke.predict_excess(mean, var, chip_smoke.predict_f64(*args, family))) < 1
 
 
+# the mean kernel's 128-point chunks and 256-query blocks: every Nq, N of
+# MEAN_EDGE_NQ_N (129 and 257 one past a chunk, 257 one past a query
+# block), then every family, D (2 and 3 compiled in, 5 at run time) and P
+# capacity (P <= 2, P <= 8) at one ragged shape
+MEAN_EDGE_NQ_N = (1, 127, 128, 129, 257, 300)
+MEAN_CASES = ([(Nq, N, "rbf", 3, 2) for Nq in MEAN_EDGE_NQ_N for N in MEAN_EDGE_NQ_N]
+              + [(257, 300, fam, D, P) for fam in FAMILIES for D in (2, 3, 5) for P in (1, 2, 8)])
+
+
+@pytest.mark.parametrize("Nq,N,family,D,P", MEAN_CASES)
+def test_fused_mean_matches_the_f64_formula_at_the_chunk_edges(device, Nq, N, family, D, P):
+    """Per query to ``chip_smoke.py``'s bound (MEAN_REL of Σ|k α|), and two
+    runs bitwise equal (the partials are added in chunk order)."""
+    assert chip_smoke.check_mean(device, Nq, N, D, P, family)[1] < 1
+    Xq, X, alpha, ls = chip_smoke.mean_case(device, Nq, N, D, P)
+    a = tpg.fused_gp_predict_mean(Xq, X, alpha, ls, 2.0, family)
+    b = tpg.fused_gp_predict_mean(Xq, X, alpha, ls, 2.0, family)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_fused_mean_planted_faults_are_rejected(device):
+    assert min(chip_smoke.mean_faults(device).values()) >= 1
+
+
+def test_fused_mean_without_training_points_is_zero(device):
+    Xq = torch.ones(300, 2, device=device)
+    m = tpg.fused_gp_predict_mean(Xq, torch.zeros(0, 2, device=device),
+                                  torch.zeros(0, 2, device=device), 1.0, 2.0)
+    torch.cuda.synchronize()
+    assert torch.equal(m, torch.zeros(300, 2, device=device))
+
+
 def test_fused_mean_var_repeat_runs_are_bitwise_equal(device):
     args = chip_smoke.posterior_case(device, 1000, 300, "matern52")
     a = tpg.fused_gp_predict_mean_var(*args, "matern52")
@@ -303,6 +384,32 @@ def test_dense_grid_predict_launches_each_fused_kernel_once(device, monkeypatch)
     gp64, xq64 = gp_of(torch.float64)
     mean64, std64 = tgp.predict(gp64, xq64, return_std=True)
     assert tpg.fused_gp_predict_mean_var.launches == 1  # f64 keeps the dense path
+    scale = mean64.abs().max().item()
+    assert (mean.double() - mean64).abs().max().item() < 5e-3 * scale
+    assert (mean_s.double() - mean64).abs().max().item() < 5e-3 * scale
+    assert (std.double() - std64).abs().max().item() < 5e-3 * std64.abs().max().item() + 1e-3
+
+
+def test_small_predict_takes_the_fused_mean_and_the_dense_std(device, monkeypatch):
+    """Nq·N = 6,400, between FUSED_PREDICT_MIN_ELEMS and
+    FUSED_MEAN_VAR_MIN_ELEMS: the mean through one launch of its kernel, the
+    std through the dense path, both to the f64 dense GP's bounds above."""
+    _reset_counts(monkeypatch)
+    rng = np.random.default_rng(8)
+    X, Xq = rng.standard_normal((100, 2)), rng.standard_normal((64, 2))
+    assert tgp.FUSED_PREDICT_MIN_ELEMS <= 64 * 100 < tgp.FUSED_MEAN_VAR_MIN_ELEMS
+
+    def gp_of(dtype):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        kern = K.Constant(2.0) * K.RBF(torch.ones(2, dtype=dtype, device=device)) + K.White(0.1)
+        return tgp.condition(kern, t(X), t(np.sin(X)), cache_k_inv=True), t(Xq)
+
+    gp, xq = gp_of(torch.float32)
+    mean = tgp.predict(gp, xq)
+    mean_s, std = tgp.predict(gp, xq, return_std=True)
+    torch.cuda.synchronize()
+    assert tpg.fused_gp_predict_mean.launches == 1 and tpg.fused_gp_predict_mean_var.launches == 0
+    mean64, std64 = tgp.predict(*gp_of(torch.float64), return_std=True)
     scale = mean64.abs().max().item()
     assert (mean.double() - mean64).abs().max().item() < 5e-3 * scale
     assert (mean_s.double() - mean64).abs().max().item() < 5e-3 * scale

@@ -225,6 +225,7 @@ def test_predict_on_cpu_takes_the_dense_path(monkeypatch):
     from gaussian_process_transportation_tpu_torch.ops import pallas_gram as tpg
 
     monkeypatch.setattr(tgp, "FUSED_PREDICT_MIN_ELEMS", 1)
+    monkeypatch.setattr(tgp, "FUSED_MEAN_VAR_MIN_ELEMS", 1)
     for fn in (tpg.fused_gp_predict_mean, tpg.fused_gp_predict_mean_var):
         monkeypatch.setattr(fn, "launches", 0)
     k = TK.Constant(2.0) * TK.RBF(torch.ones(2)) + TK.White(0.1)
@@ -240,11 +241,13 @@ def test_predict_on_cpu_takes_the_dense_path(monkeypatch):
 def test_route_thresholds_are_the_measured_ones():
     """The routes' constants, as set from ``chip_smoke.py``'s and
     ``scripts/time_port_routes.py``'s readings on the card: the blocked
-    Cholesky won in every reading from N=10240 (and not at N=4096), and
-    the mean-and-variance kernel won up to N=2048."""
+    Cholesky won in every reading from N=10240 (and not at N=4096), the
+    mean-and-variance kernel won up to N=2048 (from the JAX package's
+    Nq·N = 2²¹), and the mean kernel won at every Nq·N timed, from 2¹¹."""
     assert tgp.BLOCKED_CHOL_MIN_N == 10240
     assert tgp.FUSED_MEAN_VAR_MAX_N == 2048
-    assert tgp.FUSED_PREDICT_MIN_ELEMS == 2**21
+    assert tgp.FUSED_MEAN_VAR_MIN_ELEMS == 2**21
+    assert tgp.FUSED_PREDICT_MIN_ELEMS == 2**11
 
 
 F32, F64 = torch.float32, torch.float64
@@ -258,7 +261,7 @@ ROUTE_CASES = [
     (("cuda", F32, F32, 10000, 2049, 2, 2, True, True), None),  # past the measured crossover
     (("cuda", F32, F32, 10000, 4096, 2, 2, True, False), "mean"),  # which binds the std only
     (("cuda", F32, F32, 1000, 2048, 2, 2, True, True), None),  # Nq·N under the threshold
-    (("cuda", F32, F32, 1000, 2048, 2, 2, True, False), None),
+    (("cuda", F32, F32, 1, 2047, 2, 2, True, False), None),  # under the mean's threshold
     (("cuda", F32, F32, 1024, 2048, 2, 2, True, True), "mean_var"),  # Nq·N at the threshold
     (("cuda", F64, F64, 10000, 2048, 2, 2, True, True), None),  # the kernels are float32
     (("cuda", F32, F64, 10000, 2048, 2, 2, True, False), None),
@@ -266,6 +269,8 @@ ROUTE_CASES = [
     (("cuda", F32, F32, 10000, 2048, 2, 9, True, False), None),  # P past the kernels' MAX_P
     (("cpu", F32, F32, 10000, 2048, 2, 2, True, True), None),  # the twins are the dense path
     (("cpu", F32, F32, 10000, 2048, 2, 2, True, False), None),
+    (("cuda", F32, F32, 1000, 2048, 2, 2, True, False), "mean"),  # the mean from Nq·N = 2¹¹
+    (("cuda", F32, F32, 1, 2048, 2, 2, True, False), "mean"),
 ]
 
 

@@ -90,3 +90,51 @@ def test_lml_check_holds_at_the_hmc_chains_final_positions():
     v, g = tfl.small_lml_value_grad(X, Y, th, fam, n_ls, noise, 1e-10)
     ref = chip_smoke.lml_f64(X[None], Y[None], th, fam, n_ls, noise, 1e-10)
     assert max(chip_smoke.lml_excess(v, g, ref)) < 0.5
+
+
+@pytest.mark.parametrize("family,Nq,N,D,P", [("rbf", 1, 1, 3, 2), ("rbf", 257, 129, 3, 2),
+                                             ("matern12", 256, 300, 5, 8),
+                                             ("matern52", 127, 257, 2, 1)])
+def test_mean_check_passes_the_twin_at_the_chunk_edges(family, Nq, N, D, P):
+    """Phase 7's mean-kernel shapes around its 128-point chunks and
+    256-query blocks: the f32 twin reads below half the bound."""
+    diff, ex = chip_smoke.check_mean("cpu", Nq, N, D, P, family)
+    assert diff == 0.0 and ex < 0.5  # on the CPU the wrapper is the twin
+
+
+def test_mean_check_rejects_planted_faults():
+    faults = chip_smoke.mean_faults("cpu")
+    assert set(faults) == {"chunk 1 dropped", "queries shifted by one"}
+    assert min(faults.values()) > 10
+
+
+def test_bound_takes_the_slower_pipe():
+    """The mean's bound at the grid shape: as many exponentials as entries
+    at the special-function units' rate, beside the f32 operations."""
+    Nq, N, D, P = 10**4, 2048, 2, 2
+    ms, by = chip_smoke.bound((Nq * D + N * D + N * P + Nq * P) * 4,
+                              chip_smoke.gram_flops(Nq, N, D) + 2 * Nq * N * P,
+                              transcendentals=Nq * N)
+    assert by == "operations"
+    assert ms == pytest.approx(max(Nq * N / chip_smoke.SFU_PER_S,
+                                   (chip_smoke.gram_flops(Nq, N, D) + 2 * Nq * N * P)
+                                   / chip_smoke.F32_FLOP_PER_S) * 1e3)
+    assert chip_smoke.bound(4e9, 1.0) == (pytest.approx(4e9 / chip_smoke.HBM_BYTES_PER_S * 1e3),
+                                          "bytes")
+
+
+def test_ptxas_summary_names_each_instance():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_123spd_inverse_warp_kernelILi24ELi16EEEvPKfPfS3_ix' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_123spd_inverse_warp_kernelILi24ELi16EEEvPKfPfS3_ix",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 80 registers, 384 bytes cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_124spd_inverse_elast_kernelIdEEvPKT_PS1_S4_ix' for 'sm_90a'",
+        "    8 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 40 registers, 384 bytes cmem[0]"])
+    assert chip_smoke.ptxas_summary(log) == (
+        "spd_inverse_warp_kernel<24,16>: 80 registers, 0 B spill stores; "
+        "spd_inverse_elast_kernel<double>: 40 registers, 16 B spill stores")

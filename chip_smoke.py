@@ -29,8 +29,15 @@ Phases, one line each on stdout:
 7. those kernels against their twins on the card: ``factor_panel`` at
    B in {128, 256, 512, 1024} against numpy's f64 factor (its device
    launches per call and its one-CTA diagonal step's device time from the
-   profiler at B=512), ``stationary_gram``
-   for the four families at ragged sizes, the fused predicts at the grid
+   profiler at B=512); kernel #7, per entry against its formula in float64
+   on the same inputs to ``GRAM_TOL``, written into NaN-filled outputs:
+   ``stationary_gram`` for the four families at ``GRAM_CASES`` (ragged
+   widths M = 1, 3, 129, 1001 among them), ``stationary_gram_panels`` at
+   ``GRAM_PANEL_CASES`` (both paths' shapes, the edges of its blocks, every
+   family and D of its instances) with two runs bitwise equal, and three
+   planted faults of the panels that the check must reject (the noise
+   dropped on a diagonal block, a tile left unwritten, a padding row
+   coupled to real points); the fused predicts at the grid
    size, a ragged one and every Nq, N in {1, 127, 128, 129, 300} (the edges
    of the mean-and-variance kernel's 128-wide tiles; D=3, P=2), per query
    against their formula in float64 on the same inputs (tolerances and
@@ -41,15 +48,17 @@ Phases, one line each on stdout:
    {2, 3, 5}, P in {1, 2, 8} at a ragged shape), two runs bitwise equal,
    and two planted faults of the mean;
 8. the large-N solve ``gram_cholesky_solve`` at N=10240 (the bench's
-   inputs): 20 panel launches, alpha against an f64 solve on the card,
+   inputs): one launch of the Gram's panels and 20 of ``factor_panel``,
+   alpha against an f64 solve on the card,
    TFLOP/s beside the card's f32 matmul rate, and the blocked path beside
-   cuSOLVER's dense Cholesky at N in {4096, 10240, 20480}, with the path
+   cuSOLVER's dense Cholesky at each N of ``N_CHOL_ROUTE``, with the path
    ``condition()`` takes at each;
 9. the slice's main path, the 3-D ensemble transport at the original
    project's surface scale (E=16 members of n=2500 points, Q=1000, D=3):
-   80 panel launches, members 0 and 15 against the port's f64 dense run on
-   the CPU; then the Gram kernel's device total over phase 8's 20 and this
-   phase's 80 launches (one traced call each) beside its byte bound;
+   one Gram launch a member and 80 of ``factor_panel``, members 0 and 15
+   against the port's f64 dense run on the CPU; then the Gram kernel's
+   device total over phase 8's one launch and this phase's 16 (one traced
+   call each) beside its byte bound;
 10. the dense-grid predicts (a 100x100 grid, N=2048): one launch of each
     fused kernel, as ``fused_predict_route`` says, the result against the
     f64 dense path on the card;
@@ -59,7 +68,11 @@ Phases, one line each on stdout:
     of the call (median of 5), ``spd_inverse_elast_fused`` beside its thread
     instance (the design every member took before the warp instances; the
     mean kernel's parent design is timed by ``scripts/time_port_routes.py
-    --what kernels --root``), the mean-and-variance kernel beside the dense
+    --what kernels --root``, and kernel #7's by ``--what gram --root``),
+    kernel #7 at both paths' shapes (the solve's Gram, the 3-D ensemble's 16
+    Grams) and the generic entry on one (10240, 512) panel, each beside its
+    twin and its byte bound, with the registers and spills of the paths'
+    instances, the mean-and-variance kernel beside the dense
     path at N in {512, 2048, 4096} with the one ``predict(return_std)``
     takes at each, and phases 8-10 end to end (CUDA events).
     The kernels' record carries the device times (``"timing":
@@ -117,6 +130,7 @@ F32_ATOL, F32_INV_TOL, F64_ATOL, TRAJ_TOL = 2e-5, 1e-4, 1e-10, 1e-3
 # every instance of kernel #1 (ops/batched_linalg.py::spd_inverse_instance)
 KERNEL_CASES = [(n, E) for n in (1, 8, 16, 20, 24, 32, 33, 64) for E in (E_MAIN, E_MAIN + 37)]
 REPS = 5
+CUPTI_TRIES = 4  # profiler sessions tried before a time falls back (traced_rows)
 SOURCES = ("spd_inverse_elast", "factor_panel", "stationary_gram", "fused_lml")
 
 N_SOLVE, D_SOLVE, BLOCK = 10240, 3, 512
@@ -126,9 +140,16 @@ TILE_EDGES = (1, 127, 128, 129, 300)  # around the mean-and-variance kernel's 12
 # around the mean kernel's 128-point chunks (129, 257: one past a chunk) and
 # its 256-query blocks
 MEAN_EDGES = (1, 127, 128, 129, 255, 256, 257, 300)
-N_CHOL_ROUTE = (4096, N_SOLVE, 20480)  # condition()'s two paths are timed at these N
+N_CHOL_ROUTE = (4096, 8192, N_SOLVE, 20480)  # condition()'s two paths are timed at these N
 N_VAR_ROUTE = (512, N_GRID, 4096)  # predict(return_std)'s two paths, at Nq = NQ_GRID^2
 FAMILIES = ("rbf", "matern12", "matern32", "matern52")
+# kernel #7's phase-7 cases: the generic entry (N, M, D), each for the four
+# families; the panel entry (family, n, B, D)
+GRAM_CASES = ((1037, 531, 3), (77, 1, 3), (130, 3, 2), (65, 129, 1), (200, 1001, 5),
+              (N_SOLVE, BLOCK, D_SOLVE))
+GRAM_PANEL_CASES = (("rbf", N_SOLVE, BLOCK, D_SOLVE),
+                    *(("rbf", n, 128, 3) for n in (1, 200, 511, 512, 513)),
+                    *((fam, N_3D, 512, D) for fam in FAMILIES for D in (1, 2, 3, 5)))
 
 # the fused predicts against their formula in float64, per query: the mean
 # to MEAN_REL of Σ_n|k α| (f32 sums of N terms); the variance, prior − k K⁻¹ kᵀ,
@@ -138,6 +159,14 @@ FAMILIES = ("rbf", "matern12", "matern32", "matern52")
 # that it rejects planted faults.
 MEAN_REL, VAR_REL, VAR_FLOOR = 1e-5, 2e-2, 5e-4
 
+# phase 7: the Gram kernels (#7) per entry against their formula in float64
+# on the same float32 inputs, to GRAM_TOL of the largest entry (amp, or amp
+# plus noise on a panel's diagonal): the f32 rounding of the scaled
+# coordinates, of d² and of the profile is a few ulps.  The f32 twin reads at
+# most 2.4e-7 of amp + noise on the CPU at phase 7's shapes (4 ulps;
+# tests/test_torch_smoke_checks.py holds it below half); phase 7 shows that
+# the bound rejects planted faults.
+GRAM_TOL = 2e-6
 # phases 12-14: the fused small-LML kernels #2 (shared data) and #3 (per lane).
 # Per lane against the same formula in float64 on the same float32 inputs.
 # A value or gradient entry sums terms (½y·α and ½log pivots; W_ij ∂K_ij/∂θ
@@ -283,39 +312,89 @@ def kernel_rows(prof):
             and "spin" not in e.key.lower() and "sleep" not in e.key.lower()]
 
 
-def device_ms(fn, reps=REPS):
+def traced_rows(run, want):
+    """The kernel rows of the first of ``CUPTI_TRIES`` ``traced`` sessions of
+    ``run()`` whose rows satisfy ``want``, with what ``run`` returned; (None,
+    that) when none did.  CUPTI now and then hands a whole session back with
+    no kernel record (seen late in a run, after the path traces), so one empty
+    session is not a verdict on the code it traced."""
+    for _ in range(CUPTI_TRIES):
+        with traced() as prof:
+            out = run()
+            torch.cuda.synchronize()
+        rows = kernel_rows(prof)
+        if want(rows):
+            return rows, out
+        time.sleep(0.1)
+    return None, out
+
+
+def cupti_ms(fn, reps=REPS):
     """Device time of every CUDA kernel that one call of ``fn`` launches
     (torch.profiler, CUPTI), in milliseconds: the mean over ``reps`` calls
     traced in one session after a warm-up; the card's own time, without the
-    host's launch gaps.  A session that records no kernel time is traced
-    again, and twice empty raises."""
+    host's launch gaps.  None where no session held a kernel record."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        with traced() as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in kernel_rows(prof))
-        if total_us > 0:
-            return total_us / reps / 1e3
-    raise AssertionError("torch.profiler recorded no device time")
+    rows, _ = traced_rows(lambda: [fn() for _ in range(reps)],
+                          lambda r: sum(e.self_device_time_total for e in r) > 0)
+    if rows is None:
+        return None
+    return sum(e.self_device_time_total for e in rows) / reps / 1e3
+
+
+def device_ms(fn, reps=REPS):
+    """``cupti_ms``, raising where no session held a kernel record."""
+    ms = cupti_ms(fn, reps)
+    if ms is None:
+        raise AssertionError(f"torch.profiler recorded no device time in {CUPTI_TRIES} sessions")
+    return ms
+
+
+def measured(fn, reps=REPS):
+    """(ms, CUDA-event ms, whether ms is CUPTI's device time) of ``fn``: the
+    device time where CUPTI held the session's kernels, else the CUDA-event
+    median, said so on standard error and in the record's ``timing``."""
+    dev, event = cupti_ms(fn, reps), cuda_ms(fn, reps)[0]
+    if dev is None:
+        print(f"torch.profiler held no kernel record in {CUPTI_TRIES} sessions of "
+              f"{getattr(fn, '__qualname__', fn)}: timed by CUDA events instead "
+              f"({event:.4f} ms)", file=sys.stderr, flush=True)
+        return event, event, False
+    return dev, event, True
+
+
+def timing_of(v):
+    """The record's ``timing`` of one kernel: "cupti_device", or which of its
+    times fell back to CUDA events (``measured``)."""
+    fell = [k for k, t in v.items() if isinstance(t, tuple) and len(t) == 3 and t[2] is False]
+    fell += v.get("event_timed", [])
+    return "cupti_device" if not fell else "cupti_device; cuda_event for " + ", ".join(fell)
 
 
 def path_breakdown(fn, kernel_key):
     """One call of ``fn`` traced (torch.profiler, CUDA activity): (wall ms
     of the call, device ms of all its kernels, device ms and launches of
     those whose name holds ``kernel_key``, launches of all kernels: device
-    rows only, not the CUDA runtime's host-side ones)."""
+    rows only, not the CUDA runtime's host-side ones).  A session that holds
+    no ``kernel_key`` row is traced again (``traced_rows``); where none did,
+    the kernel's numbers are NaN."""
     fn()
     torch.cuda.synchronize()
-    with traced() as prof:
+
+    def run():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = kernel_rows(prof)
+        return (time.perf_counter() - t0) * 1e3
+
+    rows, wall = traced_rows(run, lambda r: any(kernel_key in e.key for e in r))
+    if rows is None:
+        print(f"torch.profiler held no {kernel_key} record in {CUPTI_TRIES} sessions",
+              file=sys.stderr, flush=True)
+        return dict(wall_ms=wall, device_ms=math.nan, kernel_ms=math.nan,
+                    kernel_launches=math.nan, all_launches=math.nan)
     mine = [e for e in rows if kernel_key in e.key]
     return dict(wall_ms=wall, device_ms=sum(e.self_device_time_total for e in rows) / 1e3,
                 kernel_ms=sum(e.self_device_time_total for e in mine) / 1e3,
@@ -331,13 +410,14 @@ def fmt_breakdown(b):
 
 
 def timed(kernel, twin, library=None, parent=None):
-    """(device ms, CUDA-event ms) of a kernel's wrapper call, its twin, the
+    """``measured`` times (device ms, CUDA-event ms, whether from CUPTI) of a
+    kernel's wrapper call, its twin, the
     library call (None where there is none) and, where given, the parent
     design on the same inputs."""
     roles = (("ms", kernel), ("plain_ms", twin), ("library_ms", library))
-    out = {role: None if fn is None else (device_ms(fn), cuda_ms(fn)[0]) for role, fn in roles}
+    out = {role: None if fn is None else measured(fn) for role, fn in roles}
     if parent is not None:
-        out["parent_ms"] = (device_ms(parent), cuda_ms(parent)[0])
+        out["parent_ms"] = measured(parent)
     return out
 
 
@@ -419,7 +499,9 @@ def counted():
     from gaussian_process_transportation_tpu_torch.ops.batched_linalg import (
         spd_inverse_elast_fused,
     )
-    from gaussian_process_transportation_tpu_torch.ops.blocked_chol import factor_panel
+    from gaussian_process_transportation_tpu_torch.ops.blocked_chol import (
+        factor_panel, stationary_gram_panels,
+    )
     from gaussian_process_transportation_tpu_torch.ops.fused_lml import (
         small_lml_value_grad, small_lml_value_grad_md,
     )
@@ -428,8 +510,9 @@ def counted():
     )
 
     return {f.__name__: f for f in (spd_inverse_elast_fused, factor_panel, stationary_gram,
-                                    fused_gp_predict_mean, fused_gp_predict_mean_var,
-                                    small_lml_value_grad, small_lml_value_grad_md)}
+                                    stationary_gram_panels, fused_gp_predict_mean,
+                                    fused_gp_predict_mean_var, small_lml_value_grad,
+                                    small_lml_value_grad_md)}
 
 
 def drive(path):
@@ -490,22 +573,21 @@ def panel_profile(A):
     """``factor_panel`` on the card traced over REPS calls after a warm-up
     (torch.profiler): (device launches per call, device ms per launch of
     its one-CTA diagonal step ``diag_kernel``).  A trace that records no
-    diagonal step is taken again, as in ``device_ms``; twice raises."""
+    diagonal step is taken again (``traced_rows``); where none did, both are
+    NaN (the launch checks read the wrapper's count, not the profiler)."""
     from gaussian_process_transportation_tpu_torch.ops.blocked_chol import factor_panel
 
     factor_panel(A)
     torch.cuda.synchronize()
-    for _ in range(2):
-        with traced() as prof:
-            for _ in range(REPS):
-                factor_panel(A)
-            torch.cuda.synchronize()
-        rows = kernel_rows(prof)
-        diag = [e for e in rows if "diag_kernel" in e.key]
-        if diag:
-            return (sum(e.count for e in rows) / REPS,
-                    sum(e.self_device_time_total for e in diag) / sum(e.count for e in diag) / 1e3)
-    raise AssertionError("torch.profiler recorded no launch of factor_panel's diag_kernel")
+    rows, _ = traced_rows(lambda: [factor_panel(A) for _ in range(REPS)],
+                          lambda r: any("diag_kernel" in e.key for e in r))
+    if rows is None:
+        print(f"torch.profiler held no diag_kernel record in {CUPTI_TRIES} sessions",
+              file=sys.stderr, flush=True)
+        return math.nan, math.nan
+    diag = [e for e in rows if "diag_kernel" in e.key]
+    return (sum(e.count for e in rows) / REPS,
+            sum(e.self_device_time_total for e in diag) / sum(e.count for e in diag) / 1e3)
 
 
 def check_factor_panel(device, B):
@@ -533,23 +615,102 @@ def check_factor_panel(device, B):
     return max((L - L0).abs().max().item(), (Linv - Linv0).abs().max().item()), max(rel)
 
 
-def check_gram(device, N, M, D, family, amp=2.0):
-    """Kernel against twin to 1e-5·amp: the same per-dimension d² in
-    another rounding order (fma) and expf against torch.exp, a few f32
-    ulps of values ≤ amp."""
-    from gaussian_process_transportation_tpu_torch.ops.pallas_gram import (
-        stationary_gram, stationary_gram_plain,
-    )
+def gram_points(device, n, D, seed):
+    """Standard-normal points (n, D) and lengthscales linspace(0.8, 1.5, D),
+    float32."""
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.standard_normal((n, D)), dtype=torch.float32, device=device),
+            torch.linspace(0.8, 1.5, D, device=device))
 
-    rng = np.random.default_rng(N + M)
-    X = torch.as_tensor(rng.standard_normal((N, D)), dtype=torch.float32, device=device)
-    Z = torch.as_tensor(rng.standard_normal((M, D)), dtype=torch.float32, device=device)
-    ls = torch.linspace(0.8, 1.5, D, device=device)
-    err = (stationary_gram(X, Z, ls, amp, family)
-           - stationary_gram_plain(X, Z, ls, amp, family)).abs().max().item()
-    if err >= 1e-5 * amp:
-        raise AssertionError(f"stationary_gram {family} ({N}, {M}): |kernel-twin| {err:.3g}")
-    return err
+
+def gram_excess(got, ref, scale):
+    """The largest |got − ref| over GRAM_TOL·scale; an entry left NaN (not
+    written) reads as infinite.  A sound kernel reads below 1."""
+    err = (got.double() - ref).abs().nan_to_num(nan=math.inf)
+    return (err.max() / (GRAM_TOL * scale)).item()
+
+
+def flat_panels(panels):
+    """The panels of one Gram as one flat tensor, in the buffer's order."""
+    return torch.cat([p.reshape(-1) for p in panels])
+
+
+def check_gram(device, N, M, D, family, amp=2.0):
+    """``stationary_gram`` written into a NaN-filled (N, M) output, per entry
+    against the formula in float64 on the same float32 inputs to
+    GRAM_TOL·amp; returns (|kernel − f32 twin| max, error/bound max)."""
+    from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
+
+    X, ls = gram_points(device, N, D, seed=N + M)
+    Z = gram_points(device, M, D, seed=N + M + 1)[0]
+    out = pg.stationary_gram_into(torch.full((N, M), math.nan, device=device), X, Z, ls, amp,
+                                  family)
+    ex = gram_excess(out, pg.stationary_gram_plain(X.double(), Z.double(), ls.double(), amp,
+                                                   family), amp)
+    if not ex < 1:
+        raise AssertionError(f"stationary_gram {family} ({N}, {M}) D={D}: error/bound vs the "
+                             f"f64 formula {ex:.3g}")
+    return (out - pg.stationary_gram_plain(X, Z, ls, amp, family)).abs().max().item(), ex
+
+
+def gram_panels_run(device, n, B, D, family, amp=2.0, noise=0.1):
+    """The panel entry into a NaN-filled buffer: (points, lengthscales, the
+    buffer, the same Gram from the f64 twin as one flat tensor)."""
+    from gaussian_process_transportation_tpu_torch.ops import blocked_chol as bc
+
+    X, ls = gram_points(device, n, D, seed=n * 8 + D)
+    buf = torch.full((bc.panel_offsets(n, B)[-1],), math.nan, device=device)
+    bc.stationary_gram_panels_into(buf, X, ls, amp, noise, B, family)
+    ref = flat_panels(bc.stationary_gram_panels_plain(X.double(), ls.double(), amp, noise, B,
+                                                      family)[0])
+    return X, ls, buf, ref
+
+
+def check_gram_panels(device, n, B, D, family, amp=2.0, noise=0.1):
+    """``stationary_gram_panels`` into a NaN-filled buffer, per entry against
+    the padded Gram in float64 on the same float32 inputs (the f64 twin) to
+    GRAM_TOL·(amp + noise), and a second run into another NaN-filled buffer
+    bitwise equal; returns (|kernel − f32 twin| max, error/bound max)."""
+    from gaussian_process_transportation_tpu_torch.ops import blocked_chol as bc
+
+    X, ls, buf, ref = gram_panels_run(device, n, B, D, family, amp, noise)
+    ex = gram_excess(buf, ref, amp + noise)
+    again = torch.full_like(buf, math.nan)
+    bc.stationary_gram_panels_into(again, X, ls, amp, noise, B, family)
+    if not (ex < 1 and torch.equal(buf, again)):
+        raise AssertionError(f"stationary_gram_panels {family} n={n} B={B} D={D}: error/bound "
+                             f"vs the f64 formula {ex:.3g}, two runs bitwise equal "
+                             f"{torch.equal(buf, again)}")
+    twin = flat_panels(bc.stationary_gram_panels_plain(X, ls, amp, noise, B, family)[0])
+    return (buf - twin).abs().max().item(), ex
+
+
+def gram_panel_faults(device, n=700, B=128, D=3, amp=2.0, noise=0.1):
+    """``check_gram_panels``'s bound must reject a wrong panel kernel: its
+    output with the noise dropped from panel 1's diagonal block, with the
+    tile of rows 64-127 and columns 0-127 of panel 1 left unwritten (NaN),
+    and with the first padding row (point n) coupled to the real columns of
+    panel 0 (row n - 1's values).  Returns each fault's error/bound."""
+    from gaussian_process_transportation_tpu_torch.ops import blocked_chol as bc
+
+    _, _, buf, ref = gram_panels_run(device, n, B, D, "rbf", amp, noise)
+    faults = {}
+    for name in ("noise dropped on diagonal block 1", "tile (panel 1, rows 64-127) skipped",
+                 "padding row coupled"):
+        bad = buf.clone()
+        panels = bc.panel_views(bad, n, B)
+        if name.startswith("noise"):
+            panels[1][:B].diagonal().sub_(noise)
+        elif name.startswith("tile"):
+            panels[1][64:128, :128] = math.nan
+        else:
+            panels[0][n] = panels[0][n - 1]
+        faults[name] = gram_excess(bad, ref, amp + noise)
+    for name, ex in faults.items():
+        if not ex >= 1:
+            raise AssertionError(f"the Gram panel check passes a planted fault, {name} "
+                                 f"(error/bound {ex:.3g})")
+    return faults
 
 
 def predict_f64(Xq, X, alpha, K_inv, ls, amp, prior, family):
@@ -1016,7 +1177,7 @@ def main() -> None:
     launches = counts4["spd_inverse_elast_fused"]
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     expect_launches("ensemble transport", counts4, {
-        "spd_inverse_elast_fused": 1, "factor_panel": 0, "stationary_gram": 0})
+        "spd_inverse_elast_fused": 1, "factor_panel": 0, "stationary_gram_panels": 0})
     fields = {name: getattr(res, name) for name in res._fields if getattr(res, name) is not None}
     for name, value in fields.items():
         if not torch.isfinite(value).all():
@@ -1078,10 +1239,11 @@ def main() -> None:
     # 6. build of the large-N kernels (started in phase 2)
     print(f"ptxas: spd_inverse_elast: {ptxas_summary(lib_path.with_suffix('.log').read_text())} "
           f"{tag}", flush=True)
+    logs = {}
     for name in ("factor_panel", "stationary_gram", "fused_lml"):
         path, build_s = builds[name].result()
         _cuda.library(name)
-        log = path.with_suffix(".log").read_text()
+        log = logs[name] = path.with_suffix(".log").read_text()
         print(log, file=sys.stderr)
         print(f"build: {name} in {build_s:.2f} s, beside the others ({path.name}; ptxas: "
               + ptxas_summary(log)
@@ -1094,8 +1256,15 @@ def main() -> None:
 
     # 7. the new kernels against their twins
     fp_errs = {B: check_factor_panel(device, B) for B in (128, 256, 512, 1024)}
-    gram_errs = {(fam, N, M): check_gram(device, N, M, 3, fam)
-                 for fam in FAMILIES for (N, M) in ((1037, 531), (10240, 512))}
+    # kernel #7: the generic entry at ragged shapes (M = 1, 3, 129, 1001: row
+    # strides that are no multiple of 16 bytes, a ragged last column group)
+    # and the path's panel width; the panel entry at both paths' shapes, at
+    # the edges of its blocks and at every family and D of its instances
+    gram_errs = {(fam, N, M, D_): check_gram(device, N, M, D_, fam)
+                 for fam in FAMILIES for (N, M, D_) in GRAM_CASES}
+    gram_panel_errs = {(fam, n_, B_, D_): check_gram_panels(device, n_, B_, D_, fam)
+                       for fam, n_, B_, D_ in GRAM_PANEL_CASES}
+    gram_faults = gram_panel_faults(device)
     Xg, Yg, Xqg = (torch.as_tensor(a, **f32) for a in grid_inputs())
     kern_grid = K.Constant(2.0) * K.RBF(torch.ones(2, **f32)) + K.White(0.1)
     gp_grid = gp_core.condition(kern_grid, Xg, Yg, cache_k_inv=True)
@@ -1143,8 +1312,16 @@ def main() -> None:
           + f" (< 5e-6, exact zeros above the diagonal); at B={BLOCK} {fp_launches:g} device "
           f"launches per call, its diag_kernel {fp_diag_ms:.4f} ms a launch (CUPTI, mean of "
           f"{BLOCK // bc.SUB_BLOCK * REPS})"
-          + "; stationary_gram max " + f"{max(gram_errs.values()):.3g} over "
-          + f"{len(gram_errs)} cases; fused mean/var |kernel-twin| max (error/bound vs the f64 "
+          + f"; stationary_gram (N, M, D) in {GRAM_CASES}, four families, into NaN: "
+          + f"|kernel-twin| max {max(e[0] for e in gram_errs.values()):.3g}, error/bound vs "
+          + f"the f64 formula max {max(e[1] for e in gram_errs.values()):.3g} (bound "
+          + f"{GRAM_TOL:g}*amp); stationary_gram_panels at {len(gram_panel_errs)} (family, n, "
+          + "B, D) cases, into NaN, one launch each: |kernel-twin| max "
+          + f"{max(e[0] for e in gram_panel_errs.values()):.3g}, error/bound max "
+          + f"{max(e[1] for e in gram_panel_errs.values()):.3g} (bound "
+          + f"{GRAM_TOL:g}*(amp+noise)), two runs bitwise equal; planted panel faults "
+          + "rejected, error/bound " + ", ".join(f"{k} {v:.3g}" for k, v in gram_faults.items())
+          + "; fused mean/var |kernel-twin| max (error/bound vs the f64 "
           + f"formula, bound mean {MEAN_REL:g}*sum|k alpha|, var {VAR_REL:g}*var64+{VAR_FLOOR:g}) "
           + ", ".join(f"{f} {nq}x{nn}: {a:.3g}/{b:.3g} ({c:.3g}/{d:.3g})"
                       for (f, nq, nn), (a, b, c, d) in pred_errs.items())
@@ -1169,7 +1346,8 @@ def main() -> None:
     alpha, counts8 = drive(solve_path)
     panels = -(-N_SOLVE // BLOCK)
     expect_launches("gram_cholesky_solve", counts8, {"factor_panel": panels,
-                                                     "stationary_gram": panels})
+                                                     "stationary_gram_panels": 1,
+                                                     "stationary_gram": 0})
     K64 = f64_gram(Xs, 2.0, 0.1)
     a64 = torch.cholesky_solve(Ys.double(), torch.linalg.cholesky(K64))
     del K64
@@ -1198,7 +1376,8 @@ def main() -> None:
                       "blocked" if nn >= gp_core.BLOCKED_CHOL_MIN_N else "dense")
     del Xn, Yn
     print(f"large-N solve: gram_cholesky_solve N={n} D={D_SOLVE} block={BLOCK}: factor_panel "
-          f"launches {counts8['factor_panel']}, stationary_gram {counts8['stationary_gram']}; "
+          f"launches {counts8['factor_panel']}, stationary_gram_panels "
+          f"{counts8['stationary_gram_panels']} (stationary_gram {counts8['stationary_gram']}); "
           f"alpha rel err vs f64 {solve_err:.3g} (< 5e-3); {solve_ms:.4f} ms {solve_all} = "
           f"{tflops:.3f} TFLOP/s; f32 matmul 8192^2 {mm_tflops:.3f} TFLOP/s (TF32 off); "
           "blocked vs torch.linalg.cholesky+cholesky_solve (dense Gram included): "
@@ -1210,7 +1389,7 @@ def main() -> None:
         torch.cuda.synchronize()
     print(f"profile of gram_cholesky_solve N={n} {tag}\n"
           + prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), file=sys.stderr)
-    gram8 = path_breakdown(solve_path, "gram_kernel")
+    gram8 = path_breakdown(solve_path, "gram_tile_kernel")
     gram8["bound"] = bound(panel_bytes(N_SOLVE, BLOCK), 0)
 
     # 9. the 3-D ensemble transport (the slice's main path)
@@ -1224,7 +1403,8 @@ def main() -> None:
     res3, counts9 = drive(ensemble_3d)
     per_member = -(-N_3D // gpt.BLOCKED_PANEL)
     expect_launches("3-D ensemble", counts9, {"factor_panel": E_3D * per_member,
-                                              "stationary_gram": E_3D * per_member,
+                                              "stationary_gram_panels": E_3D,
+                                              "stationary_gram": 0,
                                               "spd_inverse_elast_fused": 0})
     for name in ("traj", "std", "delta", "delta_var", "min_abs_det"):
         if not torch.isfinite(getattr(res3, name)).all():
@@ -1245,8 +1425,9 @@ def main() -> None:
     del res3
     ens_ms, ens_all = cuda_ms(ensemble_3d)
     print(f"3-D ensemble: fit_and_transport_batched E={E_3D} n={N_3D} Q={Q_3D} D=3 f32, fields "
-          f"finite, factor_panel launches {counts9['factor_panel']}, stationary_gram "
-          f"{counts9['stationary_gram']}; err/max|X| vs f64 dense CPU "
+          f"finite, factor_panel launches {counts9['factor_panel']}, stationary_gram_panels "
+          f"{counts9['stationary_gram_panels']} (stationary_gram {counts9['stationary_gram']}); "
+          "err/max|X| vs f64 dense CPU "
           + ", ".join(f"{k}: {v:.3g}" for k, v in rel3.items())
           + f" (< {TRAJ_TOL}); {ens_ms:.4f} ms/ensemble {ens_all} (median of {REPS}) = "
           f"{E_3D / (ens_ms / 1e3):.3f} members/s {tag}", flush=True)
@@ -1255,9 +1436,9 @@ def main() -> None:
         torch.cuda.synchronize()
     print(f"profile of the 3-D ensemble {tag}\n"
           + prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), file=sys.stderr)
-    gram9 = path_breakdown(ensemble_3d, "gram_kernel")
+    gram9 = path_breakdown(ensemble_3d, "gram_tile_kernel")
     gram9["bound"] = bound(E_3D * panel_bytes(N_3D, gpt.BLOCKED_PANEL), 0)
-    print("stationary_gram's device total on its paths (CUPTI, one traced call): "
+    print("stationary_gram_panels' device total on its paths (CUPTI, one traced call): "
           + "; ".join(f"{what}: {g['kernel_ms']:.4f} ms in {g['kernel_launches']} launches, bound "
                       f"{g['bound'][0]:.4f} ms by {g['bound'][1]}"
                       for what, g in ((f"the N={N_SOLVE} solve", gram8),
@@ -1308,15 +1489,36 @@ def main() -> None:
         calls=(lambda: bc.factor_panel(A512), lambda: bc.factor_panel_plain(A512),
                lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(A512), eye512,
                                                      upper=False)))
-    Z = Xs / ls3  # the first panel of phase 8: (10240, 512)
-    kernels_json["stationary_gram"] = dict(
+    # kernel #7 at both paths' shapes: the solve's Gram (one launch) and the
+    # 3-D ensemble's (E_3D launches at the members' n); beside it the generic
+    # entry on the solve's first panel, (10240, 512)
+    entries = panel_bytes(N_SOLVE, B) // 4
+    ls3_ens = 2.0 * torch.ones(3, **f32)
+    kernels_json["stationary_gram_panels"] = dict(
         source=f"{PKG}/csrc/stationary_gram.cu", replaces=f"{TPU_PKG}/ops/pallas_gram.py:268",
-        launches=counts9["stationary_gram"], max_abs_err=gram_errs[("rbf", N_SOLVE, B)],
-        bound=bound(N_SOLVE * B * 4 + (N_SOLVE + B) * D_SOLVE * 4,
-                    gram_flops(N_SOLVE, B, D_SOLVE)), shape=f"({N_SOLVE}, {B}) D={D_SOLVE}",
+        launches=counts9["stationary_gram_panels"],
+        max_abs_err=gram_panel_errs[("rbf", N_SOLVE, B, D_SOLVE)][0],
+        bound=bound(4 * entries + N_SOLVE * D_SOLVE * 4, gram_flops(entries, 1, D_SOLVE),
+                    transcendentals=entries),
+        shape=f"the N={N_SOLVE} solve's Gram, {N_SOLVE // B} panels of B={B}, D={D_SOLVE}",
         path_totals={"solve": gram8, "ensemble_3d": gram9},
-        calls=(lambda: pg.stationary_gram(Z, Z[:B], 1.0, 2.0),
-               lambda: pg.stationary_gram_plain(Z, Z[:B], 1.0, 2.0), None))
+        ptxas="; ".join(e for e in ptxas_summary(logs["stationary_gram"]).split("; ")
+                        if e.startswith(("gram_tile_kernel<0,3,", "gram_tile_kernel<0,0,"))),
+        calls=(lambda: bc.stationary_gram_panels(Xs, ls3, 2.0, 0.1, B),
+               lambda: bc.stationary_gram_panels_plain(Xs, ls3, 2.0, 0.1, B), None))
+    ens_entries = E_3D * panel_bytes(N_3D, gpt.BLOCKED_PANEL) // 4
+    gram_extra = {
+        "ensemble_3d_gram": (
+            lambda: [bc.stationary_gram_panels(S3d, ls3_ens, 2.0, 0.01, gpt.BLOCKED_PANEL)
+                     for _ in range(E_3D)],
+            lambda: [bc.stationary_gram_panels_plain(S3d, ls3_ens, 2.0, 0.01, gpt.BLOCKED_PANEL)
+                     for _ in range(E_3D)],
+            bound(4 * ens_entries + E_3D * N_3D * 12, gram_flops(ens_entries, 1, 3),
+                  transcendentals=ens_entries)),
+        "generic": (lambda: pg.stationary_gram(Xs, Xs[:B], ls3, 2.0),
+                    lambda: pg.stationary_gram_plain(Xs, Xs[:B], ls3, 2.0),
+                    bound(N_SOLVE * B * 4 + (N_SOLVE + B) * D_SOLVE * 4,
+                          gram_flops(N_SOLVE, B, D_SOLVE), transcendentals=N_SOLVE * B))}
 
     a_g, Ki_g = gp_grid.alpha, gp_grid.K_inv
     Nq, N, P, D = Xqg.shape[0], Xg.shape[0], a_g.shape[1], 2
@@ -1346,6 +1548,14 @@ def main() -> None:
                dense_mean_var))
     for v in kernels_json.values():
         v.update(timed(*v.pop("calls")))
+    for key, (kernel_fn, twin_fn, bnd) in gram_extra.items():
+        t = timed(kernel_fn, twin_fn)
+        kernels_json["stationary_gram_panels"].setdefault("event_timed", []).extend(
+            f"{key}_{role}" for role in ("ms", "plain_ms") if not t[role][2])
+        kernels_json["stationary_gram_panels"]["extra"] = {
+            **kernels_json["stationary_gram_panels"].get("extra", {}),
+            f"{key}_ms": t["ms"][0], f"{key}_event_ms": t["ms"][1],
+            f"{key}_plain_ms": t["plain_ms"][0], f"{key}_bound_ms": bnd[0]}
 
     # predict(return_std)'s two paths at Nq = 10^4: device ms of the kernel and
     # of the dense path, and which one the route takes
@@ -1357,10 +1567,20 @@ def main() -> None:
         Xn = torch.as_tensor(np.random.default_rng(nn).standard_normal((nn, 2)), **f32)
         gp_n = gp_core.condition(kern_grid, Xn, torch.sin(Xn), cache_k_inv=True)
         a_n, Ki_n = gp_n.alpha, gp_n.K_inv
-        var_ms[nn] = (device_ms(lambda: pg.fused_gp_predict_mean_var(Xqg, Xn, a_n, Ki_n, ones2,
-                                                                      2.0, 2.1)),
-                      device_ms(lambda: dense_mean_var(Xn, a_n, Ki_n)))
+        var_ms[nn] = (measured(lambda: pg.fused_gp_predict_mean_var(Xqg, Xn, a_n, Ki_n, ones2,
+                                                                     2.0, 2.1))[0],
+                      measured(lambda: dense_mean_var(Xn, a_n, Ki_n))[0])
     del gp_n, a_n, Ki_n
+    g7, x7 = kernels_json["stationary_gram_panels"], kernels_json["stationary_gram_panels"]["extra"]
+    shapes7 = {"ensemble_3d_gram": f"the 3-D ensemble's Grams, {E_3D} launches at n={N_3D}",
+               "generic": f"stationary_gram on the solve's first panel, ({N_SOLVE}, {B})"}
+    print(f"kernel #7 (device ms from CUPTI, mean of {REPS} / CUDA-event ms, median of {REPS}): "
+          f"the N={N_SOLVE} solve's Gram, one launch, {g7['ms'][0]:.4f}/{g7['ms'][1]:.4f}, twin "
+          f"{g7['plain_ms'][0]:.4f}, bound {g7['bound'][0]:.4f}; "
+          + "; ".join(f"{what} {x7[k + '_ms']:.4f}/{x7[k + '_event_ms']:.4f}, twin "
+                      f"{x7[k + '_plain_ms']:.4f}, bound {x7[k + '_bound_ms']:.4f}"
+                      for k, what in shapes7.items())
+          + f"; ptxas {g7['ptxas']}; SM clock now {sm_clocks()} {tag}", flush=True)
     pm_ms = cuda_ms(lambda: gp_core.predict(gp_grid, Xqg))[0]
     pv_ms = cuda_ms(lambda: gp_core.predict(gp_grid, Xqg, return_std=True))[0]
     fmt = lambda t: "-" if t is None else f"{t[0]:.4f}/{t[1]:.4f}"
@@ -1440,7 +1660,7 @@ def main() -> None:
         if per_lane:  # the value-only instance at the same inputs
             vo_fn = lambda a=(X_, Y_, th_, fam, n_ls, noise): fl._small_lml_value_md(*a)
             kernels_json[name].update(
-                value_only_ms=(device_ms(vo_fn), cuda_ms(vo_fn)[0]),
+                value_only_ms=measured(vo_fn),
                 value_only_bound=bound(data_bytes + L_ * (th_.shape[0] + 1) * 4,
                                        L_ * lml_value_flops(n, D, p)))
     clocks = sm_clocks()
@@ -1644,7 +1864,7 @@ def main() -> None:
                "launches": v["launches"], "max_abs_err": v["max_abs_err"], "ms": dev(v["ms"]),
                "plain_ms": dev(v["plain_ms"]), "bound_ms": v["bound"][0],
                "bound_by": v["bound"][1], "library_ms": dev(v["library_ms"]),
-               "timing": "cupti_device", "event_ms": event(v["ms"]),
+               "timing": timing_of(v), "event_ms": event(v["ms"]),
                "plain_event_ms": event(v["plain_ms"]), "library_event_ms": event(v["library_ms"]),
                **({"value_only_ms": dev(v["value_only_ms"]),
                    "value_only_event_ms": event(v["value_only_ms"]),
@@ -1659,9 +1879,14 @@ def main() -> None:
                **({f"{k}_launches": g["kernel_launches"] for k, g in v["path_totals"].items()}
                   if "path_totals" in v else {}),
                **({f"{k}_bound_ms": g["bound"][0] for k, g in v["path_totals"].items()}
-                  if "path_totals" in v else {})}
+                  if "path_totals" in v else {}),
+               **({"ptxas": v["ptxas"]} if "ptxas" in v else {}),
+               **v.get("extra", {})}
               for name, v in kernels_json.items()]
-    print(json.dumps({"kernels": record}))
+    # a time the profiler could not give (path_breakdown, panel_profile) is null
+    record = [{k: None if isinstance(x, float) and math.isnan(x) else x for k, x in r.items()}
+              for r in record]
+    print(json.dumps({"kernels": record}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

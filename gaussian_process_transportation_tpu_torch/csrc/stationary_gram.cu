@@ -1,16 +1,18 @@
-// Stationary-kernel Gram tiles for the exact GP, float32, three kernels on
-// one shared distance routine:
+// Stationary-kernel Gram tiles for the exact GP, float32, on one shared
+// distance routine:
 //
-//   stationary_gram    out = amp * phi(|x - z|^2)               (N, M)
-//   predict_mean       mean = k(Xq, X) alpha                    (Nq, P)
-//   predict_mean_var   mean, and var = max(prior - diag(k K^-1 k^T), 0)
+//   stationary_gram         out = amp * phi(|x - z|^2)            (N, M)
+//   stationary_gram_panels  the lower column panels of the padded
+//                           amp * phi + noise * I of one point set
+//   predict_mean            mean = k(Xq, X) alpha                  (Nq, P)
+//   predict_mean_var        mean, and var = max(prior - diag(k K^-1 k^T), 0)
 //
 // with phi the unit-amplitude RBF or Matern 1/2, 3/2, 5/2 profile of the
-// squared distance between lengthscale-scaled points (the wrapper divides
-// by the lengthscales).  They replace the TPU Pallas kernels of
-// gaussian_process_transportation_tpu/ops/pallas_gram.py: the inner kernel
-// of stationary_gram, _mean_kernel (fused_gp_predict_mean) and
-// _mean_var_kernel (fused_gp_predict_mean_var).
+// squared distance between lengthscale-scaled points.  They replace the TPU
+// Pallas kernels of gaussian_process_transportation_tpu/ops/pallas_gram.py:
+// the inner kernel of stationary_gram (both Gram entries),
+// _mean_kernel (fused_gp_predict_mean) and _mean_var_kernel
+// (fused_gp_predict_mean_var).
 //
 // d^2 is summed from per-dimension differences (exact; the |x|^2+|z|^2-2x.z
 // expansion cancels in float32), and the Matern profiles take
@@ -18,9 +20,30 @@
 // training point past N contributes 0, a query past Nq is not written.
 //
 // Design and bounds on an H100 (3.35 TB/s, 67 TFLOP/s f32):
-// * stationary_gram writes each output once from 32 x 32 tiles whose points
-//   sit in shared memory: memory-bound, e.g. the lower Gram panels at
-//   N = 10240, B = 512 are 210 MB, a 63 us bound.
+// * the two Gram entries write each output entry once and read a few
+//   bytes of points: bound by the stores, e.g. the lower panels of the
+//   N = 10240, B = 512 Gram are 220 MB, a 66 us bound, against 0.013 ms of
+//   exponentials at the special-function units' rate.  One block writes a
+//   64-row by 128-column tile with 256 threads: a thread keeps the points
+//   of 4 adjacent columns in registers and writes one 16-byte float4 a row
+//   over 8 rows, whose points it reads from shared memory as broadcasts, so
+//   a warp stores 512 contiguous bytes a row.  The grid is flat over the
+//   tiles (no 65,535 limit of a y dimension) and every offset is 64-bit (at
+//   N = 65536 the panel buffer has 2.2e9 entries).  The family and D = 1, 2,
+//   3 are template parameters (other D up to 16 at run time), so the entry
+//   loop holds no switch.  The points are divided by the lengthscales as
+//   the tile loads them, the same correctly rounded x / l as the twin's,
+//   so the wrappers make no scaled copies.
+//   The panel entry writes every lower column panel of the Gram padded to
+//   Np = P B points into one buffer: panel k, (Np - k B, B) row-major, at
+//   float B^2 (k P - k (k - 1) / 2).  A block finds its (panel, row tile,
+//   column tile) from its index with a loop over the panels.  Point p >= n
+//   is the far pseudo-point 1e6 (1 + p - n) in every (already scaled)
+//   coordinate, so padding couples to every other point by exactly 0, and
+//   noise is added where the global row equals the global column: the
+//   JAX code's padded copy, concatenation and diagonal pass in one launch.
+//   The lengthscales, amplitude and noise are read from device memory when
+//   the caller holds them there, so the host never waits on the card.
 // * predict_mean: Nq N profile evaluations (one expf each) and 2 Nq N P
 //   FMAs, so the f32 pipes and the SFU's exponentials bound it: about 5 us
 //   each at Nq = 10^4, N = 2048, D = 2, P = 2.  The training axis is split
@@ -112,24 +135,177 @@ __device__ void load_points(float* dst, const float* src, int r0, int rows, int 
   }
 }
 
-// ---- stationary_gram: 32 x 32 output tiles, 256 threads -------------------
-constexpr int kGT = 32;
+// ---- stationary_gram(_panels): 64 x 128 tiles, 256 threads, float4 stores ---
+constexpr int kTR = 64, kTC = 128, kGThreads = 256;
+constexpr int kGCols = 4;                              // adjacent columns a thread
+constexpr int kGColThreads = kTC / kGCols;             // 32: a warp spans a tile row
+constexpr int kGRowStep = kGThreads / kGColThreads;    // 8: rows between a thread's rows
+constexpr float kFar = 1e6f;                           // padding: 1e6 (1 + p - n)
 
-__global__ void __launch_bounds__(256)
-gram_kernel(const float* __restrict__ X, const float* __restrict__ Z, int N, int M, int D,
-            float amp, int family, float* __restrict__ out, long long ldo) {
-  __shared__ float xs[kGT * kDP], zs[kGT * kDP];
-  const int i0 = blockIdx.y * kGT, j0 = blockIdx.x * kGT;
-  load_points(xs, X, i0, kGT, N, D);
-  load_points(zs, Z, j0, kGT, M, D);
-  __syncthreads();
-  const int tx = threadIdx.x % kGT, ty = threadIdx.x / kGT;
-  const int j = j0 + tx;
-  if (j >= M) return;
-  for (int r = ty; r < kGT; r += 256 / kGT) {
-    const int i = i0 + r;
-    if (i < N) out[i * ldo + j] = amp * profile(sqdist(xs + r * kDP, zs + tx * kDP, D), family);
+// The lengthscales, amplitude and noise: each read from device memory where
+// its pointer is set (a CUDA tensor: no host read), else the value.
+struct GramScalars {
+  const float* ls;     // D lengthscales, or one for all (ls_stride 0)
+  const float* amp;
+  const float* noise;
+  int ls_stride;
+  float ls_v[kMaxD];
+  float amp_v, noise_v;
+};
+
+// Rectangular: rows X (N, D), columns Z (M, D), out (N, M) at row stride
+// ldo.  Panels: the n points Z (X == Z, N == M == n) padded to P blocks of B.
+struct GramShape {
+  const float* X;
+  const float* Z;
+  float* out;
+  long long ldo;
+  int N, M, D, B, P;
+  bool vec;  // rows start 16-byte aligned: float4 stores
+};
+
+// coordinate d of point p of pts (n, D), divided by the lengthscale l;
+// past n the far pseudo-point (panels) or 0 (a masked edge)
+template <bool PANELS>
+__device__ __forceinline__ float gram_coord(const float* pts, int n, int D, int p, int d, float l) {
+  if (p < n) return pts[static_cast<long long>(p) * D + d] / l;
+  return PANELS ? kFar * static_cast<float>(1 + p - n) : 0.f;
+}
+
+template <bool PANELS>
+__device__ void load_gram_points(float* dst, const float* src, int p0, int count, int n, int D,
+                                 const float* ls) {
+  for (int e = threadIdx.x; e < count * D; e += kGThreads) {
+    const int r = e / D, d = e % D;
+    dst[r * kDP + d] = gram_coord<PANELS>(src, n, D, p0 + r, d, ls[d]);
   }
+}
+
+template <int FAM, int KD, bool PANELS>
+__global__ void __launch_bounds__(kGThreads)
+gram_tile_kernel(GramShape g, GramScalars s) {
+  constexpr int kD = KD > 0 ? KD : kMaxD;
+  const int D = KD > 0 ? KD : g.D;
+  __shared__ float ls[kMaxD];
+  __shared__ float xs[kTR * kDP], zs[kTC * kDP];
+  const int tid = threadIdx.x;
+
+  // the block's tile: the output matrix (rows x cols at row stride ld), the
+  // tile's first row r0 and column c0 in it, and the point index p0 of the
+  // matrix's row 0 and column 0 (the same in a panel: its diagonal block)
+  long long t = blockIdx.x;
+  float* out = g.out;
+  long long ld = g.ldo;
+  int rows = g.N, cols = g.M, p0 = 0, ctiles = (g.M + kTC - 1) / kTC;
+  if (PANELS) {
+    ctiles = (g.B + kTC - 1) / kTC;
+    int k = 0;
+    for (;; ++k) {
+      const long long tiles = static_cast<long long>(((g.P - k) * g.B + kTR - 1) / kTR) * ctiles;
+      if (t < tiles) break;
+      t -= tiles;
+    }
+    out += static_cast<long long>(g.B) * g.B *
+           (static_cast<long long>(k) * g.P - static_cast<long long>(k) * (k - 1) / 2);
+    ld = g.B;
+    rows = (g.P - k) * g.B;
+    cols = g.B;
+    p0 = k * g.B;
+  }
+  const int r0 = static_cast<int>(t / ctiles) * kTR, c0 = static_cast<int>(t % ctiles) * kTC;
+
+  if (tid < D) {
+    float l = 0.f;
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d)
+      if (d == tid) l = s.ls ? s.ls[d * s.ls_stride] : s.ls_v[d];
+    ls[tid] = l;
+  }
+  __syncthreads();
+  load_gram_points<PANELS>(xs, g.X, p0 + r0, kTR, g.N, D, ls);
+  load_gram_points<PANELS>(zs, g.Z, p0 + c0, kTC, g.M, D, ls);
+  __syncthreads();
+
+  const int tx = tid % kGColThreads, ty = tid / kGColThreads;
+  const int c = c0 + kGCols * tx;  // the first of the thread's columns
+  if (c >= cols) return;
+  float zc[kGCols][kD];
+#pragma unroll
+  for (int j = 0; j < kGCols; ++j)
+#pragma unroll
+    for (int d = 0; d < kD; ++d)
+      zc[j][d] = (KD > 0 || d < D) ? zs[(kGCols * tx + j) * kDP + d] : 0.f;
+  const float amp = s.amp ? *s.amp : s.amp_v;
+  const float noise = PANELS ? (s.noise ? *s.noise : s.noise_v) : 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kTR / kGRowStep; ++i) {
+    const int rl = ty + kGRowStep * i, r = r0 + rl;
+    if (r < rows) {
+      float xr[kD];
+#pragma unroll
+      for (int d = 0; d < kD; ++d) xr[d] = (KD > 0 || d < D) ? xs[rl * kDP + d] : 0.f;
+      float v[kGCols];
+#pragma unroll
+      for (int j = 0; j < kGCols; ++j) {
+        float d2 = 0.f;
+#pragma unroll
+        for (int d = 0; d < kD; ++d) {
+          if (KD > 0 || d < D) {
+            const float diff = xr[d] - zc[j][d];
+            d2 = fmaf(diff, diff, d2);
+          }
+        }
+        v[j] = amp * profile_t<FAM>(d2);
+        if (PANELS && r == c + j) v[j] += noise;  // global row == global column
+      }
+      float* o = out + static_cast<long long>(r) * ld + c;
+      if (g.vec && c + kGCols <= cols) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kGCols; ++j)
+          if (c + j < cols) o[j] = v[j];
+      }
+    }
+  }
+}
+
+using GramKernel = void (*)(GramShape, GramScalars);
+
+template <int FAM, bool PANELS>
+GramKernel gram_instance(int D) {
+  return D == 1   ? gram_tile_kernel<FAM, 1, PANELS>
+         : D == 2 ? gram_tile_kernel<FAM, 2, PANELS>
+         : D == 3 ? gram_tile_kernel<FAM, 3, PANELS>
+                  : gram_tile_kernel<FAM, 0, PANELS>;
+}
+
+template <bool PANELS>
+int launch_gram(const GramShape& g, const GramScalars& s, int family, long long tiles,
+                cudaStream_t stream) {
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles == 0) return 0;
+  const GramKernel kernel = family == 0   ? gram_instance<0, PANELS>(g.D)
+                            : family == 1 ? gram_instance<1, PANELS>(g.D)
+                            : family == 2 ? gram_instance<2, PANELS>(g.D)
+                                          : gram_instance<3, PANELS>(g.D);
+  kernel<<<static_cast<unsigned>(tiles), kGThreads, 0, stream>>>(g, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+GramScalars gram_scalars(const void* ls_dev, int ls_stride, const float* ls_host, int D,
+                         const void* amp_dev, float amp, const void* noise_dev, float noise) {
+  GramScalars s{};
+  s.ls = static_cast<const float*>(ls_dev);
+  s.ls_stride = ls_stride;
+  if (!ls_dev)
+    for (int d = 0; d < D; ++d) s.ls_v[d] = ls_host[d];
+  s.amp = static_cast<const float*>(amp_dev);
+  s.amp_v = amp;
+  s.noise = static_cast<const float*>(noise_dev);
+  s.noise_v = noise;
+  return s;
 }
 
 // ---- predict_mean: the training axis in chunks over blocks, 128 threads ----
@@ -414,16 +590,64 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Each entry launches on `stream` and returns the CUDA error after its
 // launches (0 = ok).  Points are contiguous (rows, D) float32 device
-// buffers already divided by the lengthscales; family 0..3 is rbf,
-// matern12, matern32, matern52.  The wrapper checks D <= 16, P <= 8.
+// buffers; the predicts take them already divided by the lengthscales.
+// family 0..3 is rbf, matern12, matern32, matern52.  The wrappers check
+// D <= 16, P <= 8.
 
-extern "C" int stationary_gram_f32(const void* X, const void* Z, int N, int M, int D, float amp,
-                                   int family, void* out, long long ldo, void* stream) {
-  const dim3 grid(cdiv(M, kGT), cdiv(N, kGT));
-  gram_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(X), static_cast<const float*>(Z), N, M, D, amp, family,
-      static_cast<float*>(out), ldo);
-  return static_cast<int>(cudaGetLastError());
+// The Gram entries take the points as they are and divide them by the
+// lengthscales themselves: ls_dev, a device pointer to D float32 values
+// (ls_stride 1) or to one for every dimension (ls_stride 0), or, where it
+// is null, the D values at the host pointer ls_host.  amp_dev and noise_dev
+// are device pointers to one float32 value each or null, and then amp and
+// noise are used.  tile_rows and tile_cols are the tile the caller mapped
+// the output with: another tile than the kernel's is refused
+// (cudaErrorInvalidValue), as is a grid of more than 2^31 - 1 tiles.
+
+// out (N, M) with unit column stride and row stride ldo (in floats).
+extern "C" int stationary_gram_f32(const void* X, const void* Z, int N, int M, int D,
+                                   const void* ls_dev, int ls_stride, const float* ls_host,
+                                   const void* amp_dev, float amp, int family, void* out,
+                                   long long ldo, int tile_rows, int tile_cols, void* stream) {
+  if (tile_rows != kTR || tile_cols != kTC) return static_cast<int>(cudaErrorInvalidValue);
+  GramShape g{};
+  g.X = static_cast<const float*>(X);
+  g.Z = static_cast<const float*>(Z);
+  g.out = static_cast<float*>(out);
+  g.ldo = ldo;
+  g.N = N;
+  g.M = M;
+  g.D = D;
+  g.vec = reinterpret_cast<unsigned long long>(out) % 16 == 0 && ldo % 4 == 0;
+  const long long tiles = static_cast<long long>(cdiv(N, kTR)) * cdiv(M, kTC);
+  return launch_gram<false>(g, gram_scalars(ls_dev, ls_stride, ls_host, D, amp_dev, amp,
+                                            nullptr, 0.f),
+                            family, tiles, static_cast<cudaStream_t>(stream));
+}
+
+// The lower column panels of the Gram of the n points Z (n, D), padded to
+// P = ceil(n / B) blocks, plus noise on the diagonal, into out: B^2 P (P + 1)
+// / 2 floats, panel k (P B - k B, B) at float B^2 (k P - k (k - 1) / 2).
+extern "C" int stationary_gram_panels_f32(const void* Z, int n, int D, int B,
+                                          const void* ls_dev, int ls_stride,
+                                          const float* ls_host, const void* amp_dev, float amp,
+                                          const void* noise_dev, float noise, int family,
+                                          void* out, int tile_rows, int tile_cols,
+                                          void* stream) {
+  if (tile_rows != kTR || tile_cols != kTC || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  GramShape g{};
+  g.X = g.Z = static_cast<const float*>(Z);
+  g.out = static_cast<float*>(out);
+  g.N = g.M = n;
+  g.D = D;
+  g.B = B;
+  g.P = cdiv(n, B);
+  g.vec = reinterpret_cast<unsigned long long>(out) % 16 == 0 && B % 4 == 0;
+  long long tiles = 0;
+  for (int k = 0; k < g.P; ++k)
+    tiles += static_cast<long long>(cdiv((g.P - k) * B, kTR)) * cdiv(B, kTC);
+  return launch_gram<true>(g, gram_scalars(ls_dev, ls_stride, ls_host, D, amp_dev, amp,
+                                           noise_dev, noise),
+                           family, tiles, static_cast<cudaStream_t>(stream));
 }
 
 // partial is a (ceil(N / chunk), Nq, P) float32 scratch buffer sized by the

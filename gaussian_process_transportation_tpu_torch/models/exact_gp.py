@@ -75,13 +75,15 @@ def _eff_jitter(dtype: torch.dtype, jitter: float) -> float:
 
 # condition() takes the blocked Cholesky from this N, for float32 CUDA
 # tensors and a C·stationary(+White) kernel; below it, it takes
-# torch.linalg.cholesky.  On an NVIDIA H100 80GB HBM3 (700 W), with the
-# many-CTA factor_panel of 0.26 ms, chip_smoke.py and
-# scripts/time_port_routes.py timed the blocked solve slower at N=4096
-# (5.3-6.9 vs 4.1-4.3 ms) and faster in every reading at N=10240 (20.6-21.2
-# vs 22.1-22.2 ms) and N=20480 (95.1-95.5 vs 106.8-107.0 ms): the smallest
-# N measured from which it always wins.
-BLOCKED_CHOL_MIN_N = 10240
+# torch.linalg.cholesky.  On an NVIDIA H100 80GB HBM3 (700 W, SM clock 1980
+# MHz), with the many-CTA factor_panel of 0.26 ms and the Gram's panels in
+# one launch, chip_smoke.py and scripts/time_port_routes.py --what chol
+# timed the blocked solve (CUDA-event ms) slower at N=4096 (4.6-6.0 vs
+# 4.1-4.2), either way at N=6144 (8.3 and 10.0 vs 9.0 and 8.8), and faster
+# in every reading at N=8192 (13.07-13.23 vs 14.76-14.95, seven pairs over
+# two calls), N=10240 (19.4-19.7 vs 22.0-22.2) and N=20480 (92.9 vs
+# 106.8): the smallest N measured from which it always wins.
+BLOCKED_CHOL_MIN_N = 8192
 
 
 def condition(

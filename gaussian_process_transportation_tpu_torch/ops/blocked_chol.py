@@ -28,12 +28,14 @@ import torch
 from torch import Tensor
 
 from . import _cuda
-from .pallas_gram import STATIONARY_FAMILIES, stationary_from_sqdist, stationary_gram
+from . import pallas_gram as pg
+from .pallas_gram import STATIONARY_FAMILIES, stationary_from_sqdist
 
 __all__ = [
     "BlockedCholesky", "STATIONARY_FAMILIES", "blocked_cholesky", "cholesky_panels",
-    "factor_panel", "factor_panel_plain", "gram_cholesky_solve", "stationary_from_sqdist",
-    "stationary_gram_panels", "symmetric_matvec_panels",
+    "factor_panel", "factor_panel_plain", "gram_cholesky_solve", "panel_offsets", "panel_views",
+    "stationary_from_sqdist", "stationary_gram_panels", "stationary_gram_panels_into",
+    "stationary_gram_panels_plain", "symmetric_matvec_panels",
 ]
 
 SUB_BLOCK = 128  # factor_panel's sub-block edge; a panel is a multiple of it
@@ -222,28 +224,110 @@ def blocked_cholesky(K: Tensor, block: int = 512) -> BlockedCholesky:
     return cholesky_panels(_split_panels(K, B, n), n)
 
 
-def stationary_gram_panels(X: Tensor, lengthscale, amplitude, noise, block: int,
-                           family: str = "rbf") -> Tuple[List[Tensor], int]:
-    """Lower-triangle column panels of amp·k((x−x′)/ℓ) + noise·I, built
-    panel by panel with ``stationary_gram`` (the kernel on the card); the
-    full (N, N) Gram is never formed.
+def panel_offsets(n: int, block: int) -> List[int]:
+    """Where the lower column panels of an n-point Gram padded to P = ⌈n/B⌉
+    blocks lie in one buffer: panel k, (Np − k·B, B) row-major, at float
+    B²·(k·P − k(k−1)/2); the last entry (k = P) is the buffer's size,
+    B²·P(P+1)/2."""
+    if block < 1:
+        raise ValueError(f"panels need a block of at least 1, got {block}")
+    P = -(-n // block)
+    return [block * block * (k * P - k * (k - 1) // 2) for k in range(P + 1)]
 
-    Padding rows are far-away pseudo-points, so their kernel values with
-    every other point underflow to 0 and their diagonal is amp + noise: a
-    positive block that the factorization consumes and the solves drop."""
+
+def panel_views(buf: Tensor, n: int, block: int) -> List[Tensor]:
+    """The panels of an n-point Gram in blocks of ``block`` as views of the
+    flat buffer ``buf`` (:func:`panel_offsets`)."""
+    offsets = panel_offsets(n, block)
+    Np = (len(offsets) - 1) * block
+    return [buf[a:b].view(Np - k * block, block)
+            for k, (a, b) in enumerate(zip(offsets[:-1], offsets[1:]))]
+
+
+def _fill_panels_plain(buf: Tensor, X: Tensor, lengthscale, amplitude, noise, block: int,
+                       family: str) -> List[Tensor]:
     n, D = X.shape
-    Np = -(-n // block) * block
+    panels = panel_views(buf, n, block)
+    Np = len(panels) * block
     ls = torch.as_tensor(lengthscale, dtype=X.dtype, device=X.device).reshape(-1)
     Z = X / ls
     if Np > n:
         far = 1e6 * (1.0 + torch.arange(Np - n, dtype=X.dtype, device=X.device))[:, None]
         Z = torch.cat([Z, far.expand(Np - n, D)], 0)
-    panels = []
-    for k in range(Np // block):
-        p = stationary_gram(Z[k * block:], Z[k * block:(k + 1) * block], 1.0, amplitude, family)
+    for k, p in enumerate(panels):
+        p.copy_(pg.stationary_gram_plain(Z[k * block:], Z[k * block:(k + 1) * block], 1.0,
+                                         amplitude, family))
         p[:block].diagonal().add_(noise)
-        panels.append(p)
-    return panels, n
+    return panels
+
+
+def stationary_gram_panels_plain(X: Tensor, lengthscale, amplitude, noise, block: int,
+                                 family: str = "rbf") -> Tuple[List[Tensor], int]:
+    """:func:`stationary_gram_panels` in plain torch ops, in X's dtype and on
+    its device: the points divided by ℓ and padded with the far
+    pseudo-points, each panel from ``stationary_gram_plain``, the noise
+    added to its diagonal block; the panels are views of one buffer laid
+    out as the kernel's (:func:`panel_offsets`)."""
+    buf = X.new_empty(panel_offsets(X.shape[0], block)[-1])
+    return _fill_panels_plain(buf, X, lengthscale, amplitude, noise, block, family), X.shape[0]
+
+
+def stationary_gram_panels(X: Tensor, lengthscale, amplitude, noise, block: int,
+                           family: str = "rbf") -> Tuple[List[Tensor], int]:
+    """Lower-triangle column panels of amp·k((x−x′)/ℓ) + noise·I, n padded
+    to P = ⌈n/B⌉ blocks of B = ``block``; the full (N, N) Gram is never
+    formed.  Returns (panels, n): panel k is (Np − k·B, B), and all are views
+    of one buffer (:func:`panel_offsets`).
+
+    Padding rows are far-away pseudo-points, so their kernel values with
+    every other point underflow to 0 and their diagonal is amp + noise: a
+    positive block that the factorization consumes and the solves drop.
+
+    For a CUDA X one launch of the panel kernel writes every panel
+    (:func:`stationary_gram_panels_into`); for a CPU X the plain twin."""
+    buf = X.new_empty(panel_offsets(X.shape[0], block)[-1])
+    return stationary_gram_panels_into(buf, X, lengthscale, amplitude, noise, block,
+                                       family), X.shape[0]
+
+
+def stationary_gram_panels_into(buf: Tensor, X: Tensor, lengthscale, amplitude, noise,
+                                block: int, family: str = "rbf") -> List[Tensor]:
+    """Writes the panels of :func:`stationary_gram_panels` into the flat
+    buffer ``buf`` of ``panel_offsets(n, block)[-1]`` entries; returns the
+    panels, views of it.
+
+    A CUDA ``buf`` takes one launch of ``stationary_gram_panels_f32``
+    (``csrc/stationary_gram.cu``; float32 only), counted in
+    ``stationary_gram_panels.launches``: the kernel divides the points by ℓ,
+    makes the padding points from their row index, and adds the noise where
+    the global row equals the column; ℓ, the amplitude and the noise are
+    read from device memory where they are CUDA tensors, so nothing waits
+    on the card.  A CPU ``buf`` is filled by the plain twin."""
+    if buf.device.type != "cuda":
+        return _fill_panels_plain(buf, X, lengthscale, amplitude, noise, block, family)
+    device = pg._check_points("stationary_gram_panels", X, X)
+    n, D = X.shape
+    size = panel_offsets(n, block)[-1]
+    if buf.device != device or buf.dtype != torch.float32 or buf.shape != (size,) or \
+            not buf.is_contiguous():
+        raise ValueError(f"stationary_gram_panels: needs a contiguous float32 buffer of {size} "
+                         f"entries on {device}, got {tuple(buf.shape)} {buf.dtype} on "
+                         f"{buf.device}")
+    if -(-n // block) * block >= 2**31:
+        raise ValueError(f"stationary_gram_panels: n={n} padded to blocks of {block} passes 2^31")
+    if n:
+        Xc = X.contiguous()
+        ls_keep, ls_args = pg.gram_lengthscale_args(lengthscale, D, device)
+        amp_keep, amp_args = pg.gram_scalar_args(amplitude, device, "amplitude")
+        noise_keep, noise_args = pg.gram_scalar_args(noise, device, "noise")
+        pg._call("stationary_gram_panels_f32", device, Xc.data_ptr(), n, D, block, *ls_args,
+                 *amp_args, *noise_args, pg._family_code(family), buf.data_ptr(),
+                 pg.GRAM_TILE_ROWS, pg.GRAM_TILE_COLS)
+        stationary_gram_panels.launches += 1
+    return panel_views(buf, n, block)
+
+
+stationary_gram_panels.launches = 0
 
 
 def symmetric_matvec_panels(panels: Sequence[Tensor], x: Tensor, n: int) -> Tensor:

@@ -5,8 +5,10 @@ wrappers launch the CUDA kernels of ``csrc/stationary_gram.cu`` (which
 replace the TPU Pallas kernels) for CUDA tensors and take their plain
 PyTorch twins, defined beside them, for CPU tensors:
 
-* ``stationary_gram``: amp·φ(‖(x−z)/ℓ‖²), (N, M) — the Gram tile that
-  ``ops/blocked_chol.py::stationary_gram_panels`` builds its panels with;
+* ``stationary_gram``: amp·φ(‖(x−z)/ℓ‖²), (N, M) — the Gram tile.  The
+  same source's panel entry, whose wrapper is
+  ``ops/blocked_chol.py::stationary_gram_panels``, writes every lower panel
+  of a padded Gram with its noise in one launch, on the same tile body;
 * ``fused_gp_predict_mean``: k(X*, X)·α without the (Nq, N) Gram in device
   memory (the original project's 100×100-grid vector fields);
 * ``fused_gp_predict_mean_var``: the mean, and var = prior −
@@ -46,6 +48,10 @@ MEAN_VAR_TILE_B = 128
 # sizes the kernel's scratch of partial means by it, and the kernel refuses
 # another width.
 MEAN_CHUNK = 128
+# The output tile one block of the Gram kernel writes (rows, columns): the
+# wrappers hand it to the kernel, which refuses another tile, and the CPU
+# tests' twin of the kernel's tile map reads it.
+GRAM_TILE_ROWS, GRAM_TILE_COLS = 64, 128
 
 _SQRT3 = math.sqrt(3.0)
 _SQRT5 = math.sqrt(5.0)
@@ -110,10 +116,13 @@ def fused_gp_predict_mean_var_plain(Xq: Tensor, X: Tensor, alpha: Tensor, K_inv:
 
 # -- kernel wrappers --------------------------------------------------------
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_HOST_FLOATS = ctypes.POINTER(ctypes.c_float)
 _ARGTYPES = {
-    "stationary_gram_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                            ctypes.c_longlong, ctypes.c_void_p],
+    "stationary_gram_f32": [_P, _P, _I, _I, _I, _P, _I, _HOST_FLOATS, _P, _F, _I, _P,
+                            ctypes.c_longlong, _I, _I, _P],
+    "stationary_gram_panels_f32": [_P, _I, _I, _I, _P, _I, _HOST_FLOATS, _P, _F, _P, _F, _I, _P,
+                                   _I, _I, _P],
     "predict_mean_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
@@ -167,21 +176,76 @@ def _kernel_points(X: Tensor, lengthscale) -> Tensor:
     return _scaled(X, lengthscale).to(torch.float32).contiguous()
 
 
+def gram_lengthscale_args(lengthscale, D: int, device: torch.device):
+    """The Gram kernels' lengthscale arguments (device pointer, stride, host
+    values) and the object that must outlive the launch: a CUDA tensor's
+    float32 values in place (one value for every dimension: stride 0), else
+    the D values as host floats.  No host read of card memory."""
+    if isinstance(lengthscale, Tensor) and lengthscale.device.type == "cuda":
+        if lengthscale.device != device:
+            raise ValueError(f"lengthscale on {lengthscale.device}, points on {device}")
+        ls = lengthscale.reshape(-1).to(torch.float32).contiguous()
+        if ls.numel() not in (1, D):
+            raise ValueError(f"lengthscale has {ls.numel()} values for D={D}")
+        return ls, (ls.data_ptr(), int(ls.numel() > 1), None)
+    vals = torch.as_tensor(lengthscale, dtype=torch.float64).reshape(-1).tolist()
+    if len(vals) not in (1, D):
+        raise ValueError(f"lengthscale has {len(vals)} values for D={D}")
+    host = (ctypes.c_float * D)(*(vals * D if len(vals) == 1 else vals))
+    return host, (None, 0, host)
+
+
+def gram_scalar_args(value, device: torch.device, name: str):
+    """An amplitude's or noise level's kernel arguments (device pointer,
+    value) and the tensor that must outlive the launch: a one-element CUDA
+    tensor is read by the kernel from device memory (no host sync), a
+    number or a CPU tensor is passed by value."""
+    if isinstance(value, Tensor) and value.device.type == "cuda":
+        if value.device != device or value.numel() != 1:
+            raise ValueError(f"{name} must be one value on {device}, got {tuple(value.shape)} "
+                             f"on {value.device}")
+        t = value.reshape(()).to(torch.float32)
+        return t, (t.data_ptr(), 0.0)
+    return None, (None, float(value))
+
+
 def stationary_gram(X: Tensor, Z: Tensor, lengthscale, amplitude,
                     family: str = "rbf") -> Tensor:
     """amp·φ(‖(x−z)/ℓ‖²) of X (N, D) and Z (M, D): (N, M).
 
-    For CUDA tensors one launch of the ``stationary_gram`` kernel (float32
-    only); for CPU tensors the plain twin."""
+    For CUDA tensors one launch of the Gram kernel (float32 only, see
+    :func:`stationary_gram_into`); for CPU tensors the plain twin."""
     if X.device.type != "cuda":
         return stationary_gram_plain(X, Z, lengthscale, amplitude, family)
-    device = _check_points("stationary_gram", X, Z)
-    N, M = X.shape[0], Z.shape[0]
-    out = torch.empty(N, M, dtype=torch.float32, device=device)
+    out = torch.empty(X.shape[0], Z.shape[0], dtype=torch.float32, device=X.device)
+    return stationary_gram_into(out, X, Z, lengthscale, amplitude, family)
+
+
+def stationary_gram_into(out: Tensor, X: Tensor, Z: Tensor, lengthscale, amplitude,
+                         family: str = "rbf") -> Tensor:
+    """:func:`stationary_gram` written into ``out`` (N, M), which may have
+    any row stride but unit column stride; returns ``out``.
+
+    For a CUDA ``out`` one launch of the ``stationary_gram`` kernel (float32
+    only), counted in ``stationary_gram.launches``: it divides the points
+    by ℓ itself, and reads ℓ and the amplitude from device memory where they
+    are CUDA tensors.  Rows whose start is 16-byte aligned get 16-byte
+    stores; other strides and a ragged last column group are written a
+    float at a time.  For a CPU ``out`` the twin, copied in."""
+    if out.device.type != "cuda":
+        return out.copy_(stationary_gram_plain(X, Z, lengthscale, amplitude, family))
+    device = _check_points("stationary_gram", X, Z, out)
+    (N, D), M = X.shape, Z.shape[0]
+    if out.shape != (N, M) or (M > 1 and out.stride(1) != 1):
+        raise ValueError(f"stationary_gram_into: out must be ({N}, {M}) with unit column "
+                         f"stride, got {tuple(out.shape)} strides {out.stride()}")
     if N and M:
-        Xs, Zs = _kernel_points(X, lengthscale), _kernel_points(Z, lengthscale)
-        _call("stationary_gram_f32", device, Xs.data_ptr(), Zs.data_ptr(), N, M, X.shape[1],
-              float(amplitude), _family_code(family), out.data_ptr(), M)
+        Xc, Zc = X.contiguous(), Z.contiguous()
+        ls_keep, ls_args = gram_lengthscale_args(lengthscale, D, device)
+        amp_keep, amp_args = gram_scalar_args(amplitude, device, "amplitude")
+        _call("stationary_gram_f32", device, Xc.data_ptr(), Zc.data_ptr(), N, M, D, *ls_args,
+              *amp_args, _family_code(family), out.data_ptr(), out.stride(0), GRAM_TILE_ROWS,
+              GRAM_TILE_COLS)
         stationary_gram.launches += 1
     return out
 

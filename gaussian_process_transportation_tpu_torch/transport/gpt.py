@@ -239,8 +239,10 @@ BATCHED_MAX_N = 64
 # member (Q=1000) both ways, in pairs: the dense route faster in every pair
 # at n = 768 (4.3-5.0 vs 5.1-7.1 ms) and 1536 (5.2-6.5 vs 6.1-7.0 ms), the
 # blocked one in every pair at n = 2500 (7.4-8.6 vs 8.1-9.1 ms) and 4096
-# (9.7-12.2 vs 16.0-16.7 ms).  (The JAX package takes the blocked path from
-# 768.)
+# (9.7-12.2 vs 16.0-16.7 ms).  Re-timed with the Gram's panels in one launch
+# (SM clock 1980 MHz): either way at n = 1536 (5.2 vs 5.1, 4.7 vs 7.0 ms),
+# the blocked route in both pairs at n = 2500 (7.7 vs 8.5, 9.2 vs 9.6 ms).
+# (The JAX package takes the blocked path from 768.)
 BLOCKED_MIN_N = 2500
 BLOCKED_PANEL = 512
 

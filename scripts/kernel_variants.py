@@ -13,6 +13,11 @@ whether its block constants are at their best.
   entry, without the wrapper's scaling copies) at Nq=10⁴, N=2048, D=2, P=2:
   the shipped block constants and other threads a block, queries a thread
   and chunk widths.
+* ``gram``: kernel #7's panel entry (``stationary_gram_panels_f32``) at the
+  N=10240 solve's shape (B=512, D=3): the shipped source; evict-first
+  (streaming, ``__stcs``) stores; the profile cut out (d² stored: the
+  stores and the distances alone); 32- and 128-row tiles; 128 threads a
+  block.
 
 Every variant that keeps all phases is checked against the shipped build on
 the same inputs (the largest difference is printed); each is timed in three
@@ -21,7 +26,7 @@ warm-up; "lost" where CUPTI kept no record) and by CUDA events over 20
 launches back to back, with the card's name, power limit and SM clock.
 
 Run from the repository root: ``python3 scripts/kernel_variants.py``
-(``--what spd mean`` picks the parts).  The variants are built with the
+(``--what spd mean gram`` picks the parts).  The variants are built with the
 package's nvcc flags into ``gaussian_process_transportation_tpu_torch/_build/variants/``.
 """
 import argparse
@@ -46,6 +51,9 @@ SPD_STORE = ("  stage<G, W * 32, false>(sk, nullptr, L, n, P, M, E, e0);\n"
              "  stage<G, W * 32, false>(si, nullptr, Kinv, n, P, M, E, e0);")
 SPD_INSTANCE = "case 20: return launch_warp<10, 2, 8>"
 MEAN_CONSTANTS = "constexpr int kMThreads = 128, kMR = 2, kMQ = kMThreads * kMR, kMC = 128;"
+GRAM_CONSTANTS = "constexpr int kTR = 64, kTC = 128, kGThreads = 256;"
+GRAM_STORE = "*reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);"
+GRAM_PROFILE = "v[j] = amp * profile_t<FAM>(d2);"
 
 
 def spd_variants():
@@ -74,6 +82,19 @@ def mean_variants():
                f"kMQ = kMThreads * kMR, kMC = {chunk};")
         out[name] = ([(MEAN_CONSTANTS, new)], chunk)
     return out
+
+
+def gram_variants():
+    """name -> (substitutions, tile rows, keeps the result)."""
+    tiles = lambda rows, threads: [(GRAM_CONSTANTS, GRAM_CONSTANTS.replace(
+        "kTR = 64", f"kTR = {rows}").replace("kGThreads = 256", f"kGThreads = {threads}"))]
+    return {"shipped (64 x 128 tiles, 256 threads)": ([], 64, True),
+            "evict-first stores (__stcs)": ([(GRAM_STORE, "__stcs(reinterpret_cast<float4*>(o), "
+                                              "make_float4(v[0], v[1], v[2], v[3]));")], 64, True),
+            "profile cut out (d2 stored)": ([(GRAM_PROFILE, "v[j] = amp * d2;")], 64, False),
+            "32-row tiles": (tiles(32, 256), 32, True),
+            "128-row tiles": (tiles(128, 256), 128, True),
+            "128 threads a block": (tiles(64, 128), 64, True)}
 
 
 def build_variants(source, variants, tag):
@@ -189,9 +210,39 @@ def time_mean(device):
     run_rounds(f"predict_mean Nq={Nq} N={N} (device ms)", calls)
 
 
+def time_gram(device):
+    variants = gram_variants()
+    libs = build_variants("stationary_gram", variants, "gram")
+    f32 = dict(dtype=torch.float32, device=device)
+    X = cs.solve_inputs(device)[0]
+    n, D, B = X.shape[0], X.shape[1], cs.BLOCK
+    size = B * B * (-(-n // B)) * (-(-n // B) + 1) // 2
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ls = (ctypes.c_float * D)(*([1.0] * D))
+    outs, calls = {}, {}
+    for name, lib in libs.items():
+        fn = lib.stationary_gram_panels_f32
+        fn.argtypes = [p, i, i, i, p, i, ctypes.POINTER(ctypes.c_float), p, fl, p, fl, i, p, i, i,
+                       p]
+        out = torch.full((size,), float("nan"), **f32)
+        outs[name] = out
+        calls[name] = (lambda fn=fn, out=out, rows=variants[name][1]: fn(
+            X.data_ptr(), n, D, B, None, 0, ls, None, 2.0, None, 0.1, 0, out.data_ptr(), rows,
+            128, torch.cuda.current_stream().cuda_stream))
+        if calls[name]() != 0:
+            raise RuntimeError(f"variant {name!r} failed to launch")
+    torch.cuda.synchronize()
+    ref = next(iter(outs.values()))
+    print(f"stationary_gram_panels N={n} B={B} D={D}: |variant - shipped| "
+          + ", ".join(f"{k} {(o - ref).abs().max().item():.3g}" for k, o in outs.items()
+                      if variants[k][2]), flush=True)
+    run_rounds(f"stationary_gram_panels N={n} B={B} (device ms)", calls)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--what", nargs="*", choices=("spd", "mean"), default=["spd", "mean"])
+    ap.add_argument("--what", nargs="*", choices=("spd", "mean", "gram"),
+                    default=["spd", "mean", "gram"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs a CUDA card")
@@ -201,6 +252,8 @@ def main():
         time_spd(device)
     if "mean" in args.what:
         time_mean(device)
+    if "gram" in args.what:
+        time_gram(device)
     print(f"clocks.sm, clocks.max.sm after: {cs.sm_clocks()}", flush=True)
 
 

@@ -28,6 +28,13 @@ measurements, and the panel kernel they rest on, on one CUDA card:
   and #5 (``fused_gp_predict_mean`` on the 100×100 grid, N=2048, P=2) at
   their paths' shapes beside their library calls, each reading with the
   SM clock before and after it: with ``--root`` the parent tree's kernels;
+* ``gram``: kernel #7 at its paths' shapes: the N=10240 solve's Gram
+  (``stationary_gram_panels`` at B=512), the 3-D ensemble's (16 calls at
+  n=2500, D=3), one (10240, 512) panel of the generic ``stationary_gram``,
+  and the panels' plain twin where the tree has one; the device ms
+  of every kernel the call launches (scaling copies and diagonal passes
+  included) and of the Gram kernel alone, each reading with the SM clock
+  before and after it: with ``--root`` the parent tree's panels;
 * ``route``: ``predict()`` both ways around ``FUSED_PREDICT_MIN_ELEMS`` and
   ``FUSED_MEAN_VAR_MIN_ELEMS`` (``models/exact_gp.py``): the fused mean
   kernel against the dense product, and the mean-and-variance kernel
@@ -51,7 +58,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PARTS = ("predict", "chol", "member", "panel", "lml", "paths", "kernels", "route")
+PARTS = ("predict", "chol", "member", "panel", "lml", "paths", "kernels", "gram", "route")
 
 
 def time_predicts(cs, pkg, device, sizes):
@@ -251,6 +258,48 @@ def time_kernels(cs, pkg, device):
                   f"after {sm_clocks()}", flush=True)
 
 
+def gram_kernel_ms(cs, fn, reps=5):
+    """Device ms a call of the Gram kernels alone (profiler rows whose name
+    holds ``gram_``), mean over ``reps`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with cs.traced() as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in cs.kernel_rows(prof) if "gram_" in e.key]
+    return sum(e.self_device_time_total for e in rows) / reps / 1e3, sum(e.count for e in rows)
+
+
+def time_gram(cs, pkg, device):
+    """Kernel #7 at the shapes of the N=10240 solve and of the 3-D ensemble
+    (chip_smoke.py phases 8, 9 and 11)."""
+    bc, pg, gpt = pkg["blocked_chol"], pkg["pallas_gram"], pkg["gpt"]
+    f32 = dict(dtype=torch.float32, device=device)
+    X = cs.solve_inputs(device)[0]
+    ls3 = torch.ones(cs.D_SOLVE, **f32)
+    S = torch.as_tensor(cs.ensemble_3d_inputs()[0], **f32)
+    ls_e = 2.0 * torch.ones(3, **f32)
+    runs = [(f"the N={cs.N_SOLVE} solve's Gram, B={cs.BLOCK}",
+             lambda: bc.stationary_gram_panels(X, ls3, 2.0, 0.1, cs.BLOCK)),
+            (f"the 3-D ensemble's Grams, {cs.E_3D} calls at n={cs.N_3D}",
+             lambda: [bc.stationary_gram_panels(S, ls_e, 2.0, 0.01, gpt.BLOCKED_PANEL)
+                      for _ in range(cs.E_3D)]),
+            (f"stationary_gram ({cs.N_SOLVE}, {cs.BLOCK})",
+             lambda: pg.stationary_gram(X, X[:cs.BLOCK], ls3, 2.0))]
+    if hasattr(bc, "stationary_gram_panels_plain"):
+        runs.append((f"the N={cs.N_SOLVE} solve's Gram, plain twin",
+                     lambda: bc.stationary_gram_panels_plain(X, ls3, 2.0, 0.1, cs.BLOCK)))
+    for name, fn in runs:
+        for _ in range(2):
+            before = sm_clocks()
+            dev, event = cs.device_ms(fn), cs.cuda_ms(fn)[0]
+            kern, launches = gram_kernel_ms(cs, fn)
+            print(f"{name}: {dev:.4f} device / {event:.4f} event ms, of it the Gram kernel "
+                  f"{kern:.4f} in {launches // 5} launches a call; clocks.sm, clocks.max.sm "
+                  f"before {before}, after {sm_clocks()}", flush=True)
+
+
 def time_route(cs, pkg, device, route_n, route_nq):
     """predict() with the fused route and with the dense one, at Nq·N on
     both sides of the routes' thresholds: the mean alone, and with the std
@@ -333,6 +382,8 @@ def main():
         time_paths(cs, pkg, device)
     if "kernels" in args.what:
         time_kernels(cs, pkg, device)
+    if "gram" in args.what:
+        time_gram(cs, pkg, device)
     if "route" in args.what:
         time_route(cs, pkg, device, args.route_n, args.route_nq)
 

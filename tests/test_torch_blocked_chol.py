@@ -190,6 +190,39 @@ def test_stationary_gram_panels_match_jax(family):
     np.testing.assert_allclose(torch.diagonal(tp[1])[72:].numpy(), 2.1, rtol=1e-6)
 
 
+@pytest.mark.parametrize("noise_form", ["float", "0-d tensor"])
+@pytest.mark.parametrize("D", [1, 2, 3, 5])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_stationary_gram_panels_of_any_d_match_jax_in_one_buffer(family, D, noise_form):
+    """A ragged n (150 in blocks of 64), the D of every kernel instance (5:
+    the run-time one), the noise as a number and as a 0-d tensor: the twin's
+    panels to JAX's within 2e-6 (f32 sums in another order), laid out in one
+    buffer at ``panel_offsets`` with JAX's shapes."""
+    n, B = 150, 64
+    X = np.random.default_rng(D).standard_normal((n, D)).astype(np.float32)
+    ls = np.linspace(0.8, 1.5, D).astype(np.float32)
+    jp, _ = jbc.stationary_gram_panels(jnp.asarray(X), jnp.asarray(ls), 2.0, 0.1, B,
+                                       family=family)
+    noise = 0.1 if noise_form == "float" else torch.tensor(0.1)
+    tp, tn = tbc.stationary_gram_panels(torch.as_tensor(X), torch.as_tensor(ls), 2.0, noise, B,
+                                        family=family)
+    assert tn == n and [tuple(p.shape) for p in tp] == [tuple(p.shape) for p in jp]
+    for a, b in zip(tp, jp):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-6)
+    base = tp[0].data_ptr()
+    assert [(p.data_ptr() - base) // 4 for p in tp] == tbc.panel_offsets(n, B)[:-1]
+    assert tp[0].untyped_storage().nbytes() == 4 * tbc.panel_offsets(n, B)[-1]
+
+
+def test_stationary_gram_panels_into_fills_a_given_cpu_buffer():
+    X = torch.as_tensor(np.random.default_rng(13).standard_normal((200, 3)))
+    want, _ = tbc.stationary_gram_panels_plain(X, 1.3, 2.0, 0.1, 128, "matern32")
+    buf = torch.full((tbc.panel_offsets(200, 128)[-1],), float("nan"), dtype=torch.float64)
+    got = tbc.stationary_gram_panels_into(buf, X, 1.3, 2.0, 0.1, 128, "matern32")
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and not buf.isnan().any()
+    assert got[0].data_ptr() == buf.data_ptr()
+
+
 @pytest.mark.parametrize("family", FAMILIES)
 def test_stationary_from_sqdist_matches_jax(family):
     d2 = np.linspace(0.0, 9.0, 50)

@@ -190,6 +190,76 @@ def test_stationary_gram_matches_twin(device, family):
     assert (got - want).abs().max().item() < 2.5e-6
 
 
+def _flat(panels):
+    return torch.cat([p.reshape(-1) for p in panels])
+
+
+@pytest.mark.parametrize("B", [128, 512])
+@pytest.mark.parametrize("n", [1, 200, 511, 512, 513, 2500])
+@pytest.mark.parametrize("family,D", [(f, D) for f in FAMILIES for D in (1, 2, 3, 5)])
+def test_gram_panels_match_the_f64_formula(device, family, D, n, B):
+    """The panel entry at the edges of its blocks and tiles, every family
+    and D of its instances (D = 5 is the run-time instance), into a
+    NaN-filled buffer, so that an entry the tile map misses reads as
+    infinite: per entry against the f64 formula to ``chip_smoke.GRAM_TOL``,
+    within 1e-5 of the f32 twin, two runs bitwise equal."""
+    diff, ex = chip_smoke.check_gram_panels(device, n, B, D, family)
+    assert ex < 1 and diff < 1e-5
+
+
+def test_gram_panel_planted_faults_are_rejected(device):
+    assert min(chip_smoke.gram_panel_faults(device).values()) > 10
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "padded_rows", "offset_base"])
+@pytest.mark.parametrize("M", [1, 3, 129, 1001])
+def test_stationary_gram_at_ragged_widths_and_any_row_stride(device, M, layout):
+    """The generic entry into a NaN-filled output: a contiguous (N, M), rows
+    M + 1 apart (the columns past M stay NaN), and a base 4 bytes past a
+    16-byte boundary; per entry against the f64 formula."""
+    N = 77
+    X, ls = chip_smoke.gram_points(device, N, 3, seed=M)
+    Z = chip_smoke.gram_points(device, M, 3, seed=M + 1)[0]
+    pitch = M + (layout == "padded_rows")
+    start = int(layout == "offset_base")
+    store = torch.full((start + N * pitch,), float("nan"), device=device)
+    out = store[start:].view(N, pitch)[:, :M]
+    got = tpg.stationary_gram_into(out, X, Z, ls, 2.5, "matern32")
+    ref = tpg.stationary_gram_plain(X.double(), Z.double(), ls.double(), 2.5, "matern32")
+    assert got.data_ptr() == out.data_ptr()
+    assert chip_smoke.gram_excess(out, ref, 2.5) < 1
+    assert torch.isnan(store[start:].view(N, pitch)[:, M:]).all()
+
+
+def test_gram_kernels_read_card_scalars_without_a_sync(device):
+    """Lengthscales, amplitude and noise as CUDA tensors are read by the
+    kernels from device memory: no synchronising call (the sync debug mode
+    raises on one), and the same bits as the values passed from the host."""
+    X, ls = chip_smoke.gram_points(device, 700, 3, seed=0)
+    want = _flat(tbc.stationary_gram_panels(X, ls.tolist(), 2.0, 0.1, 128)[0])
+    want_g = tpg.stationary_gram(X, X[:300], 1.3, 2.0)
+    amp, noise = torch.tensor(2.0, device=device), torch.tensor([0.1], device=device)
+    ls1 = torch.tensor([1.3], device=device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tbc.stationary_gram_panels(X, ls, amp, noise, 128)[0]
+        got_g = tpg.stationary_gram(X, X[:300], ls1, amp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(_flat(got), want) and torch.equal(got_g, want_g)
+
+
+def test_gram_panels_are_views_of_one_buffer(device):
+    X, ls = chip_smoke.gram_points(device, 1100, 2, seed=1)
+    panels, n = tbc.stationary_gram_panels(X, ls, 2.0, 0.1, 512)
+    offsets = tbc.panel_offsets(n, 512)
+    base = panels[0].data_ptr()
+    assert [p.shape for p in panels] == [(1536, 512), (1024, 512), (512, 512)]
+    assert [(p.data_ptr() - base) // 4 for p in panels] == offsets[:-1]
+    assert panels[0].untyped_storage().nbytes() >= 4 * offsets[-1]
+
+
 @pytest.mark.parametrize("family", FAMILIES)
 def test_fused_predicts_match_twins(device, family):
     """Ragged Nq and N (neither a multiple of the kernels' tiles).  Then,
@@ -319,6 +389,16 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError):
         tpg.stationary_gram(X, X, 1.0, 1.0, family="cosine")
     with pytest.raises(ValueError):
+        tpg.stationary_gram(X, X, torch.ones(3, device=device), 1.0)
+    with pytest.raises(TypeError):
+        tbc.stationary_gram_panels(X.double(), 1.0, 1.0, 0.1, 128)
+    with pytest.raises(ValueError):
+        tbc.stationary_gram_panels(torch.zeros(10, 17, device=device), 1.0, 1.0, 0.1, 128)
+    with pytest.raises(ValueError):
+        tbc.stationary_gram_panels_into(torch.empty(100, device=device), X, 1.0, 1.0, 0.1, 128)
+    with pytest.raises(ValueError):
+        tbc.stationary_gram_panels(X, 1.0, torch.ones(2, device=device), 0.1, 128)
+    with pytest.raises(ValueError):
         tpg.fused_gp_predict_mean(X, X, torch.zeros(10, 9, device=device), 1.0, 1.0)
     with pytest.raises(ValueError):
         tpg.fused_gp_predict_mean_var(X, X, torch.zeros(10, 2, device=device),
@@ -326,8 +406,8 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(device):
 
 
 def _reset_counts(monkeypatch):
-    for fn in (tbc.factor_panel, tpg.stationary_gram, tpg.fused_gp_predict_mean,
-               tpg.fused_gp_predict_mean_var):
+    for fn in (tbc.factor_panel, tbc.stationary_gram_panels, tpg.stationary_gram,
+               tpg.fused_gp_predict_mean, tpg.fused_gp_predict_mean_var):
         monkeypatch.setattr(fn, "launches", 0)
 
 
@@ -349,7 +429,8 @@ def test_condition_routes_large_n_through_the_panels(device, monkeypatch):
     monkeypatch.setattr(tgp, "BLOCKED_CHOL_MIN_N", 4096)
     gp, err = _condition_4096(device)
     assert gp.L is None and gp.chol is not None
-    assert tbc.factor_panel.launches == 8 and tpg.stationary_gram.launches == 8
+    assert tbc.factor_panel.launches == 8
+    assert tbc.stationary_gram_panels.launches == 1 and tpg.stationary_gram.launches == 0
     assert err < 5e-3
 
 
@@ -359,6 +440,7 @@ def test_condition_below_the_threshold_takes_the_dense_factor(device, monkeypatc
     gp, err = _condition_4096(device)
     assert gp.L is not None and gp.chol is None
     assert tbc.factor_panel.launches == 0 and tpg.stationary_gram.launches == 0
+    assert tbc.stationary_gram_panels.launches == 0
     assert err < 5e-3
 
 
@@ -434,6 +516,7 @@ def test_batched_transport_of_large_members_launches_a_panel_each(device, monkey
     got = run(torch.float32, device)
     torch.cuda.synchronize()
     assert tbc.factor_panel.launches == -(-n // gpt.BLOCKED_PANEL) * E
+    assert tbc.stationary_gram_panels.launches == E and tpg.stationary_gram.launches == 0
     ref = run(torch.float64, "cpu")
     scale = np.abs(X).max()
     for name in ("traj", "std", "delta"):

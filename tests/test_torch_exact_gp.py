@@ -241,10 +241,10 @@ def test_predict_on_cpu_takes_the_dense_path(monkeypatch):
 def test_route_thresholds_are_the_measured_ones():
     """The routes' constants, as set from ``chip_smoke.py``'s and
     ``scripts/time_port_routes.py``'s readings on the card: the blocked
-    Cholesky won in every reading from N=10240 (and not at N=4096), the
+    Cholesky won in every reading from N=8192 (and not at N=4096 or 6144), the
     mean-and-variance kernel won up to N=2048 (from the JAX package's
     Nq·N = 2²¹), and the mean kernel won at every Nq·N timed, from 2¹¹."""
-    assert tgp.BLOCKED_CHOL_MIN_N == 10240
+    assert tgp.BLOCKED_CHOL_MIN_N == 8192
     assert tgp.FUSED_MEAN_VAR_MAX_N == 2048
     assert tgp.FUSED_MEAN_VAR_MIN_ELEMS == 2**21
     assert tgp.FUSED_PREDICT_MIN_ELEMS == 2**11

@@ -38,6 +38,30 @@ def test_stationary_gram_matches_jax(family):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+@pytest.mark.parametrize("M", [1, 3, 129])
+def test_stationary_gram_at_ragged_widths_matches_jax(M):
+    """Widths that are no multiple of the kernel's 4-column stores (the
+    rows then start off 16-byte boundaries) and one past its 128-column
+    tile; JAX's kernel in interpret mode, as above."""
+    rng = np.random.default_rng(M)
+    X, Z = _f32(rng, 37, 3), _f32(rng, M, 3)
+    ls = np.array([1.5, 0.7, 1.1], np.float32)
+    want = jpg.stationary_gram(jnp.asarray(X), jnp.asarray(Z), jnp.asarray(ls), 2.5, tile=16,
+                               interpret=True, family="matern52")
+    got = tpg.stationary_gram(_t(X), _t(Z), _t(ls), 2.5, "matern52")
+    assert got.shape == (37, M)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_stationary_gram_into_writes_any_row_stride_on_the_cpu():
+    rng = np.random.default_rng(4)
+    X, Z = torch.as_tensor(_f32(rng, 20, 2)), torch.as_tensor(_f32(rng, 5, 2))
+    store = torch.full((20, 8), float("nan"))
+    out = tpg.stationary_gram_into(store[:, :5], X, Z, 1.3, 2.0, "rbf")
+    assert torch.equal(out, tpg.stationary_gram_plain(X, Z, 1.3, 2.0, "rbf"))
+    assert out.data_ptr() == store.data_ptr() and store[:, 5:].isnan().all()
+
+
 @pytest.mark.parametrize("family", FAMILIES)
 def test_fused_predict_mean_matches_jax(family):
     rng = np.random.default_rng(1)

@@ -2,6 +2,9 @@
 evaluation (the plain twin, which the wrappers take for CPU tensors) reads
 below its per-query bound for every family, and the planted faults of the
 variance read above it."""
+import contextlib
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +49,35 @@ def test_predict_check_rejects_planted_faults():
     faults = chip_smoke.planted_faults(Xq, gp.X, gp.alpha, gp.K_inv, torch.ones(2), 2.0, 2.1)
     assert set(faults) == {"var x2", "column tile 1 dropped"}
     assert min(faults.values()) > 10
+
+
+# ---- kernel #7's check of phase 7 ------------------------------------------
+
+
+@pytest.mark.parametrize("N,M,D", chip_smoke.GRAM_CASES[:-1])
+def test_gram_check_passes_a_sound_f32_evaluation(N, M, D):
+    """The generic entry's twin, every family, per entry below half of
+    ``GRAM_TOL``·amp against the f64 formula."""
+    for family in chip_smoke.FAMILIES:
+        diff, ex = chip_smoke.check_gram("cpu", N, M, D, family)
+        assert diff == 0.0 and ex < 0.5, family  # on the CPU the wrapper is the twin
+
+
+@pytest.mark.parametrize("family,n,B,D", [c for c in chip_smoke.GRAM_PANEL_CASES
+                                          if c[1] < chip_smoke.N_SOLVE])
+def test_gram_panel_check_passes_a_sound_f32_evaluation(family, n, B, D):
+    """Phase 7's panel cases (but the 10240-point one) on the f32 twin: below
+    half of ``GRAM_TOL``·(amp + noise) per entry, with the NaN-filled buffer
+    written throughout."""
+    diff, ex = chip_smoke.check_gram_panels("cpu", n, B, D, family)
+    assert diff == 0.0 and ex < 0.5
+
+
+def test_gram_panel_check_rejects_planted_faults():
+    faults = chip_smoke.gram_panel_faults("cpu")
+    assert set(faults) == {"noise dropped on diagonal block 1",
+                           "tile (panel 1, rows 64-127) skipped", "padding row coupled"}
+    assert min(faults.values()) > 10 and faults["tile (panel 1, rows 64-127) skipped"] == math.inf
 
 
 # ---- the fused-LML check of phases 12-14 -----------------------------------
@@ -138,3 +170,35 @@ def test_ptxas_summary_names_each_instance():
     assert chip_smoke.ptxas_summary(log) == (
         "spd_inverse_warp_kernel<24,16>: 80 registers, 0 B spill stores; "
         "spd_inverse_elast_kernel<double>: 40 registers, 16 B spill stores")
+
+
+class _Row:
+    def __init__(self, key, us, count=1):
+        self.key, self.self_device_time_total, self.count = key, us, count
+
+
+@pytest.mark.parametrize("empty,want_ms", [(0, 0.004), (3, 0.004), (4, None)])
+def test_an_empty_profiler_session_is_traced_again(monkeypatch, empty, want_ms):
+    """``cupti_ms`` takes the first of ``CUPTI_TRIES`` sessions that holds a
+    kernel record; where all four were empty it gives None, and ``measured``
+    then reports the CUDA-event time as such."""
+    sessions = iter([[]] * empty + [[_Row("k", 20.0)]] * 8)
+    monkeypatch.setattr(chip_smoke, "traced", contextlib.nullcontext)
+    monkeypatch.setattr(chip_smoke, "kernel_rows", lambda prof: next(sessions))
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=5: (0.5, [0.5] * reps))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke.time, "sleep", lambda s: None)
+    calls = []
+    got = chip_smoke.cupti_ms(lambda: calls.append(1))
+    assert got == want_ms
+    assert len(calls) == 1 + chip_smoke.REPS * min(empty + 1, chip_smoke.CUPTI_TRIES)
+    sessions = iter([[]] * empty + [[_Row("k", 20.0)]] * 8)
+    ms, event, cupti = chip_smoke.measured(lambda: None)
+    assert (ms, event, cupti) == ((want_ms, 0.5, True) if want_ms else (0.5, 0.5, False))
+
+
+def test_the_record_names_times_that_fell_back_to_cuda_events():
+    assert chip_smoke.timing_of({"ms": (1.0, 1.1, True), "bound": (0.5, "bytes")}) == "cupti_device"
+    v = {"ms": (1.0, 1.1, True), "plain_ms": (2.0, 2.0, False), "library_ms": None,
+         "event_timed": ["generic_ms"]}
+    assert chip_smoke.timing_of(v) == "cupti_device; cuda_event for plain_ms, generic_ms"

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port: the ensemble transport, the
-large-N exact GP, and the hyperparameter fits and HMC hyperposterior.
+large-N exact GP, the hyperparameter fits (small and large N), the HMC and
+NUTS hyperposteriors, checkpointed runs and SMC particles.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -106,6 +107,32 @@ Phases, one line each on stdout:
 15. the ``GaussianProcessTransportation`` façade on the card with the
     default L-BFGS-B fit: finite fields, a positive std, the fitted LML at
     least the initial one, its wall time.
+16. the blocked hyperparameter fit at ``scripts/bench_blocked_lml.py``'s
+    inputs (N=10240, D=3, rbf, seed 0): one evaluation of
+    ``blocked_lml_value_and_grad`` (1 launch of the Gram's panels, 20 of
+    ``factor_panel``), its value and gradient against the dense float64
+    formula on the card within ``blocked_lml_f64``'s bound, a planted fault
+    (the largest gradient entry negated) rejected, its time (median of 5)
+    and TFLOP/s against the 3·N³/3 model; then ``fit_blocked`` with
+    ``maxiter`` cut to 10 (1 + 20 launches an evaluation), its LML (f64) at
+    least the initial one, its wall time and peak memory;
+17. ``sample_gp_posterior(algorithm="nuts")`` at the hmc workload (256
+    chains, 48+48 steps, max_depth 8): finite samples, the launches of #2,
+    64 chains equal bit for bit to the first 64 of 256, posterior means
+    within 0.8·sd + 0.3 of phase 14's HMC means, the mean tree depth and
+    ``nuts_samples_per_s`` (median of 3);
+18. the generic route at n=40 (past the fused route): 64 chains of HMC,
+    24+24 steps of 16 leapfrog through ``torch.func.vmap`` of the LML's
+    gradient, finite samples, no hand-kernel launch, samples/s of that one
+    run (one run, not three, holds the added phases to their time);
+19. ``run_hmc_batched_checkpointed`` over kernel #2 at phase 14's shape in
+    segments of 16: stopped after its first segment, resumed in a fresh
+    call, equal bit for bit to the uninterrupted ``hmc_batched`` run;
+20. SMC at ``bench.py``'s smc workload (8192 particles of 100 points, D=2,
+    16 steps): finite particles, every ESS in (0, E],
+    ``smc_particles_per_s`` (median of 3); and ``init_particles`` on the
+    bench transport's S, S1 and X with 8192 particles, its mean against
+    the analytic posterior mean.
 
 Each path is driven with every launch count set to 0 just before and read
 just after.  Then one JSON line with the kernels' record and, last, the
@@ -1103,6 +1130,148 @@ def hmc_inputs():
     return X, Y
 
 
+# ---- phases 16-20: the blocked fit, NUTS, the generic route, the
+# checkpointed run and SMC ----------------------------------------------------
+
+FIT_N, FIT_D, FIT_MAXITER = 10240, 3, 10  # scripts/bench_blocked_lml.py's inputs; maxiter cut
+NUTS_CHECK_CHAINS = HMC_CHAINS // 4
+GENERIC_N, GENERIC_CHAINS, GENERIC_STEPS, GENERIC_LEAPFROG = 40, 64, 24, 16
+CKPT_SEGMENT = 16  # three segments of phase 14's 48 samples
+SMC_PARTICLES, SMC_STEPS, SMC_TRAJ = 8192, 16, 100  # bench.py:281-325
+
+
+def blocked_fit_inputs(device):
+    """scripts/bench_blocked_lml.py's inputs: X (10240, 3) standard normal,
+    Y = sin(2·x0) + 0.1·noise, float32 from seed 0; θ0 = (log 2, 0, 0, 0,
+    log 0.1)."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((FIT_N, FIT_D)).astype(np.float32)
+    Y = (np.sin(2.0 * X[:, :1]) + 0.1 * rng.standard_normal((FIT_N, 1))).astype(np.float32)
+    return (torch.as_tensor(X, device=device), torch.as_tensor(Y, device=device),
+            torch.tensor([math.log(2.0), 0.0, 0.0, 0.0, math.log(0.1)], device=device))
+
+
+def blocked_lml_f64(X, Y, theta, jitter):
+    """The blocked LML's value and θ-gradient (amplitude, ℓ per axis, noise)
+    in float64 on the card from the same float32 inputs: the dense Gram, its
+    Cholesky, α and K⁻¹, the trace identity; with phase 12's bound for a
+    sound float32 evaluation, ``lml_f64``'s terms at κ(K) ≤ (Gershgorin's
+    largest row sum)/(noise + jitter), the smallest eigenvalue of amp·φ +
+    σ²I being at least σ².  Returns (val, grad (T,), val_bound, grad_bound
+    (T,))."""
+    from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
+    from gaussian_process_transportation_tpu_torch.ops.blocked_lml import stationary_dk_dd2
+
+    th = theta.double()
+    n, D = X.shape
+    p = Y.shape[1]
+    Xd, Yd = X.double(), Y.double()
+    amp, ls, noise = torch.exp(th[0]), torch.exp(th[1:1 + D]), torch.exp(th[1 + D])
+    Z = Xd / ls
+    d2 = torch.zeros(n, n, dtype=torch.float64, device=X.device)
+    for d in range(D):
+        d2 += (Z[:, None, d] - Z[None, :, d]) ** 2
+    Kf = amp * pg.stationary_from_sqdist(d2, "rbf")
+    K = Kf.clone()
+    K.diagonal().add_(noise + jitter)
+    cond_eps = LML_COND * F32_EPS * (K.abs().sum(1).max() / (noise + jitter)).item()
+    L = torch.linalg.cholesky(K)
+    del K
+    alpha = torch.cholesky_solve(Yd, L)
+    logpiv = 2.0 * torch.log(torch.diagonal(L))
+    ya = Yd * alpha
+    val = (-0.5 * ya.sum() - p * (0.5 * logpiv.sum() + 0.5 * n * math.log(2 * math.pi))).item()
+    val_bound = (LML_VAL_REL * (0.5 * ya.abs().sum() + 0.5 * p * logpiv.abs().sum() + n * p)
+                 + cond_eps * (0.5 * (Yd.abs() * alpha.abs()).sum() + 0.5 * p * n)).item()
+    K_inv = torch.cholesky_inverse(L)
+    del L
+    W = 0.5 * (alpha @ alpha.T - p * K_inv)
+    U = 0.5 * (alpha.abs() @ alpha.abs().T + p * K_inv.abs())
+    del K_inv
+    dk = amp * stationary_dk_dd2(d2, "rbf")
+    del d2
+    grads, bounds = [], []
+    parts = [Kf] + [dk * (-2.0) * (Z[:, None, d] - Z[None, :, d]) ** 2 for d in range(D)]
+    parts.append(None)  # noise·I
+    for dK in parts:
+        if dK is None:
+            wd, ud = noise * torch.diagonal(W), noise * torch.diagonal(U)
+        else:
+            wd, ud = W * dK, U * dK.abs()
+        grads.append(wd.sum().item())
+        bounds.append((LML_GRAD_REL * wd.abs().sum() + cond_eps * ud.sum()).item())
+        del wd, ud
+    return val, torch.tensor(grads, dtype=torch.float64), val_bound, torch.tensor(bounds,
+                                                                                   dtype=torch.float64)
+
+
+def blocked_excess(val, grads, ref):
+    """(value error/bound, gradient error/bound max) of a blocked LML value
+    and gradient (amplitude, ℓ (D,), noise) against ``blocked_lml_f64``."""
+    v64, g64, vb, gb = ref
+    g = torch.cat([grads[0].reshape(1), grads[1].reshape(-1), grads[2].reshape(1)]).double().cpu()
+    return abs(val.item() - v64) / vb, ((g - g64).abs() / gb).max().item()
+
+
+def fused_posterior(kern, X, Y, num_chains, seed=0, jitter=1e-10):
+    """sample_gp_posterior's fused problem, for a sampler called directly:
+    (the batched log-density over kernel #2, initial positions (T, E) in the
+    central half of the box in the canonical layout)."""
+    from gaussian_process_transportation_tpu_torch.models.exact_gp import small_lml_theta_layout
+    from gaussian_process_transportation_tpu_torch.parallel import samplers
+
+    family, n_ls, has_noise, perm_np = small_lml_theta_layout(kern)
+    perm = torch.as_tensor(perm_np, device=X.device)
+    bounds = kern.theta_bounds.to(dtype=torch.float32, device=X.device)[perm]
+    lo, hi = bounds[:, :1], bounds[:, 1:]
+    u = torch.rand((lo.shape[0], num_chains), generator=torch.Generator().manual_seed(seed))
+    inits = lo + u.to(X.device) * (hi - lo) * 0.5 + 0.25 * (hi - lo)
+    return samplers.fused_lp_and_grad(X, Y, lo, hi, family, n_ls, has_noise, jitter), inits
+
+
+def drive_timed(path):
+    """``drive(path)`` with CUDA events around the path: (result, counts,
+    ms of that first run)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def run():
+        ev[0].record()
+        out = path()
+        ev[1].record()
+        return out
+
+    out, counts = drive(run)
+    return out, counts, ev[0].elapsed_time(ev[1])
+
+
+def event_ms(fn, reps=3):
+    """CUDA-event ms of each of ``reps`` calls of ``fn`` (no warm-up: the
+    path's first run has been driven already)."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times
+
+
+def smc_inputs(device):
+    """bench.py's smc stage (bench.py:292-300): trajectories (8192, 100, 2)
+    standard normal float32 from seed 0, uniform weights, the goal (1, 1)
+    at scale 2."""
+    from gaussian_process_transportation_tpu_torch.parallel import smc
+
+    rng = np.random.default_rng(0)
+    trajs = torch.as_tensor(rng.standard_normal((SMC_PARTICLES, SMC_TRAJ, 2)).astype(np.float32),
+                            device=device)
+    p0 = smc.ParticleEnsemble(trajs, torch.full((SMC_PARTICLES,), -math.log(SMC_PARTICLES),
+                                                device=device))
+    return p0, smc.goal_likelihood(torch.tensor([1.0, 1.0], device=device), scale=2.0)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -1851,8 +2020,244 @@ def main() -> None:
           f"diffeomorphic {tr.method.is_diffeomorphic}; fit + apply {wall15:.3f} s wall {tag}",
           flush=True)
 
+    # 16. the blocked hyperparameter fit at scripts/bench_blocked_lml.py's size
+    from gaussian_process_transportation_tpu_torch.ops import blocked_lml as bll
+
+    Xf, Yf, th16 = blocked_fit_inputs(device)
+    jit16 = gp_core._eff_jitter(torch.float32, 1e-10)
+
+    def lml_step():
+        return bll.blocked_lml_value_and_grad(Xf, Yf, "rbf", th16[0], th16[1:1 + FIT_D],
+                                              th16[1 + FIT_D], jitter=jit16, block=BLOCK)
+
+    panels16 = -(-FIT_N // BLOCK)
+    (v16, g16), counts16a = drive(lml_step)
+    expect_launches("blocked_lml_value_and_grad", counts16a, {
+        "stationary_gram_panels": 1, "factor_panel": panels16, "stationary_gram": 0})
+    ref16 = blocked_lml_f64(Xf, Yf, th16, jit16)
+    ex16 = blocked_excess(v16, g16, ref16)
+    if not max(ex16) < 1:
+        raise AssertionError(f"blocked LML at N={FIT_N}: error/bound vs f64 value {ex16[0]:.3g}, "
+                             f"gradient {ex16[1]:.3g}")
+    g_flat = torch.cat([g16[0].reshape(1), g16[1], g16[2].reshape(1)])
+    worst = int(ref16[1].abs().argmax())
+    g_bad = g_flat.clone()
+    g_bad[worst] = -g_bad[worst]
+    fault16 = blocked_excess(v16, (g_bad[0], g_bad[1:1 + FIT_D], g_bad[1 + FIT_D]), ref16)[1]
+    if not fault16 >= 1:
+        raise AssertionError(f"the blocked LML bound accepts θ {worst}'s gradient negated "
+                             f"(error/bound {fault16:.3g})")
+    lml_ms16, lml_all16 = cuda_ms(lml_step)
+    tflops16 = (3 * FIT_N**3 / 3 + 2 * FIT_N**2 * FIT_D + 8 * FIT_N**2) / (lml_ms16 / 1e3) / 1e12
+    kern16 = K.Constant(2.0) * K.RBF(torch.ones(FIT_D, **f32)) + K.White(0.1)
+    evals = {"value_and_grad": 0, "value": 0}
+    real_vg, real_v = bll.blocked_lml_value_and_grad, bll.blocked_lml_value
+
+    def counted_vg(*a, **k):
+        evals["value_and_grad"] += 1
+        return real_vg(*a, **k)
+
+    def counted_v(*a, **k):
+        evals["value"] += 1
+        return real_v(*a, **k)
+
+    bll.blocked_lml_value_and_grad, bll.blocked_lml_value = counted_vg, counted_v
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        gp16, counts16 = drive(lambda: gp_core.fit_blocked(kern16, Xf, Yf, maxiter=FIT_MAXITER,
+                                                           block=BLOCK))
+        fit_s16 = time.perf_counter() - t0
+    finally:
+        bll.blocked_lml_value_and_grad, bll.blocked_lml_value = real_vg, real_v
+    peak16 = torch.cuda.max_memory_allocated(device) / 2**30
+    n_eval = evals["value_and_grad"] + evals["value"]
+    expect_launches("fit_blocked", counts16, {  # every evaluation, then condition_blocked
+        "stationary_gram_panels": n_eval + 1, "factor_panel": panels16 * (n_eval + 1),
+        "stationary_gram": 0})
+    th_fit = gp16.kernel.theta.to(device=device, dtype=torch.float32)
+    lml_fit = blocked_lml_f64(Xf, Yf, th_fit, jit16)[0]
+    if not lml_fit >= ref16[0] + ref16[2]:  # at least the start, and moved past the f32 bound
+        raise AssertionError(f"fit_blocked's LML {lml_fit:.6g} is not above the initial "
+                             f"{ref16[0]:.6g} by the value's bound {ref16[2]:.3g}")
+    print(f"blocked fit: blocked_lml_value_and_grad N={FIT_N} D={FIT_D} rbf block={BLOCK} f32: "
+          f"stationary_gram_panels {counts16a['stationary_gram_panels']}, factor_panel "
+          f"{counts16a['factor_panel']} launches an evaluation; value and gradient vs the f64 "
+          f"dense formula error/bound {ex16[0]:.3g}, {ex16[1]:.3g} (value {v16.item():.6g} vs "
+          f"{ref16[0]:.6g}); planted fault (theta {worst}'s gradient negated) rejected at "
+          f"{fault16:.3g}; one value+grad {lml_ms16:.4f} ms {lml_all16} (median of {REPS}, CUDA "
+          f"events) = {tflops16:.3f} TFLOP/s (3N^3/3 model); fit_blocked maxiter {FIT_MAXITER}: "
+          f"{evals['value_and_grad']} value+grad and {evals['value']} value evaluations, "
+          f"{counts16['stationary_gram_panels']} Gram launches and {counts16['factor_panel']} "
+          f"factor_panel (condition_blocked's included), LML (f64) {ref16[0]:.6g} -> "
+          f"{lml_fit:.6g}, theta {[round(v, 4) for v in th_fit.tolist()]}, {fit_s16:.3f} s wall, "
+          f"peak memory {peak16:.3f} GiB {tag}", flush=True)
+    del gp16, Xf, Yf
+
+    # 17. the NUTS hyperposterior at bench.py's hmc workload
+    def nuts_path(num_chains=HMC_CHAINS):
+        return samplers.sample_gp_posterior(kern14, X14, Y14, seed=0, num_chains=num_chains,
+                                            num_warmup=HMC_WARMUP, num_samples=HMC_SAMPLES,
+                                            algorithm="nuts")
+
+    (s17, d17), counts17, first17 = drive_timed(nuts_path)
+    if counts17["small_lml_value_grad"] < 1 + HMC_WARMUP + HMC_SAMPLES or \
+            counts17["small_lml_value_grad_md"]:
+        raise AssertionError(f"the NUTS route launched kernel #2 "
+                             f"{counts17['small_lml_value_grad']} times (and #3 "
+                             f"{counts17['small_lml_value_grad_md']})")
+    if s17.shape != (HMC_CHAINS, HMC_SAMPLES, 4) or not torch.isfinite(s17).all():
+        raise AssertionError(f"NUTS samples {tuple(s17.shape)} not finite or misshapen")
+    s17b, _ = nuts_path(NUTS_CHECK_CHAINS)
+    if not torch.equal(s17b, s17[:NUTS_CHECK_CHAINS]):
+        raise AssertionError(f"a NUTS run of {NUTS_CHECK_CHAINS} chains differs from the first "
+                             f"{NUTS_CHECK_CHAINS} of {HMC_CHAINS}")
+    m17 = s17.reshape(-1, 4).double().mean(0)
+    sd14 = s14.reshape(-1, 4).double().std(0)
+    if not ((m17 - m_k).abs() < 0.8 * sd14 + 0.3).all():
+        raise AssertionError(f"NUTS posterior means {m17.tolist()} vs phase 14's HMC "
+                             f"{m_k.tolist()} (sd {sd14.tolist()})")
+    times17 = [first17] + event_ms(nuts_path, reps=2)[1]
+    nuts_ms = float(np.median(times17))
+    print(f"NUTS hyperposterior: sample_gp_posterior(algorithm='nuts') {HMC_CHAINS} chains, "
+          f"{HMC_WARMUP}+{HMC_SAMPLES} steps, max_depth 8, n=20 D=2 p=1 f32: small_lml_value_grad "
+          f"launches {counts17['small_lml_value_grad']}; samples finite; {NUTS_CHECK_CHAINS} chains "
+          f"alone equal the first {NUTS_CHECK_CHAINS} of {HMC_CHAINS} bit for bit; posterior means "
+          f"{[round(v, 4) for v in m17.tolist()]} vs phase 14's HMC "
+          f"{[round(v, 4) for v in m_k.tolist()]} (within 0.8*sd+0.3); mean tree depth "
+          f"{d17['mean_tree_depth'].mean().item():.3f}, mean accept "
+          f"{d17['mean_accept'].mean().item():.4f}; {nuts_ms:.4f} ms "
+          f"{[round(t, 3) for t in times17]} (median of 3, CUDA events) = nuts_samples_per_s "
+          f"{HMC_CHAINS * HMC_SAMPLES / (nuts_ms / 1e3):.1f} {tag}", flush=True)
+    del s17b
+
+    # 18. the generic route past the fused one (n = 40)
+    rng18 = np.random.default_rng(0)
+    X18 = rng18.standard_normal((GENERIC_N, 2)).astype(np.float32)
+    Y18 = (np.sin(X18[:, :1]) + 0.1 * rng18.standard_normal((GENERIC_N, 1))).astype(np.float32)
+    X18, Y18 = torch.as_tensor(X18, device=device), torch.as_tensor(Y18, device=device)
+
+    def generic_path():
+        return samplers.sample_gp_posterior(kern14, X18, Y18, seed=0, num_chains=GENERIC_CHAINS,
+                                            num_warmup=GENERIC_STEPS, num_samples=GENERIC_STEPS,
+                                            num_leapfrog=GENERIC_LEAPFROG)
+
+    (s18, d18), counts18, first18 = drive_timed(generic_path)
+    if any(counts18.values()):
+        raise AssertionError(f"the generic route launched a hand kernel: {counts18}")
+    if s18.shape != (GENERIC_CHAINS, GENERIC_STEPS, 4) or not torch.isfinite(s18).all():
+        raise AssertionError(f"generic-route samples {tuple(s18.shape)} not finite or misshapen")
+    gen_ms = first18  # one run: the counted one (the whole run's length is held)
+    print(f"generic route: sample_gp_posterior n={GENERIC_N} (past the fused route's 32) "
+          f"{GENERIC_CHAINS} chains of HMC, {GENERIC_STEPS}+{GENERIC_STEPS} steps of "
+          f"{GENERIC_LEAPFROG} leapfrog, torch.func.vmap of the LML's gradient, f32: no hand-kernel "
+          f"launch; samples finite, mean accept {d18['mean_accept'].mean().item():.4f}; "
+          f"{gen_ms:.4f} ms (the counted run, CUDA events) = "
+          f"{GENERIC_CHAINS * GENERIC_STEPS / (gen_ms / 1e3):.1f} samples/s {tag}", flush=True)
+
+    # 19. a checkpointed run over kernel #2, killed after one segment and resumed
+    import tempfile
+    from gaussian_process_transportation_tpu_torch.parallel import checkpointed as ckpt
+
+    lp19, q19 = fused_posterior(kern14, X14, Y14, HMC_CHAINS)
+    ck_kw = dict(num_warmup=HMC_WARMUP, num_samples=HMC_SAMPLES, num_leapfrog=HMC_LEAPFROG)
+    whole19, info19 = samplers.hmc_batched(lp19, q19, seed=0, **ck_kw)
+
+    class Killed(Exception):
+        pass
+
+    real_save = ckpt.save_pytree
+    saved = []
+
+    def save_then_die(path_, tree, metadata=None):
+        real_save(path_, tree, metadata)
+        saved.append(metadata["done"])
+        if len(saved) == 2:  # the warm-up's save, then the first segment's
+            raise Killed
+
+    with tempfile.TemporaryDirectory() as td:
+        path19 = str(td) + "/hmc"
+        ckpt.save_pytree = save_then_die
+        try:
+            ckpt.run_hmc_batched_checkpointed(lp19, q19, 0, path19, segment=CKPT_SEGMENT, **ck_kw)
+            raise AssertionError("the checkpointed run was not stopped after its first segment")
+        except Killed:
+            pass
+        finally:
+            ckpt.save_pytree = real_save
+        (res19, info19r), counts19 = drive(lambda: ckpt.run_hmc_batched_checkpointed(
+            lp19, q19, 0, path19, segment=CKPT_SEGMENT, **ck_kw))
+    want19 = (HMC_SAMPLES - CKPT_SEGMENT) * HMC_LEAPFROG
+    expect_launches("the resumed checkpointed run", counts19, {"small_lml_value_grad": want19})
+    if not (torch.equal(res19, whole19) and torch.equal(info19r["step_size"], info19["step_size"])):
+        raise AssertionError("the resumed checkpointed run differs from the uninterrupted one: "
+                             f"|d| max {(res19 - whole19).abs().max().item():.3g}")
+    print(f"checkpointed run: run_hmc_batched_checkpointed over kernel #2, {HMC_CHAINS} chains, "
+          f"{HMC_WARMUP}+{HMC_SAMPLES} steps, segments of {CKPT_SEGMENT}: stopped after the saves "
+          f"{saved}, resumed in a fresh call ({counts19['small_lml_value_grad']} launches of #2), "
+          f"samples and step sizes equal to the uninterrupted hmc_batched run bit for bit {tag}",
+          flush=True)
+    del whole19, res19
+
+    # 20. SMC at bench.py's smc workload, and particles of the bench transport
+    from gaussian_process_transportation_tpu_torch.parallel import smc
+
+    p20, ll20 = smc_inputs(device)
+
+    def smc_path():
+        gen = torch.Generator(device=device).manual_seed(0)
+        p, esss = p20, []
+        for _ in range(SMC_STEPS):
+            p, ess = smc.smc_step(p, ll20, gen)
+            esss.append(ess)
+        return p, torch.stack(esss)
+
+    (p20b, ess20), counts20 = drive(smc_path)
+    if any(counts20.values()):
+        raise AssertionError(f"the SMC path launched a hand kernel: {counts20}")
+    if not torch.isfinite(p20b.trajectories).all() or not torch.isfinite(p20b.log_weights).all():
+        raise AssertionError("SMC particles or weights not finite")
+    if not bool(((ess20 > 0) & (ess20 <= SMC_PARTICLES * (1 + 1e-5))).all()):
+        raise AssertionError(f"SMC ESS outside (0, E]: {ess20.tolist()}")
+    smc_ms, smc_all = cuda_ms(smc_path, reps=3)
+    resampled = int((ess20 < 0.5 * SMC_PARTICLES).sum())
+    kern20 = K.Constant(10.0) * K.RBF(4.0 * torch.ones(2, **f32)) + K.White(0.01)
+
+    def init_path():
+        return smc.init_particles(kern20, Sd, S1d, Xd, SMC_PARTICLES,
+                                  torch.Generator(device=device).manual_seed(0))
+
+    parts20 = init_path()
+    aff20, gp20 = gpt.fit_pipeline(kern20, Sd, S1d)
+    pos20 = affine_core.predict(aff20, Xd)
+    mean20, cov20 = gp_core.predict_cov(gp20, pos20)
+    se20 = torch.sqrt(torch.clamp(torch.diagonal(cov20), min=0))[:, None] / math.sqrt(SMC_PARTICLES)
+    dev20 = (parts20.trajectories.mean(0) - (pos20 + mean20)).abs()
+    if parts20.trajectories.shape != (SMC_PARTICLES, Q_MAIN, 2) or \
+            not torch.isfinite(parts20.trajectories).all() or not (dev20 <= 5 * se20 + 1e-3).all():
+        raise AssertionError(f"init_particles: shape {tuple(parts20.trajectories.shape)}, mean off "
+                             f"by up to {(dev20 / (5 * se20 + 1e-3)).max().item():.3g} of its bound")
+    init_ms, _ = cuda_ms(init_path, reps=3)
+    print(f"SMC: smc_step x {SMC_STEPS} on {SMC_PARTICLES} particles of {SMC_TRAJ} points (D=2, "
+          f"goal (1, 1) at scale 2, f32): particles and weights finite, ESS in (0, E] "
+          f"(min {ess20.min().item():.1f}, {resampled} of {SMC_STEPS} steps resampled, one host "
+          f"read a step); {smc_ms:.4f} ms {smc_all} (median of 3, CUDA events) = "
+          f"smc_particles_per_s {SMC_PARTICLES * SMC_STEPS / (smc_ms / 1e3):.1f}; init_particles "
+          f"on the bench transport's S, S1 and X (Q={Q_MAIN}) with {SMC_PARTICLES} particles: "
+          f"finite, mean within 5 standard errors of gamma(X) + the posterior mean, "
+          f"{init_ms:.4f} ms (median of 3) {tag}", flush=True)
+    del p20, p20b, parts20
+
     # the launches of #2 and #3 in their paths' runs (phases 13 and 14)
     kernels_json["small_lml_value_grad"]["launches"] = counts14["small_lml_value_grad"]
+    # the later paths' launches (phases 16, 17 and 19) beside the main path's
+    kernels_json["small_lml_value_grad"].setdefault("extra", {}).update(
+        nuts_launches=counts17["small_lml_value_grad"],
+        checkpointed_resume_launches=counts19["small_lml_value_grad"])
+    for name in ("stationary_gram_panels", "factor_panel"):
+        kernels_json[name].setdefault("extra", {}).update(
+            blocked_lml_launches_per_evaluation=counts16a[name],
+            fit_blocked_launches=counts16[name])
     kernels_json["small_lml_value_grad_md"].update(
         launches=counts13["small_lml_value_grad_md"], value_only_launches=counts13[VALUE_ONLY])
 

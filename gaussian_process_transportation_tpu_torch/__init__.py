@@ -23,10 +23,18 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 from . import kernels
+from .models import AffineTransform, GaussianProcess
 from .transport import gpt
 from .transport.gpt import GaussianProcessTransportation
 from .utils.resample import resample
 
-__all__ = ["kernels", "gpt", "resample", "GaussianProcessTransportation"]
+__all__ = [
+    "kernels",
+    "GaussianProcess",
+    "AffineTransform",
+    "GaussianProcessTransportation",
+    "resample",
+    "gpt",
+]
 
 __version__ = "0.1.0"

@@ -13,7 +13,17 @@ Shapes, for points x (..., N, D) and Z (..., M, D):
 * ``diag(X)`` → (..., N);
 * ``dx(x, Z)`` → (..., N, M, D) = ∂k(x_i, Z_j)/∂x_i;
 * ``dxT(x, Z)`` → (..., D, M, N), the same values query-last;
-* ``dxdz_diag(x)`` → (..., N, D) = ∂²k(a, b)/∂a_d∂b_d at a = b = x_i.
+* ``dxdz_diag(x)`` → (..., N, D) = ∂²k(a, b)/∂a_d∂b_d at a = b = x_i;
+* ``pairwise(a, b)`` → () = k(a, b) of two single points (D,), White 0.
+
+Each leaf has closed-form derivatives.  The base class builds ``dx``,
+``dxT`` and ``dxdz_diag`` on ``pairwise`` with ``torch.func`` (forward
+mode over a row of Z, reverse over forward for the mixed second
+derivative), for points (N, D) and (M, D) and hyperparameters shared by
+all points.  ``Product.dxdz_diag`` is the product rule on its factors'
+closed forms, exact for every stationary factor; the JAX package takes
+the autodiff form for two non-constant factors, which a Matérn factor
+makes wrong at a = b.
 
 Hyperparameters with a leading ensemble axis give one kernel for E
 members: a scalar hyperparameter (amplitude, noise) of shape (E,) and a
@@ -78,6 +88,12 @@ def _scalar(value: Param, like: Tensor, rank: int, point_axes: int) -> Param:
     return value
 
 
+def _point_param(value: Param, a: Tensor) -> Tensor:
+    """A hyperparameter as a tensor in the dtype and on the device of the
+    point ``a`` (``pairwise``)."""
+    return torch.as_tensor(value, dtype=a.dtype, device=a.device)
+
+
 def _flat_log(value: Param, dtype, device) -> Tensor:
     """log of a leaf as a flat vector."""
     return torch.log(torch.as_tensor(value, dtype=dtype, device=device).reshape(-1))
@@ -129,14 +145,35 @@ class Kernel:
     def diag(self, X: Tensor) -> Tensor:
         raise NotImplementedError(f"{type(self).__name__}.diag")
 
+    def pairwise(self, a: Tensor, b: Tensor) -> Tensor:
+        """k(a, b) of single points a, b (D,) as a 0-d tensor, written with
+        explicit differences so that autodiff is exact at a = b;
+        cross-covariance semantics (White gives 0)."""
+        raise NotImplementedError(f"{type(self).__name__}.pairwise")
+
     def dx(self, x: Tensor, Z: Tensor) -> Tensor:
-        raise NotImplementedError(f"{type(self).__name__}.dx")
+        """∂k(x_i, Z_j)/∂x_i, (N, M, D): forward mode through
+        :meth:`pairwise`, one Jacobian of a row of Z per query point."""
+        from torch.func import jacfwd, vmap
+
+        def row(xi):
+            return vmap(lambda zj: self.pairwise(xi, zj))(Z)
+
+        return vmap(jacfwd(row))(x)
 
     def dxT(self, x: Tensor, Z: Tensor) -> Tensor:
-        raise NotImplementedError(f"{type(self).__name__}.dxT")
+        """:meth:`dx` query-last, (D, M, N)."""
+        return self.dx(x, Z).permute(2, 1, 0)
 
     def dxdz_diag(self, x: Tensor) -> Tensor:
-        raise NotImplementedError(f"{type(self).__name__}.dxdz_diag")
+        """diag_d ∂²k(a, b)/∂a_d∂b_d at a = b = x_i, (N, D): forward over
+        reverse mode through :meth:`pairwise`."""
+        from torch.func import jacfwd, jacrev, vmap
+
+        def at_point(xi):
+            return torch.diagonal(jacfwd(jacrev(self.pairwise, argnums=0), argnums=1)(xi, xi))
+
+        return vmap(at_point)(x)
 
     # ---- the flat log-space hyperparameter vector ------------------------
     def _leaves(self) -> List["Kernel"]:
@@ -226,6 +263,9 @@ class Constant(Kernel):
     def _with_leaf_value(self, value):
         return replace(self, constant_value=value)
 
+    def pairwise(self, a, b):
+        return _point_param(self.constant_value, a) * 1.0
+
     def dx(self, x, Z):
         return x.new_zeros(_cross_shape(x, Z) + (x.shape[-1],))
 
@@ -261,6 +301,9 @@ class White(Kernel):
 
     def _with_leaf_value(self, value):
         return replace(self, noise_level=value)
+
+    def pairwise(self, a, b):
+        return _point_param(self.noise_level, a) * 0.0
 
     def dx(self, x, Z):
         return x.new_zeros(_cross_shape(x, Z) + (x.shape[-1],))
@@ -303,6 +346,10 @@ class RBF(Kernel):
 
     def dxdz_diag(self, x):
         return torch.ones_like(x) / _ls(self.lengthscale, x) ** 2
+
+    def pairwise(self, a, b):
+        ls = _point_param(self.lengthscale, a).reshape(-1)
+        return torch.exp(-0.5 * (((a - b) / ls) ** 2).sum())
 
     def _leaf_value(self):
         return self.lengthscale
@@ -357,6 +404,13 @@ class Matern(Kernel):
     def diag(self, X):
         return X.new_ones(X.shape[:-1])
 
+    def pairwise(self, a, b):
+        ls = _point_param(self.lengthscale, a).reshape(-1)
+        d2 = (((a - b) / ls) ** 2).sum()
+        if self.nu == math.inf:
+            return torch.exp(-0.5 * d2)
+        return _matern_of_d(torch.sqrt(d2 + 1e-36), self.nu)
+
     def dx(self, x, Z):
         ls = _ls(self.lengthscale, x)
         diff = (x[..., :, None, :] - Z[..., None, :, :]) / ls[..., None, :] ** 2
@@ -402,6 +456,9 @@ class Sum(Kernel):
     def diag(self, X):
         return self.k1.diag(X) + self.k2.diag(X)
 
+    def pairwise(self, a, b):
+        return self.k1.pairwise(a, b) + self.k2.pairwise(a, b)
+
     def dx(self, x, Z):
         return self.k1.dx(x, Z) + self.k2.dx(x, Z)
 
@@ -431,6 +488,9 @@ class Product(Kernel):
     def diag(self, X):
         return self.k1.diag(X) * self.k2.diag(X)
 
+    def pairwise(self, a, b):
+        return self.k1.pairwise(a, b) * self.k2.pairwise(a, b)
+
     def dx(self, x, Z):
         a = self.k1(x, Z)[..., None]
         b = self.k2(x, Z)[..., None]
@@ -443,11 +503,11 @@ class Product(Kernel):
         return self.k1.dxT(x, Z) * bT + aT * self.k2.dxT(x, Z)
 
     def dxdz_diag(self, x):
-        # exact for a constant factor times a stationary kernel; the product
-        # of two non-constant kernels needs the autodiff form, not ported
-        if isinstance(self.k1, (Constant, White)):
-            return self.k1.diag(x)[..., None] * self.k2.dxdz_diag(x)
-        if isinstance(self.k2, (Constant, White)):
-            return self.k2.diag(x)[..., None] * self.k1.dxdz_diag(x)
-        raise NotImplementedError(
-            "dxdz_diag of a product of two non-constant kernels")
+        # the product rule at a = b: k1''·k2 + k1'·k2' + k2'·k1' + k1·k2'';
+        # the first derivatives of a stationary factor vanish there, so each
+        # factor's own closed form gives the product's (a Constant or White
+        # factor has k'' = 0 and reduces it to c·k'').  Not autodiff through
+        # ``pairwise``: a Matérn's d = sqrt(d² + 1e-36) makes that wrong at
+        # a = b (ROADMAP.md, queue 3).
+        return (self.k1.diag(x)[..., None] * self.k2.dxdz_diag(x)
+                + self.k2.diag(x)[..., None] * self.k1.dxdz_diag(x))

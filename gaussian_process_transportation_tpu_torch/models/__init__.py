@@ -1,0 +1,37 @@
+from .exact_gp import (
+    ExactGP,
+    condition,
+    log_marginal_likelihood,
+    fit,
+    fit_blocked,
+    condition_blocked,
+    predict,
+    predict_cov,
+    sample_y,
+    jacobian,
+    variance_gradient,
+    white_noise_level,
+)
+from .gp_regressor import GaussianProcess
+from .affine import AffineTransform
+
+# The JAX package also exports fit_jit, KMP, LaplacianEditing, MLP,
+# EnsembleMLP, BijectiveNetwork, EnsembleBijectiveNetwork,
+# EnsembleRandomForest and StochasticVariationalGaussianProcess: not ported
+# yet (ROADMAP.md, queue 1).
+__all__ = [
+    "ExactGP",
+    "condition",
+    "log_marginal_likelihood",
+    "fit",
+    "fit_blocked",
+    "condition_blocked",
+    "predict",
+    "predict_cov",
+    "sample_y",
+    "jacobian",
+    "variance_gradient",
+    "white_noise_level",
+    "GaussianProcess",
+    "AffineTransform",
+]

@@ -5,7 +5,8 @@ alignment, SVD rotation with the reflection fix, optional uniform
 least-squares scale, identity rotation when there are fewer points than
 dimensions.  ``AffineParams`` fields may carry a leading ensemble axis E
 (what ``fit_batched`` returns); ``predict`` and ``derivative`` broadcast
-over it.
+over it.  ``AffineTransform`` is the original project's stateful interface
+over them.
 """
 from __future__ import annotations
 
@@ -119,3 +120,46 @@ def fit_batched(
         source_centroid=cs.expand(E, d),
         target_centroid=ct,
     )
+
+
+class AffineTransform:
+    """Stateful wrapper with the original project's interface: ``fit``,
+    ``predict``, ``derivative`` and the ``rotation_matrix``, ``scale`` and
+    ``translation`` of the fit.  Point sets that are not tensors (numpy
+    arrays, lists) are put on ``device``, the card unless the caller asks
+    for the CPU; tensors stay where they are."""
+
+    def __init__(self, do_scale: bool = False, do_rotation: bool = True, device="cuda"):
+        self.do_scale = do_scale
+        self.do_rotation = do_rotation
+        self.device = torch.device(device)
+        self.params: AffineParams | None = None
+
+    def _tensor(self, x) -> Tensor:
+        return x if isinstance(x, Tensor) else torch.as_tensor(x, device=self.device)
+
+    def fit(self, source_points, target_points):
+        if len(source_points) != len(target_points):
+            raise ValueError(f"source and target hold {len(source_points)} and "
+                             f"{len(target_points)} points")
+        self.params = fit(self._tensor(source_points), self._tensor(target_points),
+                          do_scale=self.do_scale, do_rotation=self.do_rotation)
+        return self
+
+    @property
+    def rotation_matrix(self) -> Tensor:
+        return self.params.rotation
+
+    @property
+    def scale(self) -> Tensor:
+        return self.params.scale
+
+    @property
+    def translation(self) -> Tensor:
+        return self.params.target_centroid - self.params.source_centroid
+
+    def predict(self, x) -> Tensor:
+        return predict(self.params, self._tensor(x))
+
+    def derivative(self, x) -> Tensor:
+        return derivative(self.params, self._tensor(x))

@@ -8,8 +8,10 @@ fused dense-grid kernels of ``ops/pallas_gram.py`` on the card), the full
 posterior covariance and samples, the Jacobian posterior and the gradient
 of the predictive variance; and the hyperparameter fits: the log marginal
 likelihood with its analytic gradient, ``fit`` (scipy L-BFGS-B with
-restarts) and ``fit_ensemble_fused`` (per-lane projected L-BFGS over the
-fused small-LML kernel of ``ops/fused_lml.py``, one launch per candidate).
+restarts), ``fit_ensemble_fused`` (per-lane projected L-BFGS over the
+fused small-LML kernel of ``ops/fused_lml.py``, one launch per candidate)
+and ``fit_blocked`` (the large-N fit, projected L-BFGS over the blocked
+LML of ``ops/blocked_lml.py``).
 
 Conventions follow the original project's sklearn wrapper: the std may
 exclude the White-noise level (``epistemic_only``), and the Jacobian
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from ..kernels import Constant, Kernel, Matern, Product, RBF, Sum, White
+from ..kernels import DEFAULT_BOUNDS, Constant, Kernel, Matern, Product, RBF, Sum, White
 from ..ops import fused_lml, pallas_gram
 from ..ops.blocked_chol import BlockedCholesky, gram_cholesky_solve
 from ..ops.linalg import add_diagonal, cho_solve_lower, log_det_from_chol, tri_solve_lower
@@ -154,6 +156,16 @@ def white_noise_level(kernel: Kernel) -> Union[float, Tensor]:
     if isinstance(kernel, Sum):
         return white_noise_level(kernel.k1) + white_noise_level(kernel.k2)
     return 0.0
+
+
+def rbf_family_params(kernel: Kernel):
+    """(amplitude, lengthscale) when the kernel is C·RBF(+White), the
+    original project's transport kernel; None otherwise (the JAX package's
+    older form of :func:`stationary_family_params`)."""
+    params = stationary_family_params(kernel)
+    if params is None or params[0] != "rbf" or isinstance(_family_nodes(kernel)[1], Matern):
+        return None
+    return params[1], params[2]
 
 
 _MATERN_FAMILY = {0.5: "matern12", 1.5: "matern32", 2.5: "matern52", math.inf: "rbf"}
@@ -373,10 +385,15 @@ class _SmallLML(torch.autograd.Function):
     """log p(Y | K) of a Gram K (..., N, N) and targets Y (..., N, P), with
     the analytic backward dLML/dK = ½(ααᵀ − P·K⁻¹) and dLML/dY = −α: no
     autograd through the factorization; the caller's autograd pulls dK back
-    through the Gram build.  A K that is not positive definite gives NaN."""
+    through the Gram build.  A K that is not positive definite gives NaN.
+    ``apply`` returns (LML, L, α), the last two not differentiable; the
+    forward is written for ``torch.func`` too (``vmap`` over chains,
+    ``grad``: the generic route of ``parallel.samplers``)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, K, Y2):
+    def forward(K, Y2):
         n, p = K.shape[-1], Y2.shape[-1]
         L, info = torch.linalg.cholesky_ex(K)
         eye = torch.eye(n, dtype=K.dtype, device=K.device)
@@ -384,11 +401,16 @@ class _SmallLML(torch.autograd.Function):
         alpha = torch.cholesky_solve(Y2, L)
         val = -0.5 * (Y2 * alpha).sum((-2, -1)) - p * (0.5 * log_det_from_chol(L)
                                                        + 0.5 * n * _LOG_2PI)
-        ctx.save_for_backward(L, alpha)
-        return torch.where(info != 0, torch.full_like(val, math.nan), val)
+        return torch.where(info != 0, torch.full_like(val, math.nan), val), L, alpha
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        _, L, alpha = output
+        ctx.mark_non_differentiable(L, alpha)
+        ctx.save_for_backward(L, alpha)
+
+    @staticmethod
+    def backward(ctx, g, _g_L, _g_alpha):
         L, alpha = ctx.saved_tensors
         p = alpha.shape[-1]
         W = 0.5 * (alpha @ alpha.transpose(-1, -2) - p * torch.cholesky_inverse(L))
@@ -409,7 +431,7 @@ def log_marginal_likelihood(kernel: Kernel, X: Tensor, Y: Tensor, jitter: float 
     K = add_diagonal(kernel(X), jitter)
     n, p = X.shape[-2], Y2.shape[-1]
     if n <= 64:
-        return _SmallLML.apply(K, Y2)
+        return _SmallLML.apply(K, Y2)[0]
     L = torch.linalg.cholesky(K)
     alpha = cho_solve_lower(L, Y2)
     return -0.5 * (Y2 * alpha).sum((-2, -1)) - p * (0.5 * log_det_from_chol(L)
@@ -520,6 +542,7 @@ def _lbfgs_elast(
     armijo_c: float = 1e-4,
     max_backtrack: int = 6,
     value_b: Optional[Callable[[Tensor], Tensor]] = None,
+    max_step: Optional[float] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Per-lane projected L-BFGS (minimization) on (T, L) parameters.
 
@@ -531,8 +554,15 @@ def _lbfgs_elast(
     maxiter·max_backtrack Armijo candidates, whose gradient is not used, go
     to ``value_b`` (values only; by default the value of
     ``value_and_grad_b``).  ``value_b`` must give the values
-    ``value_and_grad_b`` gives, bit for bit, or the path changes.  Returns
-    (x, value)."""
+    ``value_and_grad_b`` gives, bit for bit, or the path changes.  With one
+    lane the backtracking ends once its candidate is accepted (an accepted
+    step is never halved again, so the iterates are the same): a host read
+    for each candidate saves the rest of the candidates, which at one lane
+    are a large-N fit's whole evaluations; many lanes keep the fixed count
+    and no host read.  ``max_step`` scales each lane's direction down so
+    that its largest entry is at most that (a steepest-descent first step
+    of −g can otherwise leave the bounds' far corner in one step when |g|
+    is in the thousands, as at large N).  Returns (x, value)."""
     if value_b is None:
         def value_b(x):
             return value_and_grad_b(x)[0]
@@ -565,11 +595,16 @@ def _lbfgs_elast(
             r = r + S[kk] * (alphas[kk] - b)[None, :]
         d = -r
         d = torch.where((dot(d, g) < 0.0)[None, :], d, -g)  # else steepest descent
+        if max_step is not None:
+            d = d * torch.clamp(max_step / torch.clamp(d.abs().amax(0), min=1e-30), max=1.0)
         dg = torch.clamp(dot(d, g), max=-1e-30)
         t = x0.new_ones(L)
         for _ in range(max_backtrack):
             v_try = value_b(clip(x + t[None, :] * d))
-            t = torch.where(v_try <= v + armijo_c * t * dg, t, 0.5 * t)
+            ok = v_try <= v + armijo_c * t * dg
+            t = torch.where(ok, t, 0.5 * t)
+            if L == 1 and bool(ok.all()):
+                break
         x_new = clip(x + t[None, :] * d)
         v_new, g_new = value_and_grad_b(x_new)
         # keep only steps that decreased (the last halving was not checked)
@@ -656,3 +691,116 @@ def fit_ensemble_fused(
     x_er = x.T.reshape(E, R, T)
     th_best = x_er[torch.arange(E, device=device), best]
     return th_best[:, inv_perm], -v_er[torch.arange(E, device=device), best]
+
+
+def _family_nodes(kernel: Kernel):
+    """(Constant, stationary base, White) nodes of a C·stationary(+White)
+    kernel tree; a missing one is None."""
+    nodes = {"const": None, "base": None, "white": None}
+
+    def walk(k):
+        if isinstance(k, (Sum, Product)):
+            walk(k.k1)
+            walk(k.k2)
+        elif isinstance(k, Constant):
+            nodes["const"] = k
+        elif isinstance(k, White):
+            nodes["white"] = k
+        elif isinstance(k, (RBF, Matern)):
+            nodes["base"] = k
+
+    walk(kernel)
+    return nodes["const"], nodes["base"], nodes["white"]
+
+
+# fit_blocked's largest step of one log-hyperparameter per iteration: a
+# factor of e.  The blocked LML's gradient at N = 10⁴ runs to thousands, and
+# an uncapped steepest-descent first step clipped to the bounds made every
+# candidate non-definite (chip_smoke.py phase 16 on an H100 stayed at its
+# start through 10 iterations).
+FIT_BLOCKED_MAX_STEP = 1.0
+
+
+def fit_blocked(
+    kernel: Kernel,
+    X: Tensor,
+    Y: Tensor,
+    maxiter: int = 40,
+    jitter: float = 1e-10,
+    block: int = 512,
+    refine_iters: Optional[int] = None,
+) -> ExactGP:
+    """Large-N hyperparameter fit through the blocked panel Cholesky.
+
+    Projected L-BFGS (:func:`_lbfgs_elast`, one lane, ``maxiter``
+    iterations, steps of at most ``FIT_BLOCKED_MAX_STEP`` in each log
+    hyperparameter) over the negative blocked LML of ``ops/blocked_lml.py``.
+    The JAX package drives optax's L-BFGS, whose zoom line search needs no
+    cap; the port has no optax, and its Armijo backtracking from a unit
+    step does (``max_step``, the one option only this fit sets).  Each
+    evaluation is one Gram-panel launch and one ``factor_panel`` call a
+    panel for a CUDA X, the gradient by the trace identity, never autograd
+    through the factorization and never a dense (N, N) Gram.  θ is (log
+    amplitude, log ℓ per input axis, log noise) in float32, clipped to the
+    log-bounds of the kernel's nodes; a non-finite value reads 1e25 and a
+    non-finite gradient entry 0.  Rows with NaN targets are dropped first.
+    ``refine_iters`` None takes ``blocked_lml.refine_steps``'s rule.
+
+    Needs the C·stationary(+White) family (``ValueError`` otherwise).
+    Returns :func:`condition_blocked` at the optimum, with the kernel
+    rebuilt as Constant·base + White at the fitted values and the input
+    nodes' bounds."""
+    from ..ops.blocked_lml import blocked_lml_value, blocked_lml_value_and_grad
+
+    parts = stationary_family_params(kernel)
+    if parts is None:
+        raise ValueError(
+            "fit_blocked requires a C*stationary(+White) kernel (RBF or Matern nu in "
+            f"{{0.5, 1.5, 2.5}}); got {type(kernel).__name__}. Use fit for other kernels.")
+    fam, amp0, ls0 = parts
+    const_node, base_node, white_node = _family_nodes(kernel)
+    Xd, Y2 = _filter_nan_rows(X, Y)
+    f32 = dict(dtype=torch.float32, device=X.device)
+    Xd, Y2 = Xd.to(**f32), Y2.to(**f32)
+    D = Xd.shape[1]
+
+    def log_bounds(node):
+        b = node.bounds if node is not None else DEFAULT_BOUNDS
+        return math.log(b[0]), math.log(b[1])
+
+    noise0 = torch.as_tensor(white_noise_level(kernel), **f32)
+    x0 = torch.cat([torch.log(torch.as_tensor(amp0, **f32)).reshape(1),
+                    torch.log(torch.as_tensor(ls0, **f32)).reshape(-1).expand(D),
+                    torch.log(torch.clamp(noise0, min=1e-8)).reshape(1)])[:, None]
+    rows = [log_bounds(const_node)] + [log_bounds(base_node)] * D + [log_bounds(white_node)]
+    lo, hi = torch.tensor(rows, **f32).T[:, :, None]
+    eff_jitter = _eff_jitter(torch.float32, jitter)
+
+    lml_kw = dict(jitter=eff_jitter, block=block, refine_iters=refine_iters)
+
+    def nll_and_grad(x: Tensor):
+        th = x[:, 0]
+        val, (g_amp, g_ls, g_noise) = blocked_lml_value_and_grad(
+            Xd, Y2, fam, th[0], th[1:1 + D], th[1 + D], **lml_kw)
+        v = -val.reshape(1)
+        g = -torch.cat([g_amp.reshape(1), g_ls, g_noise.reshape(1)])[:, None]
+        v = torch.where(torch.isfinite(v), v, torch.full_like(v, 1e25))
+        return v, torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+
+    def nll(x: Tensor):  # the line search's candidates: the value alone
+        th = x[:, 0]
+        v = -blocked_lml_value(Xd, Y2, fam, th[0], th[1:1 + D], th[1 + D], **lml_kw).reshape(1)
+        return torch.where(torch.isfinite(v), v, torch.full_like(v, 1e25))
+
+    x, _ = _lbfgs_elast(nll_and_grad, x0, lo, hi, maxiter, value_b=nll,
+                        max_step=FIT_BLOCKED_MAX_STEP)
+    th = x[:, 0]
+    base_bounds = base_node.bounds if base_node is not None else DEFAULT_BOUNDS
+    ls_fit = torch.exp(th[1:1 + D])
+    base = (Matern(ls_fit, nu=base_node.nu, bounds=base_bounds) if isinstance(base_node, Matern)
+            else RBF(ls_fit, bounds=base_bounds))
+    fitted = Constant(torch.exp(th[0]), bounds=(const_node.bounds if const_node is not None
+                                                else DEFAULT_BOUNDS)) * base + \
+        White(torch.exp(th[1 + D]), bounds=(white_node.bounds if white_node is not None
+                                            else DEFAULT_BOUNDS))
+    return condition_blocked(fitted, Xd, Y2, jitter=jitter, block=block)

@@ -34,7 +34,7 @@ from .pallas_gram import STATIONARY_FAMILIES, stationary_from_sqdist
 __all__ = [
     "BlockedCholesky", "STATIONARY_FAMILIES", "blocked_cholesky", "cholesky_panels",
     "factor_panel", "factor_panel_plain", "gram_cholesky_solve", "panel_offsets", "panel_views",
-    "stationary_from_sqdist", "stationary_gram_panels", "stationary_gram_panels_into",
+    "rbf_gram_panels", "refine_steps", "stationary_from_sqdist", "stationary_gram_panels", "stationary_gram_panels_into",
     "stationary_gram_panels_plain", "symmetric_matvec_panels",
 ]
 
@@ -42,8 +42,12 @@ SUB_BLOCK = 128  # factor_panel's sub-block edge; a panel is a multiple of it
 
 
 def factor_panel_plain(A: Tensor) -> Tuple[Tensor, Tensor]:
-    """(L, L⁻¹) of one SPD block by ``torch.linalg``; any dtype."""
-    L = torch.linalg.cholesky(A)
+    """(L, L⁻¹) of one SPD block by ``torch.linalg``; any dtype.  A block
+    that is not positive definite gives NaN, as the kernel's square root
+    does, not an exception (a fit's trial step may leave the definite
+    region; its value then reads as non-finite)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    L = torch.where(info != 0, torch.full_like(L, float("nan")), L)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
@@ -290,6 +294,13 @@ def stationary_gram_panels(X: Tensor, lengthscale, amplitude, noise, block: int,
                                        family), X.shape[0]
 
 
+def rbf_gram_panels(X: Tensor, lengthscale, amplitude, noise,
+                    block: int) -> Tuple[List[Tensor], int]:
+    """The JAX package's older name: :func:`stationary_gram_panels` of the
+    RBF."""
+    return stationary_gram_panels(X, lengthscale, amplitude, noise, block, "rbf")
+
+
 def stationary_gram_panels_into(buf: Tensor, X: Tensor, lengthscale, amplitude, noise,
                                 block: int, family: str = "rbf") -> List[Tensor]:
     """Writes the panels of :func:`stationary_gram_panels` into the flat
@@ -357,6 +368,15 @@ def symmetric_matvec_panels(panels: Sequence[Tensor], x: Tensor, n: int) -> Tens
 _TWO_REFINE_MIN_PANELS = 32
 
 
+def refine_steps(n_panels: int, refine_iters=None) -> int:
+    """Steps of iterative refinement of α: ``refine_iters``, or for None 1
+    below 32 panels and 2 from 32 up (the JAX package's rule for its solve;
+    its blocked LML takes 1 at any size)."""
+    if refine_iters is not None:
+        return refine_iters
+    return 1 if n_panels < _TWO_REFINE_MIN_PANELS else 2
+
+
 def gram_cholesky_solve(X: Tensor, Y: Tensor, lengthscale, amplitude, noise,
                         block: int = 512, refine_iters=None, family: str = "rbf",
                         group=None) -> Tuple[Tensor, BlockedCholesky]:
@@ -365,12 +385,10 @@ def gram_cholesky_solve(X: Tensor, Y: Tensor, lengthscale, amplitude, noise,
     with the residual from the panels (None: 1 below 32 panels, 2 from 32
     up).  ``group`` is ignored, as in :func:`cholesky_panels`."""
     panels, n = stationary_gram_panels(X, lengthscale, amplitude, noise, block, family)
-    if refine_iters is None:
-        refine_iters = 1 if len(panels) < _TWO_REFINE_MIN_PANELS else 2
     chol = cholesky_panels(panels, n)
     squeeze = Y.dim() == 1
     Y2 = (Y[:, None] if squeeze else Y).to(panels[0].dtype)
     alpha = chol.solve(Y2)
-    for _ in range(refine_iters):
+    for _ in range(refine_steps(len(panels), refine_iters)):
         alpha = alpha + chol.solve(Y2 - symmetric_matvec_panels(panels, alpha, n))
     return (alpha[:, 0] if squeeze else alpha), chol

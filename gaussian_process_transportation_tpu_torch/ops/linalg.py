@@ -6,6 +6,8 @@ package leaves these to XLA's own routines, so the port leaves them to
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import Tensor
 
@@ -14,6 +16,16 @@ def add_diagonal(K: Tensor, value) -> Tensor:
     """K + value · I (out of place)."""
     n = K.shape[-1]
     return K + value * torch.eye(n, dtype=K.dtype, device=K.device)
+
+
+def cholesky_with_jitter(K: Tensor, jitter: float = 0.0) -> Tensor:
+    """Lower Cholesky factor of K (+ jitter·I).  A K that is not positive
+    definite gives NaN (as XLA's factor does, where the optimisation path
+    reads NaN as a likelihood of −∞), not an exception."""
+    if jitter:
+        K = add_diagonal(K, jitter)
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info != 0)[..., None, None], torch.full_like(L, math.nan), L)
 
 
 def tri_solve_lower(L: Tensor, B: Tensor) -> Tensor:

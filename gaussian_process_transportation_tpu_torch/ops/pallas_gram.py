@@ -221,6 +221,11 @@ def stationary_gram(X: Tensor, Z: Tensor, lengthscale, amplitude,
     return stationary_gram_into(out, X, Z, lengthscale, amplitude, family)
 
 
+def rbf_gram(X: Tensor, Z: Tensor, lengthscale, amplitude) -> Tensor:
+    """The JAX package's older name: :func:`stationary_gram` of the RBF."""
+    return stationary_gram(X, Z, lengthscale, amplitude, "rbf")
+
+
 def stationary_gram_into(out: Tensor, X: Tensor, Z: Tensor, lengthscale, amplitude,
                          family: str = "rbf") -> Tensor:
     """:func:`stationary_gram` written into ``out`` (N, M), which may have

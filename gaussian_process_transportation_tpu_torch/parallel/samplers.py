@@ -1,37 +1,49 @@
-"""Hamiltonian Monte Carlo over GP kernel hyperparameters, on one device.
+"""Hamiltonian Monte Carlo and NUTS over GP kernel hyperparameters, on one
+device.
 
 Port of the single-device part of
 ``gaussian_process_transportation_tpu/parallel/samplers.py``:
 
 * ``hmc_batched`` (with ``hmc_batched_warmup`` and
-  ``hmc_batched_sample_range``): all chains in one ensemble-last state
-  (positions (T, E)), leapfrog HMC with per-chain dual-averaging step sizes
-  and a Welford diagonal mass over two warm-up windows.  The caller gives
-  the batched log-density and gradient, so no autograd runs.
+  ``hmc_batched_sample_range``) and ``nuts_batched``: all chains in one
+  ensemble-last state (positions (T, E)), leapfrog HMC or iterative NUTS
+  (doubling, multinomial proposal, no U-turn check inside a subtree) with
+  per-chain dual-averaging step sizes and a Welford diagonal mass over two
+  warm-up windows.  The caller gives the batched log-density and gradient,
+  so no autograd runs.
+* ``hmc`` (``hmc_warmup``, ``hmc_sample_range``) and ``nuts``: one chain
+  over a log-density that ``torch.func`` differentiates, the batched
+  machinery at E = 1.
 * ``sample_gp_posterior``: chains over p(θ | X, Y) ∝ exp(LML) with a soft
-  barrier at the kernel's log-bounds, for the C·stationary(+White) family
-  at n ≤ 32 and p ≤ 8, every leapfrog step one call of the fused LML
-  kernel (``ops.fused_lml.small_lml_value_grad``) on the card, or its
-  plain twin for CPU tensors.
+  barrier at the kernel's log-bounds.  The fused route (the
+  C·stationary(+White) family, n ≤ 32, p ≤ 8, HMC or NUTS) makes every
+  leapfrog step one call of the fused LML kernel
+  (``ops.fused_lml.small_lml_value_grad``) on the card, or its plain twin
+  for CPU tensors; the generic route (any kernel, any n and p) runs the
+  chains batched over ``torch.func.vmap`` of the gradient of
+  ``models.exact_gp.log_marginal_likelihood``.
 * ``split_rhat`` and ``effective_sample_size``.
 
 Randomness is per chain, as in JAX: every draw is a counter-based hash
 (``chain_bits``) of (seed, global chain index, phase, step, slot), phase
 0 and 1 the warm-up windows, 2 sampling and 3 the initial positions;
-momenta come from it by Box–Muller.  So chain e draws the same numbers
-however many chains run beside it (a run of chains [0, k) equals the
-first k chains of a longer run), and a segmented warm-up plus sample
-range equals the monolithic run bit for bit.
+momenta come from it by Box–Muller.  An HMC step takes slots [0, 2T] (T
+normals and the accept uniform); a NUTS step slots [0, 2T) for the
+momentum, then per tree depth the direction and merge uniforms, then one
+selection uniform per leapfrog step (``_nuts_slots``).  So chain e draws
+the same numbers however many chains run beside it (a run of chains
+[0, k) equals the first k chains of a longer run), and a segmented warm-up
+plus sample range equals the monolithic run bit for bit.
 The hash is integer tensor arithmetic below 2⁶³, so a CPU and a CUDA
 tensor give the same integers.  The numbers differ from JAX's keys.
 
-Not ported yet (each raises ``NotImplementedError``; ``ROADMAP.md``, queue
-1): single-chain ``hmc`` and ``nuts``, ``nuts_batched``, the generic
-(autograd) path of ``sample_gp_posterior`` and its ``mesh=`` sharding.
+Not ported yet: the ``mesh=`` sharding of ``sample_gp_posterior``
+(raises ``NotImplementedError``; ``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import math
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,8 +55,16 @@ State = Tuple[Tensor, Tensor, Tensor]  # positions (T, E), log-density (E,), gra
 _WARMUP_1, _WARMUP_2, _SAMPLING, _INIT = 0, 1, 2, 3
 _ROADMAP = "not ported yet: see ROADMAP.md, queue 1"
 # sample_gp_posterior's fused route takes p ≤ 8 output columns, as JAX's
-# route does; wider Y goes to the generic path (not ported yet).
+# route does; wider Y goes to the generic route.
 FUSED_ROUTE_MAX_P = 8
+
+
+class HMCState(NamedTuple):
+    """One chain's state: position (T,), log-density (), gradient (T,)."""
+
+    position: Tensor
+    log_prob: Tensor
+    grad: Tensor
 
 
 _MASK32 = 0xFFFFFFFF
@@ -112,6 +132,30 @@ def _step_draws(keys: Tensor, phase: int, steps: range, rows: int, dtype):
             yield _box_muller(bits, rows, dtype)
 
 
+def _nuts_slots(rows: int, max_depth: int) -> Dict[str, int]:
+    """Where a NUTS step's draws lie among its slots: the momentum's normals
+    from [0, 2·rows), the direction uniform of depth d at ``dir`` + d, its
+    merge uniform at ``merge`` + d, and the selection uniform of leapfrog
+    step i of depth d at ``select`` + 2^d − 1 + i; ``total`` slots in all."""
+    base = 2 * rows
+    return dict(dir=base, merge=base + max_depth, select=base + 2 * max_depth,
+                total=base + 2 * max_depth + 2**max_depth - 1)
+
+
+def _nuts_draws(keys: Tensor, phase: int, steps: range, rows: int, max_depth: int, dtype):
+    """One NUTS transition's draws for each step in ``steps``, in order:
+    (momentum normals (rows, E), direction uniforms (max_depth, E), merge
+    uniforms (max_depth, E), selection uniforms (2^max_depth − 1, E)), laid
+    out by ``_nuts_slots``; hashed a few steps at once, as ``_step_draws``."""
+    at = _nuts_slots(rows, max_depth)
+    chunk = max(1, _DRAW_CHUNK * (2 * rows + 1) // at["total"])
+    for c0 in range(0, len(steps), chunk):
+        for bits in chain_bits(keys, phase, steps[c0:c0 + chunk], at["total"]):
+            z, _ = _box_muller(bits[:2 * rows + 1], rows, dtype)
+            u = bits[2 * rows:].to(dtype) * (2.0 ** -24)
+            yield (z, u[:max_depth], u[max_depth:2 * max_depth], u[2 * max_depth:])
+
+
 def _dual_averaging_init(step_size0: Tensor) -> Dict[str, Tensor]:
     log_step = torch.log(step_size0)
     return dict(log_step=log_step, log_step_avg=log_step, h_avg=torch.zeros_like(log_step),
@@ -167,10 +211,11 @@ def _batched_machinery(lp_and_grad_batched: LpAndGrad, num_leapfrog: int):
     return one_step
 
 
-def _batched_adaptation(one_step, keys: Tensor, state0: State, num_warmup: int,
+def _batched_adaptation(one_step, draws, state0: State, num_warmup: int,
                         initial_step_size: float, target_accept: float):
-    """The two-window dual-averaging and Welford adaptation; returns
-    (state, step (E,), inv_mass (T, E))."""
+    """The two-window dual-averaging and Welford adaptation, generic over
+    the transition ``one_step(state, draws, step, inv_mass)`` and its draws
+    ``draws(phase, steps)``; returns (state, step (E,), inv_mass (T, E))."""
     q0 = state0[0]
     T, E = q0.shape
     state = state0
@@ -180,8 +225,8 @@ def _batched_adaptation(one_step, keys: Tensor, state0: State, num_warmup: int,
     half = num_warmup // 2
     for phase, steps in ((_WARMUP_1, half), (_WARMUP_2, num_warmup - half)):
         mean, m2, count = torch.zeros_like(q0), torch.zeros_like(q0), 0.0
-        for draws in _step_draws(keys, phase, range(steps), T, q0.dtype):
-            state, accept_prob = one_step(state, draws, torch.exp(da["log_step"]), inv_mass)
+        for d in draws(phase, range(steps)):
+            state, accept_prob = one_step(state, d, torch.exp(da["log_step"]), inv_mass)
             da = _dual_averaging_update(da, accept_prob, target=target_accept)
             count += 1.0
             delta = state[0] - mean
@@ -207,11 +252,13 @@ def hmc_batched_warmup(
     """The adaptation phase of :func:`hmc_batched` alone: returns
     (state (q, lp, g), step (E,), inv_mass (T, E)), exactly what
     :func:`hmc_batched` holds when sampling starts."""
-    keys = _keys_of(seed, init_positions.shape[1], init_positions.device, chain_ids)
+    T, E = init_positions.shape
+    keys = _keys_of(seed, E, init_positions.device, chain_ids)
     lp0, g0 = lp_and_grad_batched(init_positions)
-    return _batched_adaptation(_batched_machinery(lp_and_grad_batched, num_leapfrog), keys,
-                               (init_positions, lp0, g0), num_warmup, initial_step_size,
-                               target_accept)
+    return _batched_adaptation(
+        _batched_machinery(lp_and_grad_batched, num_leapfrog),
+        lambda phase, steps: _step_draws(keys, phase, steps, T, init_positions.dtype),
+        (init_positions, lp0, g0), num_warmup, initial_step_size, target_accept)
 
 
 def hmc_batched_sample_range(
@@ -272,19 +319,234 @@ def hmc_batched(
     return samples, dict(step_size=step, inv_mass=inv_mass.T, mean_accept=accepts.mean(0))
 
 
-def hmc(*args, **kwargs):
-    """Single-chain HMC over an autograd log-density."""
-    raise NotImplementedError(f"hmc (one chain) is {_ROADMAP}")
+def _nuts_batched_machinery(lp_and_grad_batched: LpAndGrad, max_depth: int):
+    """``one_step(state, draws, step, inv_mass)``: one NUTS transition of
+    every chain with the draws of ``_nuts_draws``; returns (state,
+    accept statistic (E,), tree depth (E,)).
+
+    The JAX tree policy: iterative doubling to ``max_depth``, a multinomial
+    proposal across each subtree and between subtree and tree, the U-turn
+    check between the tree's ends after each doubling, no check inside a
+    subtree.  Every leapfrog step is one call of ``lp_and_grad_batched`` for
+    all chains.  A round runs while any chain is still building (one host
+    read a round); finished chains compute and keep nothing (``where``)."""
+
+    def one_step(state: State, draws, step: Tensor, inv_mass: Tensor):
+        q0, lp0, g0 = state
+        z, u_dir, u_merge, u_sel = draws
+        E = q0.shape[1]
+        p0 = z / torch.sqrt(inv_mass)
+        H0 = -lp0 + 0.5 * (p0 * p0 * inv_mass).sum(0)
+        zeros = torch.zeros_like(lp0)
+        no = torch.zeros(E, dtype=torch.bool, device=q0.device)
+        t = dict(q_l=q0, p_l=p0, g_l=g0, q_r=q0, p_r=p0, g_r=g0, q_prop=q0, lp_prop=lp0,
+                 g_prop=g0, log_w=-H0, turning=no, diverged=no, sum_accept=zeros,
+                 n_leap=zeros, depth=zeros)
+        for depth in range(max_depth):
+            active = ~t["turning"] & ~t["diverged"]
+            if not bool(active.any()):  # every chain's tree is done: no round runs
+                break
+            go_right = u_dir[depth] < 0.5
+            eps = torch.where(go_right, step, -step)[None, :]
+            right = go_right[None, :]
+            q = torch.where(right, t["q_r"], t["q_l"])
+            p = torch.where(right, t["p_r"], t["p_l"])
+            g = torch.where(right, t["g_r"], t["g_l"])
+            log_w_sub = torch.full_like(lp0, -math.inf)
+            q_p, lp_p, g_p = t["q_prop"], t["lp_prop"], t["g_prop"]
+            sum_a, div = zeros, no
+            for i in range(2**depth):
+                p_half = p + 0.5 * eps * g
+                q = q + eps * inv_mass * p_half
+                lp, g = lp_and_grad_batched(q)
+                p = p_half + 0.5 * eps * g
+                dH = H0 - (-lp + 0.5 * (p * p * inv_mass).sum(0))
+                div = div | (dH < -1000.0)
+                log_w_new = torch.logaddexp(log_w_sub, dH)
+                take = torch.log(u_sel[2**depth - 1 + i]) < dH - log_w_new
+                log_w_sub = log_w_new
+                q_p = torch.where(take[None, :], q, q_p)
+                lp_p = torch.where(take, lp, lp_p)
+                g_p = torch.where(take[None, :], g, g_p)
+                sum_a = sum_a + torch.clamp(torch.exp(dH), max=1.0)
+            log_w_tot = torch.logaddexp(t["log_w"], log_w_sub)
+            sel = active & (torch.log(u_merge[depth]) < log_w_sub - log_w_tot)
+            upd_r = (active & go_right)[None, :]
+            upd_l = (active & ~go_right)[None, :]
+            ends = {}
+            for side, upd in (("l", upd_l), ("r", upd_r)):
+                for name, new in (("q", q), ("p", p), ("g", g)):
+                    ends[f"{name}_{side}"] = torch.where(upd, new, t[f"{name}_{side}"])
+            dq = ends["q_r"] - ends["q_l"]
+            turn = ((dq * inv_mass * ends["p_l"]).sum(0) < 0) | \
+                ((dq * inv_mass * ends["p_r"]).sum(0) < 0)
+            t = dict(**ends,
+                     q_prop=torch.where(sel[None, :], q_p, t["q_prop"]),
+                     lp_prop=torch.where(sel, lp_p, t["lp_prop"]),
+                     g_prop=torch.where(sel[None, :], g_p, t["g_prop"]),
+                     log_w=torch.where(active, log_w_tot, t["log_w"]),
+                     turning=torch.where(active, turn, t["turning"]),
+                     diverged=torch.where(active, t["diverged"] | div, t["diverged"]),
+                     sum_accept=t["sum_accept"] + torch.where(active, sum_a, zeros),
+                     n_leap=t["n_leap"] + torch.where(active, zeros + 2**depth, zeros),
+                     depth=t["depth"] + active.to(lp0.dtype))
+        accept_stat = t["sum_accept"] / torch.clamp(t["n_leap"], min=1.0)
+        return (t["q_prop"], t["lp_prop"], t["g_prop"]), accept_stat, t["depth"]
+
+    return one_step
 
 
-def nuts(*args, **kwargs):
-    """Single-chain NUTS over an autograd log-density."""
-    raise NotImplementedError(f"nuts is {_ROADMAP}")
+def nuts_batched(
+    lp_and_grad_batched: LpAndGrad,
+    init_positions: Tensor,
+    seed: int = 0,
+    num_warmup: int = 500,
+    num_samples: int = 500,
+    max_depth: int = 8,
+    initial_step_size: float = 0.1,
+    target_accept: float = 0.8,
+    chain_ids: Optional[Tensor] = None,
+) -> Tuple[Tensor, dict]:
+    """All chains of an ensemble-last state in one loop of NUTS transitions:
+    :func:`hmc_batched`'s contract (``lp_and_grad_batched(q (T, E)) ->
+    (lp (E,), grad (T, E))``, finite-guarded by the caller; per-chain
+    draws keyed by ``chain_ids``; the same two-window adaptation), the tree
+    of JAX's ``nuts_batched``.  Returns (samples (E, S, T), info with
+    ``step_size`` (E,), ``inv_mass`` (E, T), ``mean_accept`` (E,) and
+    ``mean_tree_depth`` (E,) over the sampling steps)."""
+    T, E = init_positions.shape
+    dtype = init_positions.dtype
+    keys = _keys_of(seed, E, init_positions.device, chain_ids)
+    one_step = _nuts_batched_machinery(lp_and_grad_batched, max_depth)
+    lp0, g0 = lp_and_grad_batched(init_positions)
+    state, step, inv_mass = _batched_adaptation(
+        lambda st, d, stp, im: one_step(st, d, stp, im)[:2],
+        lambda phase, steps: _nuts_draws(keys, phase, steps, T, max_depth, dtype),
+        (init_positions, lp0, g0), num_warmup, initial_step_size, target_accept)
+    samples, accepts, depths = [], [], []
+    for d in _nuts_draws(keys, _SAMPLING, range(num_samples), T, max_depth, dtype):
+        state, a, depth = one_step(state, d, step, inv_mass)
+        samples.append(state[0])
+        accepts.append(a)
+        depths.append(depth)
+    q = state[0]
+    samples = torch.stack(samples, 0) if samples else q.new_zeros((0,) + q.shape)
+    accepts = torch.stack(accepts, 0) if accepts else q.new_zeros((0, E))
+    depths = torch.stack(depths, 0) if depths else q.new_zeros((0, E))
+    return samples.permute(2, 0, 1), dict(step_size=step, inv_mass=inv_mass.T,
+                                          mean_accept=accepts.mean(0),
+                                          mean_tree_depth=depths.mean(0))
 
 
-def nuts_batched(*args, **kwargs):
-    """Ensemble-last batched NUTS."""
-    raise NotImplementedError(f"nuts_batched is {_ROADMAP}")
+# ---- one chain over an autograd log-density --------------------------------
+
+def vmapped_lp_and_grad(logprob_fn: Callable[[Tensor], Tensor]) -> LpAndGrad:
+    """The batched value and gradient (T, E) of a log-density of one (T,)
+    position, every chain in one ``torch.func.vmap`` of its gradient; a
+    non-finite value reads −1e10 and a non-finite gradient entry 0 (JAX's
+    guard)."""
+    from torch.func import grad_and_value, vmap
+
+    vg = vmap(grad_and_value(logprob_fn))
+
+    def lp_and_grad(q: Tensor) -> Tuple[Tensor, Tensor]:
+        g, lp = vg(q.T)
+        lp = torch.where(torch.isfinite(lp), lp, torch.full_like(lp, -1e10))
+        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+        return lp, g.T
+
+    return lp_and_grad
+
+
+def _chain_id(chain_id: int, device) -> Tensor:
+    return torch.tensor([chain_id], device=device)
+
+
+def hmc_warmup(
+    logprob_fn: Callable[[Tensor], Tensor],
+    init_position: Tensor,
+    seed: int = 0,
+    num_warmup: int = 500,
+    num_leapfrog: int = 16,
+    initial_step_size: float = 0.1,
+    target_accept: float = 0.8,
+    chain_id: int = 0,
+) -> Tuple[HMCState, Tensor, Tensor]:
+    """The adaptation phase of :func:`hmc` alone: (state, step size (),
+    inv_mass (T,)), exactly what :func:`hmc` holds when sampling starts."""
+    (q, lp, g), step, inv_mass = hmc_batched_warmup(
+        vmapped_lp_and_grad(logprob_fn), init_position[:, None], seed, num_warmup, num_leapfrog,
+        initial_step_size, target_accept, _chain_id(chain_id, init_position.device))
+    return HMCState(q[:, 0], lp[0], g[:, 0]), step[0], inv_mass[:, 0]
+
+
+def hmc_sample_range(
+    logprob_fn: Callable[[Tensor], Tensor],
+    state: HMCState,
+    seed: int,
+    num_samples_total: int,
+    start: int,
+    stop: int,
+    step_size: Tensor,
+    inv_mass: Tensor,
+    num_leapfrog: int = 16,
+    chain_id: int = 0,
+) -> Tuple[HMCState, Tensor, Tensor]:
+    """Samples [start, stop) of the stream :func:`hmc` draws with
+    ``num_samples=num_samples_total`` (the hash keys a step by its index, so
+    the total only bounds the range).  Returns (state, samples (stop −
+    start, T), accept_probs (stop − start,))."""
+    if not 0 <= start <= stop <= num_samples_total:
+        raise ValueError(f"need 0 <= start <= stop <= {num_samples_total}, got {start}, {stop}")
+    batched = (state.position[:, None], state.log_prob.reshape(1), state.grad[:, None])
+    (q, lp, g), samples, accepts = hmc_batched_sample_range(
+        vmapped_lp_and_grad(logprob_fn), batched, seed, start, stop, step_size.reshape(1),
+        inv_mass[:, None], num_leapfrog, _chain_id(chain_id, state.position.device))
+    return HMCState(q[:, 0], lp[0], g[:, 0]), samples[0], accepts[:, 0]
+
+
+def hmc(
+    logprob_fn: Callable[[Tensor], Tensor],
+    init_position: Tensor,
+    seed: int = 0,
+    num_warmup: int = 500,
+    num_samples: int = 500,
+    num_leapfrog: int = 16,
+    initial_step_size: float = 0.1,
+    target_accept: float = 0.8,
+    chain_id: int = 0,
+) -> Tuple[Tensor, dict]:
+    """Single-chain HMC over a log-density ``logprob_fn((T,)) -> ()`` that
+    ``torch.func`` differentiates: :func:`hmc_batched` at one chain, whose
+    draws are those of chain ``chain_id`` in a batched run.  Returns
+    (samples (num_samples, T), info with ``step_size`` (), ``inv_mass``
+    (T,) and ``mean_accept`` ())."""
+    state, step, inv_mass = hmc_warmup(logprob_fn, init_position, seed, num_warmup,
+                                       num_leapfrog, initial_step_size, target_accept, chain_id)
+    _, samples, accepts = hmc_sample_range(logprob_fn, state, seed, num_samples, 0, num_samples,
+                                           step, inv_mass, num_leapfrog, chain_id)
+    return samples, dict(step_size=step, inv_mass=inv_mass, mean_accept=accepts.mean())
+
+
+def nuts(
+    logprob_fn: Callable[[Tensor], Tensor],
+    init_position: Tensor,
+    seed: int = 0,
+    num_warmup: int = 500,
+    num_samples: int = 500,
+    max_depth: int = 8,
+    initial_step_size: float = 0.1,
+    target_accept: float = 0.8,
+    chain_id: int = 0,
+) -> Tuple[Tensor, dict]:
+    """Single-chain NUTS over a log-density that ``torch.func``
+    differentiates: :func:`nuts_batched` at one chain.  Returns (samples
+    (num_samples, T), info with ``step_size`` (), ``inv_mass`` (T,),
+    ``mean_accept`` () and ``mean_tree_depth`` ())."""
+    samples, info = nuts_batched(vmapped_lp_and_grad(logprob_fn), init_position[:, None], seed,
+                                 num_warmup, num_samples, max_depth, initial_step_size,
+                                 target_accept, _chain_id(chain_id, init_position.device))
+    return samples[0], {k: v[0] for k, v in info.items()}
 
 
 def split_rhat(chains: Tensor) -> Tensor:
@@ -347,6 +609,27 @@ def fused_lp_and_grad(X: Tensor, Y2: Tensor, lo_c: Tensor, hi_c: Tensor, family:
     return lp_and_grad
 
 
+def _barrier(theta: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """100·Σ softplus barrier at the log-bounds (the JAX sampler's)."""
+    return 100.0 * (torch.nn.functional.softplus(-(theta - lo) * 20.0)
+                    + torch.nn.functional.softplus((theta - hi) * 20.0)).sum(-1)
+
+
+def generic_lp_and_grad(kernel, X: Tensor, Y: Tensor, lo: Tensor, hi: Tensor,
+                        jitter: float) -> LpAndGrad:
+    """The hyperposterior's batched log-density and gradient for any kernel:
+    LML − the softplus barrier at the log-bounds (lo, hi (n_theta,)), in
+    ``kernel.theta`` order, every chain at once (:func:`vmapped_lp_and_grad`
+    of ``models.exact_gp.log_marginal_likelihood``)."""
+    from ..models.exact_gp import log_marginal_likelihood
+
+    def logprob(theta: Tensor) -> Tensor:
+        return log_marginal_likelihood(kernel.with_theta(theta), X, Y, jitter) - \
+            _barrier(theta, lo, hi)
+
+    return vmapped_lp_and_grad(logprob)
+
+
 def sample_gp_posterior(
     kernel,
     X: Tensor,
@@ -358,6 +641,7 @@ def sample_gp_posterior(
     algorithm: str = "hmc",
     mesh=None,
     jitter: float = 1e-10,
+    fused: Optional[bool] = None,
     use_kernel: Optional[bool] = None,
     chain_ids: Optional[Tensor] = None,
     **kw,
@@ -365,45 +649,63 @@ def sample_gp_posterior(
     """Sample p(θ | X, Y) ∝ exp(LML) with a flat prior inside the kernel's
     log-bounds (a soft barrier at their edges).  Returns (samples (C, S,
     n_theta) in ``kernel.theta`` order, diagnostics with ``rhat``, ``ess``
-    and ``mean_accept``).
+    and ``mean_accept``, and for NUTS ``mean_tree_depth``).
 
-    The route ported here is the fused one: ``algorithm="hmc"``, a
-    C·stationary(+White) kernel, n ≤ 32 and p ≤ 8.  All chains run
-    ensemble-last through :func:`hmc_batched`, started uniformly in the
-    central half of the box, in float32 on X's device; every leapfrog step
-    is one launch of the fused LML kernel for CUDA tensors (``use_kernel``
-    False forces its twin) and the twin for CPU ones.  ``kw`` goes to
-    :func:`hmc_batched` (``num_leapfrog``, ``initial_step_size``,
-    ``target_accept``).  ``chain_ids`` (num_chains,) are the chains'
-    global indices (default 0 … num_chains−1): chain e's initial position
-    and draws depend on its index alone."""
+    ``algorithm`` is "hmc" (:func:`hmc_batched`) or "nuts"
+    (:func:`nuts_batched`); the chains start uniformly in the central half
+    of the box and run ensemble-last.  Two routes, as in JAX:
+
+    * fused, for a C·stationary(+White) kernel, n ≤ 32 and p ≤ 8: float32
+      on X's device, every leapfrog step one launch of the fused LML
+      kernel for CUDA tensors (``use_kernel`` False forces its twin) and
+      the twin for CPU ones;
+    * generic, for everything else (or ``fused=False``): any kernel, in
+      X's dtype, every leapfrog step one batched evaluation of
+      :func:`generic_lp_and_grad` for all chains.
+
+    ``kw`` goes to the sampler (``num_leapfrog`` for HMC, ``max_depth`` for
+    NUTS, ``initial_step_size``, ``target_accept``).  ``chain_ids``
+    (num_chains,) are the chains' global indices (default 0 …
+    num_chains−1): chain e's initial position and draws depend on its index
+    alone."""
     from ..models.exact_gp import small_lml_theta_layout
     from ..ops import fused_lml
 
     if mesh is not None:
         raise NotImplementedError(f"sample_gp_posterior(mesh=...) is {_ROADMAP}")
-    if algorithm != "hmc":
-        raise NotImplementedError(f"sample_gp_posterior(algorithm={algorithm!r}) is {_ROADMAP}")
+    if algorithm not in ("hmc", "nuts"):
+        raise ValueError(f"algorithm must be 'hmc' or 'nuts', got {algorithm!r}")
+    sampler = hmc_batched if algorithm == "hmc" else nuts_batched
     Y2 = Y[:, None] if Y.dim() == 1 else Y
     layout = small_lml_theta_layout(kernel)
-    if layout is None or X.shape[0] > fused_lml.MAX_N or Y2.shape[1] > FUSED_ROUTE_MAX_P:
-        raise NotImplementedError(
-            f"sample_gp_posterior's generic path (no fused C·stationary(+White) route) is {_ROADMAP}")
-    family, n_ls, has_noise, perm_np = layout
+    use_fused = (layout is not None and X.shape[0] <= fused_lml.MAX_N
+                 and Y2.shape[1] <= FUSED_ROUTE_MAX_P)
+    if fused is not None:
+        use_fused = bool(fused) and use_fused
     device = X.device
-    f32 = dict(dtype=torch.float32, device=device)
-    perm = torch.as_tensor(perm_np, device=device)
-    bounds = kernel.theta_bounds.to(**f32)
+    dtype = torch.float32 if use_fused else X.dtype
+    bounds = kernel.theta_bounds.to(dtype=dtype, device=device)
     lo, hi = bounds[:, 0], bounds[:, 1]
     keys = _keys_of(seed, num_chains, device, chain_ids)
-    u = chain_uniforms(keys, _INIT, 0, lo.shape[0], torch.float32).T  # (num_chains, n_theta)
+    u = chain_uniforms(keys, _INIT, 0, lo.shape[0], dtype).T  # (num_chains, n_theta)
     inits = lo + u * (hi - lo) * 0.5 + 0.25 * (hi - lo)  # the central half of the box
-    lp_and_grad = fused_lp_and_grad(
-        X.to(torch.float32).contiguous(), Y2.to(torch.float32).contiguous(),
-        lo[perm][:, None], hi[perm][:, None], family, n_ls, has_noise, jitter, use_kernel)
-    samples_c, info = hmc_batched(lp_and_grad, inits[:, perm].T.contiguous(), seed=seed,
+    if use_fused:
+        family, n_ls, has_noise, perm_np = layout
+        perm = torch.as_tensor(perm_np, device=device)
+        lp_and_grad = fused_lp_and_grad(
+            X.to(torch.float32).contiguous(), Y2.to(torch.float32).contiguous(),
+            lo[perm][:, None], hi[perm][:, None], family, n_ls, has_noise, jitter, use_kernel)
+        samples_c, info = sampler(lp_and_grad, inits[:, perm].T.contiguous(), seed=seed,
                                   num_warmup=num_warmup, num_samples=num_samples,
                                   chain_ids=chain_ids, **kw)
-    samples = samples_c[:, :, torch.as_tensor(np.argsort(perm_np), device=device)]
-    return samples, dict(rhat=split_rhat(samples), ess=effective_sample_size(samples),
-                         mean_accept=info["mean_accept"])
+        samples = samples_c[:, :, torch.as_tensor(np.argsort(perm_np), device=device)]
+    else:
+        lp_and_grad = generic_lp_and_grad(kernel, X, Y2.to(X.dtype), lo, hi, jitter)
+        samples, info = sampler(lp_and_grad, inits.T.contiguous(), seed=seed,
+                                num_warmup=num_warmup, num_samples=num_samples,
+                                chain_ids=chain_ids, **kw)
+    diags = dict(rhat=split_rhat(samples), ess=effective_sample_size(samples),
+                 mean_accept=info["mean_accept"])
+    if "mean_tree_depth" in info:
+        diags["mean_tree_depth"] = info["mean_tree_depth"]
+    return samples, diags

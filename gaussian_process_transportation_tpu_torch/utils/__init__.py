@@ -1,0 +1,3 @@
+from .resample import resample
+
+__all__ = ["resample"]

@@ -656,3 +656,45 @@ def test_sample_gp_posterior_launches_the_fused_lml_each_leapfrog(device, monkey
     torch.cuda.synchronize()
     assert tfl.small_lml_value_grad.launches == 1 + 8 * 3
     assert s.shape == (8, 4, 4) and torch.isfinite(s).all()
+
+
+def test_nuts_chains_do_not_depend_on_the_number_of_chains(device, monkeypatch):
+    """The NUTS route on the card: 8 chains alone equal the first 8 of 32
+    bit for bit, every leapfrog step one launch of kernel #2."""
+    _reset_lml_counts(monkeypatch)
+    X, Y = (torch.as_tensor(a, device=device) for a in chip_smoke.hmc_inputs())
+    kern = K.Constant(1.0) * K.RBF(torch.ones(2, device=device)) + K.White(0.01)
+    kw = dict(seed=2, num_warmup=6, num_samples=6, algorithm="nuts", max_depth=5)
+    s32, d32 = tsm.sample_gp_posterior(kern, X, Y, num_chains=32, **kw)
+    launches = tfl.small_lml_value_grad.launches
+    s8, _ = tsm.sample_gp_posterior(kern, X, Y, num_chains=8, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(s8, s32[:8]) and torch.isfinite(s32).all()
+    assert launches > 1 + 12 and d32["mean_tree_depth"].shape == (32,)
+
+
+@pytest.mark.parametrize("family", ["rbf", "matern32"])
+def test_blocked_lml_matches_its_cpu_twin(device, family, monkeypatch):
+    """The blocked LML at n = 1000 (eight panels of 128, the last padded) on
+    the card, one Gram launch and eight factor_panel calls, against the same
+    float32 computation on the CPU: the value to 2e-6 of its magnitude plus
+    the N·P terms, each gradient entry to 1e-3 of the largest."""
+    from gaussian_process_transportation_tpu_torch.ops import blocked_lml as tbll
+
+    monkeypatch.setattr(tbc.factor_panel, "launches", 0)
+    monkeypatch.setattr(tbc.stationary_gram_panels, "launches", 0)
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((1000, 3)).astype(np.float32)
+    Y = (np.sin(X[:, :2]) + 0.1 * rng.standard_normal((1000, 2))).astype(np.float32)
+    args = (family, 0.3, torch.tensor([0.1, -0.2, 0.4]), -3.0)
+    v_c, g_c = tbll.blocked_lml_value_and_grad(torch.as_tensor(X), torch.as_tensor(Y), *args,
+                                               block=128)
+    v_d, g_d = tbll.blocked_lml_value_and_grad(torch.as_tensor(X, device=device),
+                                               torch.as_tensor(Y, device=device), *args,
+                                               block=128)
+    torch.cuda.synchronize()
+    assert tbc.stationary_gram_panels.launches == 1 and tbc.factor_panel.launches == 8
+    assert abs(v_d.item() - v_c.item()) <= 2e-6 * (abs(v_c.item()) + 2000)
+    got = torch.cat([g_d[0].reshape(1), g_d[1], g_d[2].reshape(1)]).cpu()
+    want = torch.cat([g_c[0].reshape(1), g_c[1], g_c[2].reshape(1)])
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()

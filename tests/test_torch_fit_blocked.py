@@ -1,0 +1,109 @@
+"""Port parity: the large-N hyperparameter fit ``exact_gp.fit_blocked``
+against the JAX package's (optax L-BFGS over its blocked LML, Pallas
+``factor_panel`` in interpret mode) and against the port's dense scipy
+fit, the fitted LML read in float64 by the dense formula."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gaussian_process_transportation_tpu import kernels as JK
+from gaussian_process_transportation_tpu.models import exact_gp as jgp
+from gaussian_process_transportation_tpu_torch import kernels as TK
+from gaussian_process_transportation_tpu_torch.convert import kernel_from_tree
+from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
+
+N, D, B, MAXITER = 200, 2, 128, 20  # two panels, the last one padded
+
+
+def _case():
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((N, D)).astype(np.float32)
+    Y = (np.sin(X[:, :1]) + 0.1 * rng.standard_normal((N, 1))).astype(np.float32)
+    jk = (JK.Constant(1.0, bounds=(1e-2, 1e2)) * JK.RBF(jnp.ones(D), bounds=(1e-1, 1e1))
+          + JK.White(0.1, bounds=(1e-4, 1.0)))
+    return X, Y, jk
+
+
+def _lml64(kernel, X, Y):
+    """A port kernel's LML by the dense formula in float64."""
+    return tgp.log_marginal_likelihood(
+        kernel.with_theta(kernel.theta.double().cpu()), torch.as_tensor(X, dtype=torch.float64),
+        torch.as_tensor(Y, dtype=torch.float64)).item()
+
+
+@pytest.fixture(scope="module")
+def fits():
+    X, Y, jk = _case()
+    tk = kernel_from_tree(jk, torch.float32, "cpu")
+    port = tgp.fit_blocked(tk, torch.as_tensor(X), torch.as_tensor(Y), maxiter=MAXITER, block=B)
+    ref = jgp.fit_blocked(jk, jnp.asarray(X), jnp.asarray(Y), maxiter=MAXITER, block=B,
+                          interpret=True)
+    dense = tgp.fit(kernel_from_tree(jk, torch.float64, "cpu"),
+                    torch.as_tensor(X, dtype=torch.float64),
+                    torch.as_tensor(Y, dtype=torch.float64), n_restarts=0)
+    return dict(start=_lml64(tk, X, Y), port=_lml64(port.kernel, X, Y),
+                jax=_lml64(kernel_from_tree(ref.kernel, device="cpu"), X, Y),
+                dense=_lml64(dense.kernel, X, Y), gp=port)
+
+
+def test_fit_blocked_raises_the_lml(fits):
+    """The L-BFGS keeps only steps that lower −LML: the fitted LML is at
+    least the start's (here by hundreds)."""
+    assert fits["port"] >= fits["start"] + 100.0
+
+
+@pytest.mark.parametrize("other", ["jax", "dense"])
+def test_fit_blocked_reaches_the_optimum_of_the_other_fits(fits, other):
+    """Three optimizers (the port's projected L-BFGS in float32, JAX's optax
+    L-BFGS in float32, scipy's L-BFGS-B in float64) from the same start,
+    read by the same f64 formula: within 1e-3 of the LML's magnitude."""
+    assert abs(fits["port"] - fits[other]) <= 1e-3 * abs(fits[other]), fits
+
+
+def test_fit_blocked_returns_the_canonical_kernel_conditioned_blocked(fits):
+    """C·stationary + White rebuilt with the input nodes' bounds, every ℓ
+    inside its bounds, conditioned through the blocked Cholesky."""
+    gp = fits["gp"]
+    assert gp.chol is not None and gp.L is None and gp.alpha.shape == (N, 1)
+    k = gp.kernel
+    assert isinstance(k, TK.Sum) and isinstance(k.k1, TK.Product) and isinstance(k.k2, TK.White)
+    assert k.k1.k1.bounds == (1e-2, 1e2) and k.k1.k2.bounds == (1e-1, 1e1)
+    assert k.k2.bounds == (1e-4, 1.0)
+    ls = torch.as_tensor(k.k1.k2.lengthscale)
+    assert ls.shape == (D,) and bool(((ls >= 1e-1 * (1 - 1e-6)) & (ls <= 1e1 * (1 + 1e-6))).all())
+
+
+def test_fit_blocked_refuses_kernels_outside_the_family():
+    X = torch.zeros(10, 2)
+    with pytest.raises(ValueError, match="C\\*stationary"):
+        tgp.fit_blocked(TK.RBF(1.0) + TK.RBF(2.0), X, X[:, :1])
+
+
+def test_fit_blocked_matern_fit_raises_the_lml():
+    """A Matérn 5/2 fit with an isotropic ℓ (broadcast to one ℓ per axis)
+    from a poor start, with NaN-target rows dropped first."""
+    X, Y, _ = _case()
+    Y = Y.copy()
+    Y[::50] = np.nan
+    keep = ~np.isnan(Y[:, 0])
+    tk = TK.Constant(0.3) * TK.Matern(torch.tensor(3.0), nu=2.5) + TK.White(0.5)
+    gp = tgp.fit_blocked(tk, torch.as_tensor(X), torch.as_tensor(Y), maxiter=8, block=B)
+    assert gp.X.shape == (int(keep.sum()), D)
+    assert torch.as_tensor(gp.kernel.k1.k2.lengthscale).shape == (D,)
+    start = _lml64(tk, X[keep], Y[keep])
+    assert _lml64(gp.kernel, X[keep], Y[keep]) > start + 10.0
+
+
+def test_fit_blocked_moves_from_the_large_n_start():
+    """scripts/bench_blocked_lml.py's data and start at N = 1000: the
+    gradient runs to hundreds, and a steepest-descent first step of −g
+    would leave the definite region in every candidate; steps of at most
+    ``FIT_BLOCKED_MAX_STEP`` in each log hyperparameter raise the LML by
+    hundreds in ten iterations."""
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((1000, 3)).astype(np.float32)
+    Y = (np.sin(2.0 * X[:, :1]) + 0.1 * rng.standard_normal((1000, 1))).astype(np.float32)
+    tk = TK.Constant(2.0) * TK.RBF(torch.ones(3)) + TK.White(0.1)
+    gp = tgp.fit_blocked(tk, torch.as_tensor(X), torch.as_tensor(Y), maxiter=10, block=B)
+    assert _lml64(gp.kernel, X, Y) > _lml64(tk, X, Y) + 100.0

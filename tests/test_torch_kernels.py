@@ -2,6 +2,7 @@
 kernels``) against the JAX kernels on the same numpy inputs, in float64."""
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,9 +89,91 @@ def test_float32_inputs_stay_float32():
 
 
 def test_product_of_two_stationary_kernels_has_no_dxdz_diag_yet():
-    k = TK.RBF(1.0) * TK.Matern(1.0, nu=2.5)
-    with pytest.raises(NotImplementedError):
-        k.dxdz_diag(_t(X))
+    """The product of two non-constant kernels now has a dxdz_diag: the
+    product rule on the factors' closed forms (the first derivatives vanish
+    at a = b).  For RBF·RBF it is 1/ℓ₁² + 1/ℓ₂² and equals JAX's autodiff
+    form; for RBF·Matérn 5/2, the case that used to raise, it is
+    1/ℓ₁² + (5/3)/ℓ₂²."""
+    k = TK.RBF(1.3) * TK.RBF(_t(LS))
+    want = torch.ones(7, 2, dtype=torch.float64) * (1 / 1.3**2 + 1 / _t(LS) ** 2)
+    torch.testing.assert_close(k.dxdz_diag(_t(X)), want, rtol=TOL, atol=TOL)
+    jk = JK.RBF(1.3) * JK.RBF(jnp.asarray(LS))
+    want = jax.jit(lambda k, x: k.dxdz_diag(x))(jk, jnp.asarray(X))
+    np.testing.assert_allclose(k.dxdz_diag(_t(X)).numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    k = TK.RBF(1.0) * TK.Matern(1.2, nu=2.5)
+    want = torch.full((7, 2), 1.0 + (5.0 / 3.0) / 1.2**2, dtype=torch.float64)
+    torch.testing.assert_close(k.dxdz_diag(_t(X)), want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("nu, scale", [(1.5, 3.0), (2.5, 5.0 / 3.0), (math.inf, 1.0)])
+def test_matern_times_rbf_dxdz_diag_is_the_closed_form(nu, scale):
+    """Matérn·RBF (either order, under a Constant and beside a White):
+    c·(s_ν/ℓ_M² + 1/ℓ_R²), s_ν = 3, 5/3, 1 for ν = 3/2, 5/2, ∞; and against
+    the mixed second derivative by central differences of ``pairwise``
+    around a = b (float64, h = 1e-4; rounding about 1e-16/h², 1e-8; the
+    truncation O(h²), about 1e-7, bound 1e-5, but O(h) for ν = 3/2, whose
+    k has an |r|³ term: about 8h here, bound 10h).  The
+    GP's Jacobian variance (prior − quadratic form) stays ≥ 0 with it
+    (bound −1e-8, rounding)."""
+    from gaussian_process_transportation_tpu_torch.models import exact_gp
+
+    ls_m = 1.2
+    for k in (TK.Constant(2.0) * (TK.Matern(ls_m, nu=nu) * TK.RBF(_t(LS))) + TK.White(0.01),
+              TK.Constant(2.0) * (TK.RBF(_t(LS)) * TK.Matern(ls_m, nu=nu)) + TK.White(0.01)):
+        got = k.dxdz_diag(_t(X))
+        want = 2.0 * (scale / ls_m**2 + 1.0 / _t(LS) ** 2)
+        torch.testing.assert_close(got, want.expand(7, 2), rtol=TOL, atol=TOL)
+        h, x0 = 1e-4, _t(X[0])
+        for d in range(2):
+            e = torch.zeros(2, dtype=torch.float64)
+            e[d] = h
+            fd = (k.pairwise(x0 + e, x0 + e) - k.pairwise(x0 + e, x0 - e)
+                  - k.pairwise(x0 - e, x0 + e) + k.pairwise(x0 - e, x0 - e)) / (4 * h * h)
+            assert abs(fd.item() - got[0, d].item()) < (10 * h if nu == 1.5 else 1e-5)
+        gp = exact_gp.condition(k, _t(X), _t(rng.standard_normal((7, 1))))
+        _, var = exact_gp.jacobian(gp, _t(np.concatenate([X[:3], Z])), return_var=True)
+        assert torch.isfinite(var).all() and (var > -1e-8).all()
+
+
+# The generic derivatives (Kernel.dx, dxT, dxdz_diag on ``pairwise`` through
+# torch.func) against JAX's (jax.jacfwd / jacrev on its ``pairwise``).  RBF
+# factors only for dxdz_diag: at a = b the Matérn's d = sqrt(d² + 1e-36)
+# guard makes both packages' autodiff second derivative wrong, and wrong
+# differently (ROADMAP.md, queue 3).
+GENERIC = {
+    "sum": (lambda K, ls: K.Constant(2.0) * K.RBF(ls) + K.Matern(0.9, nu=2.5) + K.White(0.1),
+            ("pairwise", "dx", "dxT")),
+    "product": (lambda K, ls: K.RBF(ls) * K.Matern(1.7, nu=1.5), ("pairwise", "dx", "dxT")),
+    "rbf_sum": (lambda K, ls: K.Constant(2.0) * K.RBF(ls) + K.RBF(0.8), ("dxdz_diag",)),
+    "rbf_product": (lambda K, ls: K.RBF(ls) * K.RBF(0.8), ("dxdz_diag",)),
+}
+
+
+def _generic(k, method, x, z):
+    """The base class's form of ``method`` (JAX's jitted: eager, its
+    autodiff dispatches op by op)."""
+    on_jax = isinstance(x, jax.Array)
+    vmap = jax.vmap if on_jax else torch.func.vmap
+    if method == "pairwise":
+        fn = lambda k, x, z: vmap(lambda a: vmap(lambda b: k.pairwise(a, b))(z))(x)
+    elif method == "dxdz_diag":
+        fn = lambda k, x, z: type(k).__mro__[-2].dxdz_diag(k, x)
+    else:
+        fn = lambda k, x, z: getattr(type(k).__mro__[-2], method)(k, x, z)
+    return np.asarray((jax.jit(fn) if on_jax else fn)(k, x, z))
+
+
+@pytest.mark.parametrize("name", sorted(GENERIC))
+def test_generic_derivatives_match_jax(name):
+    build, methods = GENERIC[name]
+    jk, tk = build(JK, jnp.asarray(LS)), build(TK, _t(LS))
+    for method in methods:
+        want = _generic(jk, method, jnp.asarray(X), jnp.asarray(Z))
+        got = _generic(tk, method, _t(X), _t(Z))
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+        if method in ("dx", "dxT"):  # the composite's closed form, the same values
+            np.testing.assert_allclose(got, getattr(tk, method)(_t(X), _t(Z)).numpy(),
+                                       rtol=1e-10, atol=1e-12)
 
 
 # ---- the hyperparameter vector -------------------------------------------

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port: the ensemble transport, the
 large-N exact GP, the hyperparameter fits (small and large N), the HMC and
-NUTS hyperposteriors, checkpointed runs and SMC particles.
+NUTS hyperposteriors, checkpointed runs, SMC particles, the active-learning
+GP, the diffeomorphism sweep, the mixed-precision solve and the transport
+variants.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -120,7 +122,8 @@ Phases, one line each on stdout:
     chains, 48+48 steps, max_depth 8): finite samples, the launches of #2,
     64 chains equal bit for bit to the first 64 of 256, posterior means
     within 0.8·sd + 0.3 of phase 14's HMC means, the mean tree depth and
-    ``nuts_samples_per_s`` (median of 3);
+    ``nuts_samples_per_s`` of the counted run (one run: the whole run's
+    length is held);
 18. the generic route at n=40 (past the fused route): 64 chains of HMC,
     24+24 steps of 16 leapfrog through ``torch.func.vmap`` of the LML's
     gradient, finite samples, no hand-kernel launch, samples/s of that one
@@ -132,7 +135,46 @@ Phases, one line each on stdout:
     16 steps): finite particles, every ESS in (0, E],
     ``smc_particles_per_s`` (median of 3); and ``init_particles`` on the
     bench transport's S, S1 and X with 8192 particles, its mean against
-    the analytic posterior mean.
+    the analytic posterior mean;
+21. ``fit_jit`` on the bench transport's residual (n=20, D=2, p=2, phase
+    13's kernel and bounds, f32, 5 restarts as six lanes, maxiter 100): 701
+    launches of #2 a call, the fitted LML (f64) at least the start's and
+    within 1e-3 of the port's f64 CPU fit, its time (median of 5); then the
+    façade with ``jit_fit=True`` on the bench inputs against the f64 CPU
+    transport at the kernel it fitted to err/max|X| < 1e-3, and the same
+    check rejecting that kernel moved by 0.1 in log space and the unfitted
+    start;
+22. ``GaussianProcessActiveLearning`` at the original project's cap: N =
+    24,000 points of a smooth 3-D surface (the cap + 20%), m = 20,000, a
+    2,000-point seed, C(1)·RBF(0.3)+White(0.01), f32: the selection's time,
+    float32 and float64 picks at N=3000, m=2000 equal through the seed and
+    100 greedy picks, the final variances at 256 unselected points against
+    the f64 Schur complement, ``fit_blocked`` on the subset (maxiter cut to
+    5; its launches of #7 and #4), its LML (f64) at least the start's, one
+    value+grad at N=20,000 (median of 3), peak memory, ``predict`` (no
+    launch of #5: k_star @ α, as in JAX) and ``derivative`` at Q=1000
+    against an f64 predict from the same subset, their times;
+23. ``GaussianProcessTransportationDiffeo(jit_fit=True).optimize_diffeomorphism``
+    on the bench inputs, 20 trials: the launches of #2, each trial's
+    residual against the port's f64 CPU residual at the kernel the card
+    fitted within 1e-3·(1 + κ·ε32), every fit's LML (f64) at least its
+    start's, the best bound the same as in f64 at those kernels (or within
+    1e-3 of it), planted faults (the inverse map at the fitted kernel, θ
+    moved by 0.01) rejected on the first five trials, a five-trial sweep's
+    best on the card the f64 CPU sweep's (or within 1e-3 of its residual),
+    the sweep's time; then
+    the heteroscedastic field on a 20x20 grid, finite and non-negative;
+24. ``gram_chol_solve_mixed`` at phase 8's inputs, trailing updates at
+    ``"default"`` (bf16) and ``"high"`` (three bf16 passes): whether each
+    factor is definite, the residual of the factor alone and after PCG
+    against phase 8's f32 solve's ("high": alone above 1e3·ε32, after PCG
+    within 10x of phase 8's), the factor's and PCG's times; and
+    ``"default"`` on the same points with noise 10, which it factors: alone
+    above 1e3·ε32, after PCG within 10x of phase 8's f32 solve of that Gram;
+25. ``AffineTransportation``, ``KMPTransport`` and
+    ``LaplacianEditingTransport`` on the bench inputs: float64 on the card
+    against float64 on the CPU to err/max|X| < 1e-6, float32 finite, its
+    error printed.
 
 Each path is driven with every launch count set to 0 just before and read
 just after.  Then one JSON line with the kernels' record and, last, the
@@ -1244,20 +1286,6 @@ def drive_timed(path):
     return out, counts, ev[0].elapsed_time(ev[1])
 
 
-def event_ms(fn, reps=3):
-    """CUDA-event ms of each of ``reps`` calls of ``fn`` (no warm-up: the
-    path's first run has been driven already)."""
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times)), times
-
-
 def smc_inputs(device):
     """bench.py's smc stage (bench.py:292-300): trajectories (8192, 100, 2)
     standard normal float32 from seed 0, uniform weights, the goal (1, 1)
@@ -1270,6 +1298,95 @@ def smc_inputs(device):
     p0 = smc.ParticleEnsemble(trajs, torch.full((SMC_PARTICLES,), -math.log(SMC_PARTICLES),
                                                 device=device))
     return p0, smc.goal_likelihood(torch.tensor([1.0, 1.0], device=device), scale=2.0)
+
+
+# ---- phases 21-25: fit_jit, active learning at the cap, the diffeomorphism
+# sweep and the heteroscedastic field, the mixed-precision solve, the variants
+
+JIT_RESTARTS, JIT_MAXITER = 5, 100  # fit_jit: six lanes, JAX's maxiter
+# The active-learning GP at the original project's cap (m = 20,000 points of
+# N = 24,000: the reference subsamples only past 20,000), its seed 10% of
+# m; the fit's maxiter cut to 5 (fit_blocked's default is 40); Q queries.
+AL_N, AL_M, AL_Q, AL_MAXITER = 24000, 20000, 1000, 5
+# the float32 picks against float64 ones on the card at a smaller size: the
+# seed and the first AL_CHECK_GREEDY greedy picks after it must agree
+AL_CHECK_N, AL_CHECK_M, AL_CHECK_GREEDY = 3000, 2000, 100
+# the loop's final conditional variance at AL_SCHUR_POINTS unselected points
+# against the float64 Schur complement over the selected set, to
+# AL_SCHUR_TOL·(amp + noise): m float32 subtractions of l_j² give about
+# sqrt(m)·ε32 ≈ 8e-6 of it at m = 20,000 (a CPU rehearsal at m = 2,000 read
+# 4e-7), m·ε32 ≈ 1.2e-3 at worst
+AL_SCHUR_POINTS, AL_SCHUR_TOL = 256, 1e-4
+MIXED_NOISE = 10.0  # phase 24's second Gram, one that the bf16 factor keeps definite
+DIFFEO_TRIALS = 20  # optimize_diffeomorphism's default
+# the planted faults read on the first trials; the independent sweeps on the
+# card and in float64 on the CPU, shorter for time
+DIFFEO_FAULT_TRIALS, DIFFEO_CHECK_TRIALS = 5, 5
+VARIANTS = ("AffineTransportation", "KMPTransport", "LaplacianEditingTransport")
+
+
+def residual_inputs(device, dtype):
+    """Phase 21's fit: the bench transport's residual (n=20, D=2, p=2), the
+    targets S1 less the Kabsch fit γ(S) of the bench's source points."""
+    from gaussian_process_transportation_tpu_torch.models import affine as affine_core
+
+    _, _, S, S1 = make_workload()
+    S, S1 = (torch.as_tensor(a, dtype=dtype, device=device) for a in (S, S1))
+    src = affine_core.predict(affine_core.fit(S, S1), S)
+    return src, S1 - src
+
+
+def surface_inputs(n, seed=0):
+    """Phase 22's data: n points on the smooth surface z = sin(x)·cos(y)/2,
+    (x, y) uniform on [−3, 3]² from ``seed``, and Y (n, 3) a known nonlinear
+    deformation of them; float32 numpy."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-3.0, 3.0, (n, 2))
+    X = np.stack([xy[:, 0], xy[:, 1], 0.5 * np.sin(xy[:, 0]) * np.cos(xy[:, 1])], 1)
+    Y = np.stack([0.3 * np.sin(X[:, 1] + X[:, 2]), 0.2 * X[:, 0] * np.cos(X[:, 1]),
+                  0.1 * X[:, 0] ** 2 - 0.2 * X[:, 2]], 1)
+    return X.astype(np.float32), Y.astype(np.float32)
+
+
+def al_kernel(**device):
+    """C(1)·RBF(0.3)+White(0.01): a lengthscale that keeps the conditional
+    variances apart through the first picks after the seed."""
+    from gaussian_process_transportation_tpu_torch import kernels as K
+
+    return K.Constant(1.0) * K.RBF(0.3 * torch.ones(3, **device)) + K.White(0.01)
+
+
+def schur_f64(kernel, X, idx, q):
+    """The float64 conditional variance k(x, x) + σ² − k(x, S)(K_SS)⁻¹k(S, x)
+    of the points ``q`` given the selected set S = X[idx] (K_SS with its
+    White term), on the card."""
+    Xd = X.double()
+    S = Xd[idx]
+    L = torch.linalg.cholesky(kernel(S))
+    V = torch.linalg.solve_triangular(L, kernel(S, Xd[q]), upper=False)
+    del L
+    return kernel.diag(Xd[q]) - (V * V).sum(0)
+
+
+def rel_residual_f64(K64, x, B):
+    """max over the columns of ‖B − K x‖ / ‖B‖, in float64."""
+    r = B.double() - K64 @ x.double()
+    return (torch.linalg.norm(r, dim=0) / torch.linalg.norm(B.double(), dim=0)).max().item()
+
+
+def drive_variant(name, device, dtype, X, dX, S, S1):
+    """One transport of ``transport.variants`` on the bench inputs in
+    ``dtype`` on ``device``; KMP's time GP fitted without restarts."""
+    from gaussian_process_transportation_tpu_torch.transport import variants
+
+    tr = getattr(variants, name)(device=device)
+    if name == "KMPTransport":
+        tr.transportation.n_restarts = 0
+    tr.source_distribution, tr.target_distribution, tr.training_traj, tr.training_delta = (
+        torch.as_tensor(a, dtype=dtype, device=device) for a in (S, S1, X, dX))
+    tr.fit_transportation()
+    tr.apply_transportation()
+    return tr
 
 
 def main() -> None:
@@ -1791,6 +1908,12 @@ def main() -> None:
             out = check_lml_case(device, case, E, seed=E)
             note({name: out[name]})
             main_errs.setdefault(name, out[name][0])
+    # kernel #2 at the shape of phases 21 and 23 (fit_jit's six lanes on the
+    # bench residual, n=20 D=2 p=2: the "n<=24 D<=2 p<=2" instance), both n_ls
+    jit_cases = [("rbf", N_MAIN, 2, 2, n_ls, True) for n_ls in (1, 2)]
+    for case in jit_cases:
+        note({"small_lml_value_grad":
+              check_lml_case(device, case, JIT_RESTARTS + 1)["small_lml_value_grad"]})
     lml_fault = lml_faults(device, E_FIT)
     lml_fault["value-only lanes 0 and 1 datasets swapped"] = lml_value_faults(device, E_FIT)
     print(f"fused LML kernels vs twins and the f64 formula (bound {LML_VAL_REL:g}*value terms, "
@@ -1798,7 +1921,9 @@ def main() -> None:
           f"8/20/32, D 2/3, p 1/3, both n_ls, noise or not) and {len(LML_WIDE_CASES)} past eight "
           f"coordinates or columns (D, p in 12/1, 2/12, 12/12, n 20/32, both n_ls) at "
           f"E={E_LML_SMALL} and the paths' E "
-          + ", ".join(f"{lanes[k]} and {lanes[k] + 3}" for k in lanes) + ": "
+          + ", ".join(f"{lanes[k]} and {lanes[k] + 3}" for k in lanes)
+          + f", small_lml_value_grad at fit_jit's n={N_MAIN} D=2 p=2 (n_ls 1 and 2) on "
+          f"{JIT_RESTARTS + 1} lanes: "
           + ", ".join(f"{k} |kernel-twin| max {d:.3g}, error/bound max {ex:.3g}"
                       for k, (d, ex) in lml_errs.items() if k != VALUE_ONLY)
           + f"; the value-only instance {VALUE_ONLY} bit for bit the full kernel's value at "
@@ -2117,8 +2242,7 @@ def main() -> None:
     if not ((m17 - m_k).abs() < 0.8 * sd14 + 0.3).all():
         raise AssertionError(f"NUTS posterior means {m17.tolist()} vs phase 14's HMC "
                              f"{m_k.tolist()} (sd {sd14.tolist()})")
-    times17 = [first17] + event_ms(nuts_path, reps=2)[1]
-    nuts_ms = float(np.median(times17))
+    nuts_ms = first17  # one run, the counted one (the whole run's length is held)
     print(f"NUTS hyperposterior: sample_gp_posterior(algorithm='nuts') {HMC_CHAINS} chains, "
           f"{HMC_WARMUP}+{HMC_SAMPLES} steps, max_depth 8, n=20 D=2 p=1 f32: small_lml_value_grad "
           f"launches {counts17['small_lml_value_grad']}; samples finite; {NUTS_CHECK_CHAINS} chains "
@@ -2127,7 +2251,7 @@ def main() -> None:
           f"{[round(v, 4) for v in m_k.tolist()]} (within 0.8*sd+0.3); mean tree depth "
           f"{d17['mean_tree_depth'].mean().item():.3f}, mean accept "
           f"{d17['mean_accept'].mean().item():.4f}; {nuts_ms:.4f} ms "
-          f"{[round(t, 3) for t in times17]} (median of 3, CUDA events) = nuts_samples_per_s "
+          f"(the counted run, CUDA events) = nuts_samples_per_s "
           f"{HMC_CHAINS * HMC_SAMPLES / (nuts_ms / 1e3):.1f} {tag}", flush=True)
     del s17b
 
@@ -2248,16 +2372,423 @@ def main() -> None:
           f"{init_ms:.4f} ms (median of 3) {tag}", flush=True)
     del p20, p20b, parts20
 
+    # 21. fit_jit: the restarts of one dataset as lanes of kernel #2
+    src21, res21 = residual_inputs(device, torch.float32)
+    kern21 = fit_kernel(**f32)
+    lanes21 = JIT_RESTARTS + 1
+
+    def jit_path():
+        return gp_core.fit_jit(kern21, src21, res21, n_restarts=JIT_RESTARTS,
+                               generator=torch.Generator().manual_seed(0), maxiter=JIT_MAXITER)
+
+    gp21, counts21 = drive(jit_path)
+    want21 = 1 + JIT_MAXITER * (6 + 1)  # _lbfgs_elast: a value+grad, six candidates a step
+    expect_launches("fit_jit", counts21, {"small_lml_value_grad": want21,
+                                          "small_lml_value_grad_md": 0})
+    src64, res64 = residual_inputs("cpu", torch.float64)
+    kern21_64 = fit_kernel(**f64)
+    gp21_64 = gp_core.fit_jit(kern21_64, src64, res64, n_restarts=JIT_RESTARTS,
+                              generator=torch.Generator().manual_seed(0), maxiter=JIT_MAXITER)
+    lml21 = lambda k: gp_core.log_marginal_likelihood(k, src64, res64).item()
+    l21_start = lml21(kern21_64)
+    l21_card = lml21(kern21_64.with_theta(gp21.kernel.theta.double().cpu()))
+    l21_cpu = lml21(gp21_64.kernel)
+    if not (l21_card >= l21_start - 1e-3 and abs(l21_card - l21_cpu) <= 1e-3 * abs(l21_cpu)):
+        raise AssertionError(f"fit_jit's LML (f64) {l21_card:.6g}: start {l21_start:.6g}, the f64 "
+                             f"CPU fit {l21_cpu:.6g}")
+    jit_ms, jit_all = cuda_ms(jit_path)
+    # the façade with jit_fit on the card, against the f64 CPU transport at
+    # the kernel it fitted (two separate fits part along the likelihood's
+    # flat ridge at the noise floor; the transport at one kernel does not)
+    tr21 = GaussianProcessTransportation(kernel_transport=fit_kernel(**f32), jit_fit=True)
+    tr21.source_distribution, tr21.target_distribution = S, S1
+    tr21.training_traj, tr21.training_delta = X, dX
+    _, counts21f = drive(lambda: (tr21.fit_transportation(), tr21.apply_transportation()))
+    expect_launches("the façade with jit_fit", counts21f,
+                    {"small_lml_value_grad": want21, "small_lml_value_grad_md": 0})
+    def facade_rel(theta):
+        one = gpt.fit_and_transport(kern21_64.with_theta(theta),
+                                    *(torch.as_tensor(a, **f64) for a in (S, S1, X, dX)),
+                                    jitter=gp_core._eff_jitter(torch.float32, 1e-10))
+        return {name: (getattr(tr21, attr).double().cpu() - getattr(one, name)).abs().max().item()
+                / scale for name, attr in (("traj", "training_traj"), ("delta", "training_delta"),
+                                           ("std", "std"))}
+
+    th21 = tr21.method.delta_map.kernel_.theta.double().cpu()
+    rel21 = facade_rel(th21)
+    if not max(rel21.values()) < TRAJ_TOL:
+        raise AssertionError(f"the façade with jit_fit differs from the f64 CPU transport at its "
+                             f"fitted kernel: {rel21}")
+    # the check must reject a transport at the wrong kernel: the card's θ
+    # moved by 0.1 in log space, or the unfitted start (θ + 0.01 read 0.32
+    # of the bound on an H100: the transport moves less than 1e-3 of max|X|
+    # for it at the card's fit)
+    fault21 = {"theta + 0.1": max(facade_rel(th21 + 0.1).values()) / TRAJ_TOL,
+               "the start kernel": max(facade_rel(kern21_64.theta).values()) / TRAJ_TOL}
+    if not min(fault21.values()) >= 1:
+        raise AssertionError(f"the façade check passes a planted fault: error/bound {fault21}")
+    print(f"fit_jit: the bench transport's residual n={N_MAIN} D=2 p=2, C(10)*RBF(4)+White(0.01) "
+          f"with phase 13's bounds, f32, {JIT_RESTARTS} restarts ({lanes21} lanes), maxiter "
+          f"{JIT_MAXITER}: small_lml_value_grad launches {counts21['small_lml_value_grad']} a call; "
+          f"LML (f64) start {l21_start:.6g} -> {l21_card:.6g}, the f64 CPU fit's {l21_cpu:.6g} "
+          f"(within 1e-3 of it); {jit_ms:.4f} ms {jit_all} (median of {REPS}, CUDA events); the "
+          f"façade with jit_fit=True on the bench inputs: {counts21f['small_lml_value_grad']} "
+          f"launches of #2, err/max|X| vs the f64 CPU fit_and_transport at its fitted kernel "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in rel21.items()) + f" (< {TRAJ_TOL}); planted "
+          f"faults rejected, error/bound " + ", ".join(f"{k} {v:.3g}" for k, v in fault21.items())
+          + f" {tag}",
+          flush=True)
+    del tr21
+
+    # 22. the active-learning GP at the original project's cap
+    from gaussian_process_transportation_tpu_torch.models import gp_active as ga
+
+    Xa_np, Ya_np = surface_inputs(AL_N)
+    Xa, Ya = torch.as_tensor(Xa_np, device=device), torch.as_tensor(Ya_np, device=device)
+    kern22 = al_kernel(**f32)
+    noise22 = float(gp_core.white_noise_level(kern22))
+    # the float32 picks against float64 ones at AL_CHECK_N
+    m0c = AL_CHECK_M // 10
+    seed_c = torch.randperm(AL_CHECK_N, generator=torch.Generator().manual_seed(0))[:m0c]
+    i32 = ga.greedy_variance_select(kern22, Xa[:AL_CHECK_N], AL_CHECK_M, seed_c, noise=noise22)
+    i64 = ga.greedy_variance_select(al_kernel(dtype=torch.float64, device=device),
+                                    Xa[:AL_CHECK_N].double(), AL_CHECK_M, seed_c, noise=noise22)
+    agree = (i32 == i64).cpu()
+    first_diff = int((~agree).nonzero()[0]) if not bool(agree.all()) else AL_CHECK_M
+    if first_diff < m0c + AL_CHECK_GREEDY:
+        raise AssertionError(f"greedy_variance_select at N={AL_CHECK_N}: float32 and float64 picks "
+                             f"part at {first_diff}, inside the seed and the first "
+                             f"{AL_CHECK_GREEDY} greedy picks")
+    sel22, evals22 = {}, {"value_and_grad": 0, "value": 0}
+    real_sel, real_vg22, real_v22 = ga.greedy_variance_select, bll.blocked_lml_value_and_grad, \
+        bll.blocked_lml_value
+
+    def timed_select(kernel, X_, m, seed_idx, noise=0.0):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        idx, d = ga._greedy_variance_select(kernel, X_, m, seed_idx, noise)
+        ev[1].record()
+        sel22.update(idx=idx, d=d, events=ev, host_s=time.perf_counter() - t22)
+        return idx
+
+    def counted_vg22(*a, **k):
+        evals22["value_and_grad"] += 1
+        return real_vg22(*a, **k)
+
+    def counted_v22(*a, **k):
+        evals22["value"] += 1
+        return real_v22(*a, **k)
+
+    model22 = ga.GaussianProcessActiveLearning(
+        kern22, n_samples_max=AL_M, blocked_kwargs=dict(maxiter=AL_MAXITER, block=BLOCK))
+    ga.greedy_variance_select = timed_select
+    bll.blocked_lml_value_and_grad, bll.blocked_lml_value = counted_vg22, counted_v22
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        t22 = time.perf_counter()
+        _, counts22 = drive(lambda: model22.fit(Xa, Ya))
+        fit_s22 = time.perf_counter() - t22
+    finally:
+        ga.greedy_variance_select = real_sel
+        bll.blocked_lml_value_and_grad, bll.blocked_lml_value = real_vg22, real_v22
+    peak22 = torch.cuda.max_memory_allocated(device) / 2**30
+    sel_ms = sel22["events"][0].elapsed_time(sel22["events"][1])
+    n_eval22 = evals22["value_and_grad"] + evals22["value"]
+    panels22 = -(-AL_M // BLOCK)
+    expect_launches("GaussianProcessActiveLearning.fit", counts22, {  # evaluations + condition
+        "stationary_gram_panels": n_eval22 + 1, "factor_panel": panels22 * (n_eval22 + 1),
+        "stationary_gram": 0, "fused_gp_predict_mean": 0})
+    gp22 = model22.state
+    if gp22.chol is None or gp22.X.shape != (AL_M, 3):
+        raise AssertionError("the active-learning fit did not take the blocked route on its subset")
+    idx22 = sel22["idx"]
+    if len(set(idx22.tolist())) != AL_M:
+        raise AssertionError("the selection picked a point twice")
+    kern22_64 = al_kernel(dtype=torch.float64, device=device)
+    free22 = torch.ones(AL_N, dtype=torch.bool, device=device)
+    free22[idx22] = False
+    q22 = free22.nonzero()[:AL_SCHUR_POINTS, 0]
+    schur22 = schur_f64(kern22_64, Xa, idx22, q22)
+    ex22 = ((sel22["d"][q22].double() - schur22).abs().max()
+            / (AL_SCHUR_TOL * (1.0 + noise22))).item()
+    if not ex22 < 1:
+        raise AssertionError(f"the selection's final variances vs the f64 Schur complement: "
+                             f"error/bound {ex22:.3g}")
+    Xsub64, Ysub64 = gp22.X.double(), gp22.Y.double()
+    th22 = gp22.kernel.theta.double()
+    lml22 = lambda k: gp_core.log_marginal_likelihood(k, Xsub64, Ysub64,
+                                                      gp_core._eff_jitter(torch.float32, 1e-10))
+    l22_start = lml22(kern22_64).item()
+    l22_fit = lml22(gp22.kernel.with_theta(th22)).item()
+    if not l22_fit >= l22_start:
+        raise AssertionError(f"the active-learning fit's LML (f64) {l22_fit:.6g} is below its "
+                             f"start {l22_start:.6g}")
+    th22f = gp22.kernel.theta.to(**f32)
+    step22_ms, step22_all = cuda_ms(lambda: bll.blocked_lml_value_and_grad(
+        gp22.X, gp22.Y, "rbf", th22f[0], th22f[1:4], th22f[4],
+        jitter=gp_core._eff_jitter(torch.float32, 1e-10), block=BLOCK), reps=3)
+    Xq22 = torch.as_tensor(surface_inputs(AL_Q, seed=1)[0], device=device)
+    (mean22, std22), counts22p = drive(lambda: model22.predict(Xq22))
+    # a panel-form GP predicts with std through k_star, as JAX's does: no #5
+    expect_launches("the active-learning predict", counts22p, {"fused_gp_predict_mean": 0})
+    (dy22, ds22), counts22d = drive(lambda: model22.derivative(Xq22))
+    if dy22.shape != (AL_Q, 3, 3) or ds22.shape != (AL_Q, 3, 1) or \
+            not (torch.isfinite(dy22).all() and torch.isfinite(ds22).all()):
+        raise AssertionError(f"derivative: {tuple(dy22.shape)}, {tuple(ds22.shape)} or not finite")
+    gp22_64 = gp_core.condition(gp22.kernel.with_theta(th22), Xsub64, Ysub64,
+                                gp_core._eff_jitter(torch.float32, 1e-10))
+    mean64, std64 = gp_core.predict(gp22_64, Xq22.double(), return_std=True, epistemic_only=True)
+    del gp22_64
+    m_err22 = (mean22 - mean64).abs().max().item() / mean64.abs().max().item()
+    s_err22 = (std22 - std64).abs().max().item()
+    s_tol22 = 5e-3 * std64.abs().max().item() + 1e-3
+    if not (m_err22 < 5e-3 and s_err22 < s_tol22):
+        raise AssertionError(f"the active-learning predict vs f64: mean rel {m_err22:.3g} (tol "
+                             f"5e-3), std {s_err22:.3g} (tol {s_tol22:.3g})")
+    pred_ms, pred_all = cuda_ms(lambda: model22.predict(Xq22))
+    der_ms, der_all = cuda_ms(lambda: model22.derivative(Xq22))
+    print(f"active learning: GaussianProcessActiveLearning N={AL_N} (the cap {AL_M} + 20%) D=3 P=3 "
+          f"on a smooth surface, C(1)*RBF(0.3)+White(0.01) f32, seed {AL_M // 10}: "
+          f"greedy_variance_select {sel_ms:.1f} ms (CUDA events, one run; the host loop "
+          f"{sel22['host_s']:.2f} s), float32 and float64 picks at N={AL_CHECK_N} m={AL_CHECK_M} "
+          f"agree through {first_diff} (>= {m0c} seed + {AL_CHECK_GREEDY}); final variances at "
+          f"{AL_SCHUR_POINTS} unselected points vs the f64 Schur complement error/bound "
+          f"{ex22:.3g} (bound {AL_SCHUR_TOL}*(amp+noise)); fit_blocked on the subset (maxiter cut "
+          f"to {AL_MAXITER}): {evals22['value_and_grad']} value+grad and {evals22['value']} value "
+          f"evaluations, stationary_gram_panels {counts22['stationary_gram_panels']}, factor_panel "
+          f"{counts22['factor_panel']} launches (condition_blocked's included), LML (f64) "
+          f"{l22_start:.6g} -> {l22_fit:.6g}; one value+grad at N={AL_M} {step22_ms:.4f} ms "
+          f"{step22_all} (median of 3, CUDA events); the whole fit {fit_s22:.3f} s wall, the fit after the "
+          f"selection {fit_s22 - sel22['host_s']:.3f} s, peak memory {peak22:.3f} GiB; predict at "
+          f"Q={AL_Q}: fused_gp_predict_mean {counts22p['fused_gp_predict_mean']}, mean rel "
+          f"{m_err22:.3g} (< 5e-3), std {s_err22:.3g} (< {s_tol22:.3g}) vs the f64 predict from the "
+          f"same subset, {pred_ms:.4f} ms {pred_all}; derivative (Q, 3, 3) and (Q, 3, 1) finite "
+          f"({sum(counts22d.values())} hand-kernel launches), "
+          f"{der_ms:.4f} ms {der_all} (medians of {REPS}, CUDA events) {tag}", flush=True)
+    del model22, gp22, sel22, Xa, Ya, schur22, dy22, ds22
+    torch.cuda.empty_cache()
+
+    # 23. the diffeomorphism sweep with fit_jit, and the heteroscedastic field
+    from gaussian_process_transportation_tpu_torch.transport import diffeo
+    from gaussian_process_transportation_tpu_torch.transport import heteroscedastic as hs
+
+    tr23 = diffeo.GaussianProcessTransportationDiffeo(jit_fit=True)
+    tr23.source_distribution, tr23.target_distribution = S, S1
+    tr23.training_traj, tr23.training_delta = X, dX
+    trials23 = []  # (the trial's kernel, the kernel it fitted)
+    each23 = tr23.diffeomorphism_error
+
+    def recorded(c):
+        err = each23(c)
+        trials23.append((tr23.method.delta_map.kernel, tr23.method.delta_map.kernel_))
+        return err
+
+    tr23.diffeomorphism_error = recorded
+    best23, counts23, sweep_ms = drive_timed(
+        lambda: tr23.optimize_diffeomorphism(n_trials=DIFFEO_TRIALS))
+    expect_launches("optimize_diffeomorphism", counts23, {
+        "small_lml_value_grad": (DIFFEO_TRIALS + 1) * want21, "small_lml_value_grad_md": 0})
+    # each trial against the port's f64 CPU run at the kernel the card
+    # fitted (float32's jitter floor included): the residual to 1e-3·(1 +
+    # κ·ε32), κ the fitted Gram's condition number (a fit at the noise
+    # floor reaches κ ~ 5e7, where float32 keeps a few digits); the fit's
+    # LML (f64) at least its start's.  Two separate fits, float32 and
+    # float64, part along the flat ridge at the noise floor (a CPU rehearsal:
+    # residuals 8.5% apart at the largest bound), so the two are held to each
+    # other only through the best candidate of a shorter sweep (below).
+    S64, S164, X64 = (torch.as_tensor(a, **f64) for a in (S, S1, X))
+    jit23 = gp_core._eff_jitter(torch.float32, 1e-10)
+
+    def at_kernel(k_init, k_fit, inverse_at_init=True, shift=0.0):
+        """The f64 CPU residual at the trial's fitted θ (+ ``shift``), the
+        fitted Gram's condition number and the fit's LML rise (f64)."""
+        k_init64 = k_init.with_theta(k_init.theta.double().cpu())
+        k_at = k_init64.with_theta(k_fit.theta.double().cpu() + shift)
+        ref = diffeo.GaussianProcessTransportationDiffeo(kernel_transport=k_at, device="cpu",
+                                                         optimizer=None, alpha=jit23)
+        ref.source_distribution, ref.target_distribution, ref.training_traj = S64, S164, X64
+        ref.fit_transportation()
+        if inverse_at_init:  # the inverse map's kernel, as in the sweep
+            ref.method.delta_map.kernel = k_init64
+        gp_ = ref.method.delta_map.state
+        eig = torch.linalg.eigvalsh(gp_.L @ gp_.L.T)
+        lml_ = lambda k: gp_core.log_marginal_likelihood(k, gp_.X, gp_.Y).item()
+        return (ref._forward_inverse_residual(), (eig[-1] / eig[0]).item(),
+                lml_(k_at) - lml_(k_init64))
+
+    cands23 = list(tr23.diffeo_errors)
+    err32 = np.array(list(tr23.diffeo_errors.values()))
+    err_at, kappa23, lml_rise = (np.array(c) for c in zip(*(at_kernel(*t)
+                                                             for t in trials23[:DIFFEO_TRIALS])))
+    bound23 = 1e-3 * (1.0 + kappa23 * F32_EPS)
+    ex23 = np.abs(err32 - err_at) / err_at / bound23
+    best_at = cands23[int(np.argmin(err_at))]
+    best_gap = err_at[cands23.index(best23)] - err_at.min()
+    if not (ex23.max() < 1 and lml_rise.min() >= -1e-3
+            and (best23 == best_at or best_gap <= 1e-3 * err_at.min())):
+        raise AssertionError(f"the sweep vs f64 at its fitted kernels: residual error/bound "
+                             f"{ex23.tolist()} (kappa {kappa23.tolist()}), LML rise "
+                             f"{lml_rise.tolist()}, best {best23} vs {best_at}")
+    # the bound must reject a wrong residual over the first trials: the
+    # inverse map fitted with the fitted kernel instead of the trial's, or
+    # the fitted θ moved by 0.01 in log space (a CPU rehearsal read 333 and 24)
+    nf = DIFFEO_FAULT_TRIALS
+    fault23 = {name: max(abs(err32[i] - r) / r / bound23[i] for i, (r, _, _) in enumerate(
+        at_kernel(*t, **kw) for t in trials23[:nf]))
+        for name, kw in (("inverse map at the fitted kernel", dict(inverse_at_init=False)),
+                         ("theta + 0.01", dict(shift=0.01)))}
+    if not min(fault23.values()) >= 1:
+        raise AssertionError(f"the sweep's check passes a planted fault: error/bound {fault23}")
+
+    # an independent sweep of DIFFEO_CHECK_TRIALS candidates on the card and
+    # in float64 on the CPU: the card's best is the f64 best, or within 1e-3
+    # of its residual in f64
+    def short_sweep(device_, dtype):
+        tr = diffeo.GaussianProcessTransportationDiffeo(jit_fit=True, device=device_)
+        tr.source_distribution, tr.target_distribution, tr.training_traj, tr.training_delta = (
+            torch.as_tensor(a, dtype=dtype, device=device_) for a in (S, S1, X, dX))
+        return tr.optimize_diffeomorphism(n_trials=DIFFEO_CHECK_TRIALS), tr.diffeo_errors
+
+    best_c, errs_c = short_sweep(device, torch.float32)
+    t_cpu = time.perf_counter()
+    best_f, errs_f = short_sweep("cpu", torch.float64)
+    cpu_s23 = time.perf_counter() - t_cpu
+    gap_f = (errs_f[best_c] - errs_f[best_f]) / errs_f[best_f]
+    if not (best_c == best_f or gap_f <= 1e-3):
+        raise AssertionError(f"the {DIFFEO_CHECK_TRIALS}-trial sweep: best {best_c} on the card, "
+                             f"{best_f} in f64 on the CPU, f64 residual {gap_f:.3g} above the best")
+    apart23 = max(abs(errs_c[c] - errs_f[c]) / errs_f[c] for c in errs_f)
+    tr23.apply_transportation()
+    traj23, vel23 = tr23.training_traj, tr23.training_delta
+    dyn23 = gp_core.condition(tr23.method.delta_map.kernel_, traj23, vel23)
+    alea23 = hs.fit_aleatoric_gp(traj23, tr23.var_vel_transported, n_restarts=0)
+    lo23, hi23 = traj23.min(0).values, traj23.max(0).values
+    g23 = torch.stack(torch.meshgrid(*(torch.linspace(float(a), float(b), 20, device=device)
+                                       for a, b in zip(lo23, hi23)), indexing="ij"), -1)
+    mean23, sig_h, sig_a = hs.heteroscedastic_field(dyn23, alea23, g23.reshape(-1, 2))
+    if not all(torch.isfinite(t).all() and (t >= 0).all() for t in (sig_h, sig_a)) or \
+            not torch.isfinite(mean23).all():
+        raise AssertionError("the heteroscedastic field is not finite and non-negative")
+    print(f"diffeomorphism sweep: GaussianProcessTransportationDiffeo(jit_fit=True) on the bench "
+          f"inputs (Q={Q_MAIN}, n={N_MAIN}), {DIFFEO_TRIALS} trials and the refit, f32: "
+          f"small_lml_value_grad launches {counts23['small_lml_value_grad']}, "
+          f"fused_gp_predict_mean {counts23['fused_gp_predict_mean']}; {sweep_ms:.1f} ms (CUDA "
+          f"events, one run); each trial's residual vs the f64 CPU residual at the kernel it "
+          f"fitted: rel max {np.max(np.abs(err32 - err_at) / err_at):.3g}, error/bound max "
+          f"{ex23.max():.3g} (bound 1e-3*(1 + kappa*eps32), kappa up to {kappa23.max():.3g}); "
+          f"planted faults on the first {nf} trials rejected, error/bound "
+          + ", ".join(f"{k} {v:.3g}" for k, v in fault23.items())
+          + f"; every fit's LML (f64) above its start (min rise {lml_rise.min():.4g}); "
+          f"best_max_lengthscale {best23:.4f} (in f64 at the card's fits {best_at:.4f}); "
+          f"{DIFFEO_CHECK_TRIALS}-trial sweeps: best {best_c:.4f} on the card, {best_f:.4f} in "
+          f"f64 on the CPU ({cpu_s23:.1f} s), the card's best {gap_f:.3g} above the f64 best's "
+          f"residual (<= 1e-3), separate fits' residuals up to {apart23:.3g} apart; "
+          f"heteroscedastic_field on a 20x20 grid: sigma_hetero in [{sig_h.min().item():.4g}, "
+          f"{sig_h.max().item():.4g}], sigma_aleatoric in [{sig_a.min().item():.4g}, "
+          f"{sig_a.max().item():.4g}], finite and non-negative {tag}", flush=True)
+    del tr23, trials23
+
+    # 24. the mixed-precision solve at phase 8's inputs
+    from gaussian_process_transportation_tpu_torch.ops import mixed_linalg as mx
+
+    kern24 = K.Constant(2.0) * K.RBF(torch.ones(D_SOLVE, **f32)) + K.White(0.1)
+    K24 = kern24(Xs)
+    K64 = f64_gram(Xs, 2.0, 0.1)
+    rel_8 = rel_residual_f64(K64, solve_path(), Ys)
+    mixed24 = {}
+    for prec in ("default", "high"):
+        (alpha24, L24, rel24), counts24 = drive(lambda: mx.gram_chol_solve_mixed(
+            kern24, Xs, Ys, jitter=0.0, syrk_precision=prec))
+        if any(counts24.values()):
+            raise AssertionError(f"the mixed-precision solve launched a hand kernel: {counts24}")
+        definite = bool(torch.isfinite(L24).all())
+        rels = ((rel_residual_f64(K64, mx._cho(L24, Ys), Ys), rel_residual_f64(K64, alpha24, Ys))
+                if definite else (math.nan, math.nan))
+        factor = cuda_ms(lambda: mx.blocked_cholesky(K24, syrk_precision=prec))
+        pcg = cuda_ms(lambda: mx.pcg_solve(K24, L24, Ys)) if definite else (math.nan, [])
+        mixed24[prec] = (definite, rels, rel24.item(), factor, pcg)
+    del K64, L24, alpha24
+    # "default" (bf16 operands) at this Gram's condition number may lose
+    # definiteness in a diagonal block: the factor is NaN, which the solve's
+    # residual carries for its caller to gate on.  "high" must factor, be
+    # well above float32 precision alone and reach the float32 solve after PCG.
+    ok24, (lo24, pcg24), _, _, _ = mixed24["high"]
+    if not (ok24 and lo24 > 1e3 * F32_EPS and pcg24 <= 10 * rel_8 and pcg24 < lo24 / 3):
+        raise AssertionError(f"mixed-precision solve, 'high': factor definite {ok24}, residual of "
+                             f"the factor alone {lo24:.3g}, after PCG {pcg24:.3g}, phase 8's float32 "
+                             f"solve {rel_8:.3g}")
+    if mixed24["default"][0] and not math.isfinite(mixed24["default"][2]):
+        raise AssertionError("the 'default' factor is finite but its solve's residual is not")
+    # "default" on a Gram it factors: phase 8's points with the noise raised to
+    # MIXED_NOISE (kappa ~5e2; a CPU emulation of the bf16 panels factors from
+    # 3 on), against phase 8's float32 solve of the same Gram
+    kern24w = K.Constant(2.0) * K.RBF(torch.ones(D_SOLVE, **f32)) + K.White(MIXED_NOISE)
+    (alpha24w, L24w, _), counts24w = drive(lambda: mx.gram_chol_solve_mixed(
+        kern24w, Xs, Ys, jitter=0.0, syrk_precision="default"))
+    if any(counts24w.values()):
+        raise AssertionError(f"the mixed-precision solve launched a hand kernel: {counts24w}")
+    K64 = f64_gram(Xs, 2.0, MIXED_NOISE)
+    rel_8w = rel_residual_f64(K64, bc.gram_cholesky_solve(Xs, Ys, ls3, 2.0, MIXED_NOISE,
+                                                          block=BLOCK)[0], Ys)
+    ok24w = bool(torch.isfinite(L24w).all())
+    lo24w, pcg24w = ((rel_residual_f64(K64, mx._cho(L24w, Ys), Ys),
+                      rel_residual_f64(K64, alpha24w, Ys)) if ok24w else (math.nan, math.nan))
+    del K64, L24w, alpha24w
+    if not (ok24w and lo24w > 1e3 * F32_EPS and pcg24w <= 10 * rel_8w):
+        raise AssertionError(f"mixed-precision solve, 'default' at noise {MIXED_NOISE}: factor "
+                             f"definite {ok24w}, residual of the factor alone {lo24w:.3g}, after "
+                             f"PCG {pcg24w:.3g}, phase 8's float32 solve {rel_8w:.3g}")
+    print(f"mixed-precision solve: gram_chol_solve_mixed N={N_SOLVE} (phase 8's inputs, kappa "
+          f"~4.8e4) block 1024, no hand-kernel launch; relative residuals (f64) against phase 8's "
+          f"float32 solve {rel_8:.3g}: "
+          + "; ".join(f"syrk '{p}': " + (f"the factor alone {r[0]:.3g}, after 24 PCG iterations "
+                                          f"{r[1]:.3g} (its own f32 reading {own:.3g}), the factor "
+                                          f"{fa[0]:.4f} ms {fa[1]}, PCG {pc[0]:.4f} ms {pc[1]}"
+                                          if ok else f"the factor not definite (NaN; the solve's "
+                                          f"residual {own}), {fa[0]:.4f} ms {fa[1]}")
+                     for p, (ok, r, own, fa, pc) in mixed24.items())
+          + f" (medians of {REPS}, CUDA events) beside phase 8's whole solve {solve_ms:.4f} ms; "
+          f"syrk 'default' at noise {MIXED_NOISE}: the factor alone {lo24w:.3g}, after PCG "
+          f"{pcg24w:.3g}, phase 8's float32 solve of that Gram {rel_8w:.3g} {tag}",
+          flush=True)
+    del K24
+
+    # 25. the variants: affine, KMP and Laplacian-editing transports
+    var25 = {}
+    for name in VARIANTS:
+        tr64c = drive_variant(name, device, torch.float64, X, dX, S, S1)
+        tr64 = drive_variant(name, "cpu", torch.float64, X, dX, S, S1)
+        tr32, counts25f = drive(lambda: drive_variant(name, device, torch.float32, X, dX, S, S1))
+        rel64 = max((getattr(tr64c, a).cpu() - getattr(tr64, a)).abs().max().item() / scale
+                    for a in ("training_traj", "training_delta", "std"))
+        rel32 = max((getattr(tr32, a).double().cpu() - getattr(tr64, a)).abs().max().item() / scale
+                    for a in ("training_traj", "training_delta", "std"))
+        if not (rel64 < 1e-6 and all(torch.isfinite(getattr(tr32, a)).all()
+                                     for a in ("training_traj", "training_delta", "std"))):
+            raise AssertionError(f"{name}: float64 on the card vs the CPU err/max|X| {rel64:.3g}, or "
+                                 "the float32 run not finite")
+        var25[name] = (rel64, rel32, counts25f["fused_gp_predict_mean"])
+    print("variants on the bench inputs (Q=400, n=20), KMP's time GP without restarts: "
+          + "; ".join(f"{k}: float64 on the card vs the f64 CPU run err/max|X| {a:.3g} (< 1e-6), "
+                      f"float32 {b:.3g}, fused_gp_predict_mean {c} in f32"
+                      for k, (a, b, c) in var25.items()) + f" {tag}", flush=True)
+
     # the launches of #2 and #3 in their paths' runs (phases 13 and 14)
     kernels_json["small_lml_value_grad"]["launches"] = counts14["small_lml_value_grad"]
     # the later paths' launches (phases 16, 17 and 19) beside the main path's
     kernels_json["small_lml_value_grad"].setdefault("extra", {}).update(
         nuts_launches=counts17["small_lml_value_grad"],
-        checkpointed_resume_launches=counts19["small_lml_value_grad"])
+        checkpointed_resume_launches=counts19["small_lml_value_grad"],
+        fit_jit_launches=counts21["small_lml_value_grad"],
+        diffeo_sweep_launches=counts23["small_lml_value_grad"])
     for name in ("stationary_gram_panels", "factor_panel"):
         kernels_json[name].setdefault("extra", {}).update(
             blocked_lml_launches_per_evaluation=counts16a[name],
-            fit_blocked_launches=counts16[name])
+            fit_blocked_launches=counts16[name],
+            active_learning_fit_launches=counts22[name])
+    kernels_json["fused_gp_predict_mean"].setdefault("extra", {}).update(
+        active_learning_predict_launches=counts22p["fused_gp_predict_mean"],
+        diffeo_sweep_launches=counts23["fused_gp_predict_mean"])
     kernels_json["small_lml_value_grad_md"].update(
         launches=counts13["small_lml_value_grad_md"], value_only_launches=counts13[VALUE_ONLY])
 

@@ -167,13 +167,19 @@ class Kernel:
 
     def dxdz_diag(self, x: Tensor) -> Tensor:
         """diag_d ∂²k(a, b)/∂a_d∂b_d at a = b = x_i, (N, D): forward over
-        reverse mode through :meth:`pairwise`."""
+        reverse mode through :meth:`pairwise`; a kernel without a second
+        derivative at a = b raises (:meth:`_check_twice_differentiable`)."""
         from torch.func import jacfwd, jacrev, vmap
+
+        self._check_twice_differentiable()
 
         def at_point(xi):
             return torch.diagonal(jacfwd(jacrev(self.pairwise, argnums=0), argnums=1)(xi, xi))
 
         return vmap(at_point)(x)
+
+    def _check_twice_differentiable(self) -> None:
+        """Raises where k(a, b) has no mixed second derivative at a = b."""
 
     # ---- the flat log-space hyperparameter vector ------------------------
     def _leaves(self) -> List["Kernel"]:
@@ -370,6 +376,27 @@ def _matern_of_d(d: Tensor, nu: float) -> Tensor:
     raise NotImplementedError(f"Matern nu={nu} not supported")
 
 
+# Below this d², ``Matern.pairwise`` takes the profile's Taylor series in d²
+# (ν = 3⁄2: 1 − 3⁄2·d²; ν = 5⁄2: 1 − 5⁄6·d² + 25⁄24·d⁴), whose autodiff
+# derivatives are right at a = b; the terms it drops (√3·d³ and −(√5 d)⁵/45)
+# are below 2e-18 there, under float64's rounding of 1.
+_MATERN_SERIES_D2 = 1e-12
+_MATERN_SERIES = {1.5: (-1.5, 0.0), 2.5: (-5.0 / 6.0, 25.0 / 24.0)}
+
+
+def _matern_of_d2(d2: Tensor, nu: float) -> Tensor:
+    """The Matérn profile as a function of d², twice differentiable at 0 for
+    ν = 3⁄2 and 5⁄2: the series below ``_MATERN_SERIES_D2``, the closed form
+    above it, evaluated at d² = 1 where the series is taken so that neither
+    branch's derivatives are infinite (a NaN would survive the select)."""
+    if nu not in _MATERN_SERIES:
+        return _matern_of_d(torch.sqrt(d2 + 1e-36), nu)
+    c1, c2 = _MATERN_SERIES[nu]
+    small = d2 < _MATERN_SERIES_D2
+    exact = _matern_of_d(torch.sqrt(torch.where(small, torch.ones_like(d2), d2)), nu)
+    return torch.where(small, 1.0 + d2 * (c1 + c2 * d2), exact)
+
+
 def _matern_dcoeff(d2: Tensor, nu: float) -> Tensor:
     """c(d) with ∂k/∂x = −c · (x − z)/ℓ² (the ν=½ subgradient at d=0)."""
     if nu == math.inf:
@@ -409,7 +436,7 @@ class Matern(Kernel):
         d2 = (((a - b) / ls) ** 2).sum()
         if self.nu == math.inf:
             return torch.exp(-0.5 * d2)
-        return _matern_of_d(torch.sqrt(d2 + 1e-36), self.nu)
+        return _matern_of_d2(d2, self.nu)
 
     def dx(self, x, Z):
         ls = _ls(self.lengthscale, x)
@@ -425,10 +452,13 @@ class Matern(Kernel):
         return diffT * c[..., None, :, :]
 
     def dxdz_diag(self, x):
-        scale = {math.inf: 1.0, 1.5: 3.0, 2.5: 5.0 / 3.0}.get(self.nu)
-        if scale is None:
-            raise NotImplementedError(f"dxdz_diag undefined for nu={self.nu}")
+        self._check_twice_differentiable()
+        scale = {math.inf: 1.0, 1.5: 3.0, 2.5: 5.0 / 3.0}[self.nu]
         return scale * torch.ones_like(x) / _ls(self.lengthscale, x) ** 2
+
+    def _check_twice_differentiable(self):
+        if self.nu not in (math.inf, 1.5, 2.5):
+            raise NotImplementedError(f"dxdz_diag undefined for nu={self.nu}")
 
     def _leaf_value(self):
         return self.lengthscale
@@ -507,7 +537,7 @@ class Product(Kernel):
         # the first derivatives of a stationary factor vanish there, so each
         # factor's own closed form gives the product's (a Constant or White
         # factor has k'' = 0 and reduces it to c·k'').  Not autodiff through
-        # ``pairwise``: a Matérn's d = sqrt(d² + 1e-36) makes that wrong at
-        # a = b (ROADMAP.md, queue 3).
+        # ``pairwise``: the closed forms are exact and cheaper (the JAX
+        # package's autodiff form is wrong at a = b for a Matérn factor).
         return (self.k1.diag(x)[..., None] * self.k2.dxdz_diag(x)
                 + self.k2.diag(x)[..., None] * self.k1.dxdz_diag(x))

@@ -3,6 +3,7 @@ from .exact_gp import (
     condition,
     log_marginal_likelihood,
     fit,
+    fit_jit,
     fit_blocked,
     condition_blocked,
     predict,
@@ -14,16 +15,18 @@ from .exact_gp import (
 )
 from .gp_regressor import GaussianProcess
 from .affine import AffineTransform
+from .kmp import KMP
+from .laplacian_editing import LaplacianEditing
 
-# The JAX package also exports fit_jit, KMP, LaplacianEditing, MLP,
-# EnsembleMLP, BijectiveNetwork, EnsembleBijectiveNetwork,
-# EnsembleRandomForest and StochasticVariationalGaussianProcess: not ported
-# yet (ROADMAP.md, queue 1).
+# The JAX package also exports its learned models (MLP, EnsembleMLP,
+# BijectiveNetwork, EnsembleBijectiveNetwork, EnsembleRandomForest and
+# StochasticVariationalGaussianProcess): not ported yet (ROADMAP.md, queue 1).
 __all__ = [
     "ExactGP",
     "condition",
     "log_marginal_likelihood",
     "fit",
+    "fit_jit",
     "fit_blocked",
     "condition_blocked",
     "predict",
@@ -34,4 +37,6 @@ __all__ = [
     "white_noise_level",
     "GaussianProcess",
     "AffineTransform",
+    "KMP",
+    "LaplacianEditing",
 ]

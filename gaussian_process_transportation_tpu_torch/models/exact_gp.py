@@ -9,8 +9,9 @@ posterior covariance and samples, the Jacobian posterior and the gradient
 of the predictive variance; and the hyperparameter fits: the log marginal
 likelihood with its analytic gradient, ``fit`` (scipy L-BFGS-B with
 restarts), ``fit_ensemble_fused`` (per-lane projected L-BFGS over the
-fused small-LML kernel of ``ops/fused_lml.py``, one launch per candidate)
-and ``fit_blocked`` (the large-N fit, projected L-BFGS over the blocked
+fused small-LML kernel of ``ops/fused_lml.py``, one launch per candidate),
+``fit_jit`` (the restarts of one dataset as lanes of that L-BFGS) and
+``fit_blocked`` (the large-N fit, projected L-BFGS over the blocked
 LML of ``ops/blocked_lml.py``).
 
 Conventions follow the original project's sklearn wrapper: the std may
@@ -426,16 +427,18 @@ def log_marginal_likelihood(kernel: Kernel, X: Tensor, Y: Tensor, jitter: float 
     (...,).  For N ≤ 64 the gradient is the analytic trace identity of
     :class:`_SmallLML` (the JAX package's ``_lml_small`` custom VJP),
     pulled back through the Gram build only; larger N differentiate
-    through the Cholesky."""
+    through the Cholesky.  A Gram that is not positive definite gives NaN,
+    as XLA's Cholesky does, so a fit's lanes can read it as a bad value."""
     Y2 = Y[..., None] if Y.dim() == X.dim() - 1 else Y
     K = add_diagonal(kernel(X), jitter)
     n, p = X.shape[-2], Y2.shape[-1]
     if n <= 64:
         return _SmallLML.apply(K, Y2)[0]
-    L = torch.linalg.cholesky(K)
+    L, info = torch.linalg.cholesky_ex(K)
     alpha = cho_solve_lower(L, Y2)
-    return -0.5 * (Y2 * alpha).sum((-2, -1)) - p * (0.5 * log_det_from_chol(L)
-                                                    + 0.5 * n * _LOG_2PI)
+    val = -0.5 * (Y2 * alpha).sum((-2, -1)) - p * (0.5 * log_det_from_chol(L)
+                                                   + 0.5 * n * _LOG_2PI)
+    return torch.where(info != 0, torch.full_like(val, math.nan), val)
 
 
 def _filter_nan_rows(X: Tensor, Y: Tensor) -> Tuple[Tensor, Tensor]:
@@ -691,6 +694,96 @@ def fit_ensemble_fused(
     x_er = x.T.reshape(E, R, T)
     th_best = x_er[torch.arange(E, device=device), best]
     return th_best[:, inv_perm], -v_er[torch.arange(E, device=device), best]
+
+
+def fit_jit(
+    kernel: Kernel,
+    X: Tensor,
+    Y: Tensor,
+    n_restarts: int = 5,
+    generator: Optional[torch.Generator] = None,
+    jitter: float = 1e-10,
+    maxiter: int = 100,
+) -> ExactGP:
+    """Multi-restart fit with every restart a lane of one per-lane projected
+    L-BFGS (:func:`_lbfgs_elast`, ``maxiter`` iterations), then
+    conditioning at the lane of the lowest negative LML.
+
+    The starts are ``kernel.theta`` (clipped to the log-space bounds) and
+    ``n_restarts`` draws uniform in them from ``generator`` (a CPU
+    generator, so that every device starts from the same points; seed 0
+    when None).  All lanes share
+    (X, Y), so their value and gradient is one batched call a candidate:
+
+    * fused, for a kernel of the fused family (:func:`small_lml_theta_layout`)
+      and n ≤ ``fused_lml.MAX_N``: ``ops.fused_lml.small_lml_value_grad``,
+      kernel #2 for float32 CUDA tensors (one launch a candidate), its plain
+      twin in X's dtype for CPU ones;
+    * otherwise (a float64 CUDA X too) ``torch.func.vmap`` of the LML's
+      gradient over the lanes, in X's dtype, for any kernel.
+
+    A non-finite value reads 1e25 and its gradient 0; a non-finite gradient
+    entry reads 0.  The fit conditions on the best lane whose Gram factors
+    (the next best where a float32 Gram at the noise floor does not; JAX's
+    would give NaN).  Rows with NaN targets are dropped first.  The JAX
+    package runs optax's L-BFGS with a zoom line search; this one halves
+    its step (Armijo), so the two reach the same optimum by different
+    paths."""
+    Xd, Y2 = _filter_nan_rows(X, Y)
+    theta0 = kernel.theta
+    if theta0.numel() == 0:
+        return condition(kernel, Xd, Y2, jitter)
+    device, dtype = Xd.device, Xd.dtype
+    layout = small_lml_theta_layout(kernel)
+    use_fused = (layout is not None and Xd.shape[0] <= fused_lml.MAX_N
+                 and (device.type == "cpu" or dtype == torch.float32))
+    bounds = kernel.theta_bounds.to(dtype=dtype, device=device)
+    lo, hi = bounds[:, 0], bounds[:, 1]
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    u = torch.rand((max(n_restarts, 0), lo.shape[0]), generator=generator, dtype=torch.float64)
+    u = u.to(dtype=dtype, device=device)
+    starts = torch.cat([theta0.to(dtype=dtype, device=device)[None], lo + u * (hi - lo)])
+    starts = torch.minimum(torch.maximum(starts, lo), hi)  # every lane inside the bounds
+
+    if use_fused:
+        family, n_ls, has_noise, perm_np = layout
+        perm = torch.as_tensor(perm_np, device=device)
+        inv_perm = torch.as_tensor(np.argsort(perm_np), device=device)
+        Xc, Yc = Xd.contiguous(), Y2.to(dtype).contiguous()
+
+        def lml_lanes(th: Tensor) -> Tuple[Tensor, Tensor]:
+            val, grad = fused_lml.small_lml_value_grad(
+                Xc, Yc, th[perm].contiguous(), family=family, n_ls=n_ls, has_noise=has_noise,
+                jitter=jitter)
+            return val, grad[inv_perm]
+    else:
+        from torch.func import grad_and_value, vmap
+
+        Yc = Y2.to(dtype)
+        lanes = vmap(grad_and_value(
+            lambda th: log_marginal_likelihood(kernel.with_theta(th), Xd, Yc, jitter)))
+
+        def lml_lanes(th: Tensor) -> Tuple[Tensor, Tensor]:
+            grad, val = lanes(th.T)
+            return val, grad.T
+
+    def nll_b(th: Tensor) -> Tuple[Tensor, Tensor]:
+        val, grad = lml_lanes(th)
+        bad = ~torch.isfinite(val)
+        v = torch.where(bad, torch.full_like(val, 1e25), -val)
+        g = torch.where(torch.isfinite(grad) & ~bad[None, :], -grad, torch.zeros_like(grad))
+        return v, g
+
+    x, v = _lbfgs_elast(nll_b, starts.T.contiguous(), lo[:, None], hi[:, None], maxiter)
+    # the best lane whose Gram factors in X's dtype: a float32 fit at its
+    # noise floor can reach a Gram that condition()'s Cholesky refuses
+    for lane in torch.argsort(v).tolist():
+        try:
+            return condition(kernel.with_theta(x[:, lane]), Xd, Y2, jitter)
+        except torch.linalg.LinAlgError:
+            continue
+    raise torch.linalg.LinAlgError("fit_jit: no lane's Gram is positive definite")
 
 
 def _family_nodes(kernel: Kernel):

@@ -29,23 +29,27 @@ class GaussianProcess:
     ):
         if optimizer not in (None, "lbfgs"):
             raise ValueError(f"optimizer must be None or 'lbfgs', got {optimizer!r}")
-        if jit_fit:
-            raise NotImplementedError(
-                "jit_fit (the compiled multi-restart fit, exact_gp.fit_jit) is not ported yet: "
-                "see ROADMAP.md, queue 1")
         self.kernel = kernel
         self.alpha = alpha
         self.optimizer = optimizer
         self.n_restarts_optimizer = n_restarts_optimizer
         self.seed = seed
+        self.jit_fit = jit_fit
         self.state: Optional[core.ExactGP] = None
 
     def fit(self, X: Tensor, Y: Tensor):
         """Condition on (X, Y) with NaN-target rows dropped; with the
-        ``"lbfgs"`` optimizer the hyperparameters are fitted first."""
+        ``"lbfgs"`` optimizer the hyperparameters are fitted first, by
+        scipy's L-BFGS-B (``exact_gp.fit``), or with ``jit_fit`` by the
+        restarts as lanes of one batched L-BFGS on X's device
+        (``exact_gp.fit_jit``)."""
         if self.optimizer is None:
             Xn, Yn = core._filter_nan_rows(X, Y)
             self.state = core.condition(self.kernel, Xn, Yn, self.alpha)
+        elif self.jit_fit:
+            gen = torch.Generator().manual_seed(self.seed)
+            self.state = core.fit_jit(self.kernel, X, Y, n_restarts=self.n_restarts_optimizer,
+                                      generator=gen, jitter=self.alpha)
         else:
             gen = torch.Generator().manual_seed(self.seed)
             self.state = core.fit(self.kernel, X, Y, n_restarts=self.n_restarts_optimizer,

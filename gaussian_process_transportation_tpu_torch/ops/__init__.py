@@ -27,9 +27,14 @@ from .blocked_lml import (
     tri_inverse_panels,
 )
 
-# The JAX package also exports its XLA-level mixed-precision variants
-# (blocked_cholesky_mixed, ir_solve, pcg_solve, gram_chol_solve_mixed): not
-# ported (pcg_solve waits in ROADMAP.md, queue 1).
+# The mixed-precision variants in plain PyTorch (no route of condition()).
+from .mixed_linalg import (
+    blocked_cholesky as blocked_cholesky_mixed,
+    ir_solve,
+    pcg_solve,
+    gram_chol_solve_mixed,
+)
+
 __all__ = [
     "add_diagonal",
     "cholesky_with_jitter",
@@ -49,4 +54,8 @@ __all__ = [
     "make_blocked_lml",
     "stationary_dk_dd2",
     "tri_inverse_panels",
+    "blocked_cholesky_mixed",
+    "ir_solve",
+    "pcg_solve",
+    "gram_chol_solve_mixed",
 ]

@@ -9,6 +9,11 @@ from gaussian_process_transportation_tpu.models import affine as jaff
 from gaussian_process_transportation_tpu_torch.convert import affine_from_numpy
 from gaussian_process_transportation_tpu_torch.models import affine as taff
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 TOL = 1e-10  # SVD / atan2 of the same 2x2 or 3x3 matrices in float64
 FIELDS = ("rotation", "scale", "source_centroid", "target_centroid")
 

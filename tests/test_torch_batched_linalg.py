@@ -10,6 +10,11 @@ import torch
 from gaussian_process_transportation_tpu.ops import batched_linalg as jbl
 from gaussian_process_transportation_tpu_torch.ops import batched_linalg as tbl
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 
 def _spd_batch(n, E, seed=0):
     """(E, n, n) float32 SPD matrices A Aᵀ + 3I, as the JAX package's

@@ -13,6 +13,11 @@ import torch
 from gaussian_process_transportation_tpu.ops import blocked_chol as jbc
 from gaussian_process_transportation_tpu_torch.ops import blocked_chol as tbc
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 FAMILIES = ("rbf", "matern12", "matern32", "matern52")
 
 

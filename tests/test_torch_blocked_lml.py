@@ -18,6 +18,11 @@ from gaussian_process_transportation_tpu_torch.ops.blocked_chol import (
 )
 from gaussian_process_transportation_tpu_torch.ops.pallas_gram import stationary_gram_plain
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 FAMILIES = ("rbf", "matern12", "matern32", "matern52")
 N, D, P_OUT, B = 600, 3, 2, 128  # five panels, the last one padded
 LOG_AMP, LOG_NOISE = 0.3, math.log(0.05)

@@ -14,6 +14,11 @@ from gaussian_process_transportation_tpu_torch.parallel import checkpointed as c
 from gaussian_process_transportation_tpu_torch.parallel import samplers as ts
 from gaussian_process_transportation_tpu_torch.utils import artifacts
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 MU = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64)
 KW = dict(num_warmup=10, num_samples=12, segment=5, num_leapfrog=4)
 

@@ -698,3 +698,81 @@ def test_blocked_lml_matches_its_cpu_twin(device, family, monkeypatch):
     got = torch.cat([g_d[0].reshape(1), g_d[1], g_d[2].reshape(1)]).cpu()
     want = torch.cat([g_c[0].reshape(1), g_c[1], g_c[2].reshape(1)])
     assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+def test_fit_jit_runs_its_lanes_on_kernel_2(device, monkeypatch):
+    """fit_jit on float32 CUDA tensors: one launch of kernel #2 for each
+    candidate of all lanes (1 + maxiter·7), no other hand kernel; the fitted
+    LML (f64) within 1e-3 of the same fit through the twin on the CPU; and
+    #2 at fit_jit's shape (n=20 D=2 p=2, six lanes, both n_ls) against its
+    twin and the f64 formula to chip_smoke's bound."""
+    _reset_lml_counts(monkeypatch)
+    src, res = chip_smoke.residual_inputs(device, torch.float32)
+    kern = chip_smoke.fit_kernel(dtype=torch.float32, device=device)
+    gp = tgp.fit_jit(kern, src, res, n_restarts=2, maxiter=5,
+                     generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert tfl.small_lml_value_grad.launches == 1 + 5 * 7
+    assert tfl.small_lml_value_grad_md.launches == 0
+    src_c, res_c = chip_smoke.residual_inputs("cpu", torch.float32)
+    twin = tgp.fit_jit(chip_smoke.fit_kernel(dtype=torch.float32, device="cpu"), src_c, res_c,
+                       n_restarts=2, maxiter=5, generator=torch.Generator().manual_seed(0))
+    s64, r64 = chip_smoke.residual_inputs("cpu", torch.float64)
+    k64 = chip_smoke.fit_kernel(dtype=torch.float64, device="cpu")
+    lml = [tgp.log_marginal_likelihood(k64.with_theta(g.kernel.theta.double().cpu()), s64,
+                                       r64).item() for g in (gp, twin)]
+    assert abs(lml[0] - lml[1]) <= 1e-3 * abs(lml[1]), lml
+    for n_ls in (1, 2):
+        case = ("rbf", chip_smoke.N_MAIN, 2, 2, n_ls, True)
+        diff, excess = chip_smoke.check_lml_case(device, case, 6)["small_lml_value_grad"]
+        assert excess < 1 and diff < 1e-3, (case, diff, excess)
+
+
+def test_greedy_selection_on_the_card_matches_the_cpu(device):
+    """The selection loop on the card: float64 picks equal the CPU's; each
+    float32 greedy pick attains the largest float64 conditional variance
+    given the picks before it, to 1e-5 of amp + noise (float32 rounds
+    near-ties, e.g. points no pick has reached yet, which then go to the
+    lowest index)."""
+    from gaussian_process_transportation_tpu_torch.models import gp_active as tga
+
+    X, _ = chip_smoke.surface_inputs(1000)
+    seed = torch.randperm(1000, generator=torch.Generator().manual_seed(0))[:20]
+    picks = {}
+    for dev, dt in ((device, torch.float64), ("cpu", torch.float64), (device, torch.float32)):
+        kern = chip_smoke.al_kernel(dtype=dt, device=dev)
+        picks[(str(dev), dt)] = tga.greedy_variance_select(
+            kern, torch.as_tensor(X, dtype=dt, device=dev), 200, seed, noise=0.01).cpu()
+    assert torch.equal(picks[(str(device), torch.float64)], picks[("cpu", torch.float64)])
+    k64 = chip_smoke.al_kernel(dtype=torch.float64, device="cpu")
+    X64, p32 = torch.as_tensor(X, dtype=torch.float64), picks[(str(device), torch.float32)]
+    assert torch.equal(p32[:20], seed) and len(set(p32.tolist())) == 200
+    for j in range(20, 200, 20):
+        S = X64[p32[:j]]
+        V = torch.linalg.solve_triangular(torch.linalg.cholesky(k64(S)), k64(S, X64), upper=False)
+        var = k64.diag(X64) - (V * V).sum(0)
+        var[p32[:j]] = -float("inf")
+        assert var[p32[j]] >= var.max() - 1e-5 * 1.01, j
+
+
+def test_active_learning_blocked_predict_takes_k_star(device, monkeypatch):
+    """A panel-form GP's predict(return_std) takes its mean from k_star @ α,
+    as JAX's predict does (no launch of kernel #5), and agrees with the
+    dense float64 predict."""
+    from gaussian_process_transportation_tpu_torch.models import gp_active as tga
+
+    monkeypatch.setattr(tpg.fused_gp_predict_mean, "launches", 0)
+    X, Y = chip_smoke.surface_inputs(600)
+    m = tga.GaussianProcessActiveLearning(chip_smoke.al_kernel(device=device), n_samples_max=512,
+                                          use_blocked=True,
+                                          blocked_kwargs=dict(maxiter=2, block=128)).fit(X, Y)
+    q = chip_smoke.surface_inputs(64, seed=3)[0]
+    mean, std = m.predict(q)
+    torch.cuda.synchronize()
+    assert m.state.chol is not None and tpg.fused_gp_predict_mean.launches == 0
+    gp64 = tgp.condition(m.state.kernel.with_theta(m.state.kernel.theta.double()),
+                         m.X.double(), m.state.Y.double(), 1e-6)
+    mean64, std64 = tgp.predict(gp64, torch.as_tensor(q, dtype=torch.float64, device=device),
+                                return_std=True, epistemic_only=True)
+    assert (mean - mean64).abs().max().item() <= 5e-3 * mean64.abs().max().item()
+    assert (std - std64).abs().max().item() <= 5e-3 * std64.abs().max().item() + 1e-3

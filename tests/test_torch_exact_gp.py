@@ -12,6 +12,11 @@ from gaussian_process_transportation_tpu_torch import kernels as TK
 from gaussian_process_transportation_tpu_torch.convert import exact_gp_from_numpy, kernel_from_tree
 from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 TOL = 1e-9  # a Cholesky of the same well-conditioned Gram, solved two ways
 
 rng = np.random.default_rng(7)

@@ -15,6 +15,11 @@ from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
 from gaussian_process_transportation_tpu_torch.models.gp_regressor import GaussianProcess
 from gaussian_process_transportation_tpu_torch.ops import fused_lml as tfl
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 LML_KERNELS = {
     "c_rbf_ard_white": lambda: JK.Constant(2.0) * JK.RBF(jnp.asarray([1.0, 0.7])) + JK.White(0.05),
     "white_first_rbf_iso": lambda: JK.White(0.02) + JK.Constant(1.5) * JK.RBF(0.8),
@@ -200,5 +205,14 @@ def test_fit_ensemble_fused_wide_shapes_match_jax(D, p):
 
 
 def test_gaussian_process_refuses_the_jit_fit():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GaussianProcess(TK.RBF(1.0), jit_fit=True)
+    """jit_fit is ported: GaussianProcess(jit_fit=True) fits through
+    exact_gp.fit_jit, its restarts drawn from a CPU generator seeded with
+    ``seed``, and conditions at the fitted kernel."""
+    X, Y = _data(12, p=1, seed=5)
+    kern = TK.Constant(1.0) * TK.RBF(torch.ones(2, dtype=torch.float64)) + TK.White(0.1)
+    gp = GaussianProcess(kern, n_restarts_optimizer=2, seed=3, jit_fit=True).fit(_t(X), _t(Y))
+    want = tgp.fit_jit(kern, _t(X), _t(Y), n_restarts=2, generator=torch.Generator().manual_seed(3),
+                       maxiter=100)
+    torch.testing.assert_close(gp.kernel_.theta, want.kernel.theta, rtol=0, atol=0)
+    torch.testing.assert_close(gp.state.alpha, want.alpha, rtol=0, atol=0)
+    assert gp.noise_var_ == pytest.approx(1e-10 + float(tgp.white_noise_level(want.kernel)))

@@ -13,6 +13,11 @@ from gaussian_process_transportation_tpu_torch.convert import kernel_from_tree
 from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
 from gaussian_process_transportation_tpu_torch.ops import fused_lml as tfl
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 # the JAX package's kernel-vs-reference tolerances (tests/test_fused_lml.py:97-98)
 VAL_RTOL, GRAD_RTOL = 2e-5, 2e-4
 F64_TOL = 1e-8

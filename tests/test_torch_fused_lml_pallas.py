@@ -10,6 +10,11 @@ import torch
 from gaussian_process_transportation_tpu.ops import fused_lml as jfl
 from gaussian_process_transportation_tpu_torch.ops import fused_lml as tfl
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 VAL_RTOL, GRAD_RTOL = 2e-5, 2e-4  # tests/test_fused_lml.py:97-98
 FAMILIES = ("rbf", "matern12", "matern32", "matern52")
 FORMS = [(1, True, 1), (2, False, 3)]  # (n_ls, has_noise, p) with D = 2

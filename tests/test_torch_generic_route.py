@@ -19,6 +19,11 @@ from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
 from gaussian_process_transportation_tpu_torch.ops import fused_lml as tfl
 from gaussian_process_transportation_tpu_torch.parallel import samplers as ts
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 SUM = lambda: (JK.Constant(1.0) * JK.RBF(1.0) + JK.Constant(0.5) * JK.Matern(3.0, nu=2.5)
                + JK.White(0.01))
 FAMILY = lambda: JK.Constant(1.0) * JK.RBF(jnp.ones(2)) + JK.White(0.01)

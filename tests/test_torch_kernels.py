@@ -12,6 +12,11 @@ from gaussian_process_transportation_tpu import kernels as JK
 from gaussian_process_transportation_tpu_torch import kernels as TK
 from gaussian_process_transportation_tpu_torch.convert import kernel_from_tree
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 TOL = 1e-12  # same float64 formulas, evaluated in a different order at most
 
 rng = np.random.default_rng(11)
@@ -135,11 +140,48 @@ def test_matern_times_rbf_dxdz_diag_is_the_closed_form(nu, scale):
         assert torch.isfinite(var).all() and (var > -1e-8).all()
 
 
+@pytest.mark.parametrize("nu", [1.5, 2.5, math.inf])
+def test_matern_generic_dxdz_diag_is_the_closed_form(nu):
+    """The base class's autodiff second derivative of a Matérn leaf at a = b
+    equals the closed form (s_ν/ℓ², s_ν = 3, 5/3, 1) to 1e-10: ``pairwise``
+    takes the profile's series in d² near 0.  JAX's autodiff form is wrong
+    there (Matérn 5/2 at ℓ = 1.2: −2.31 against the closed form 1.157), so
+    the port is held to the closed form, not to JAX.  Away from a = b,
+    ``pairwise`` is the closed-form profile to 1e-14, and the generic first
+    derivative equals ``Matern.dx``."""
+    from gaussian_process_transportation_tpu_torch.kernels.stationary import _matern_of_d
+
+    for ls in (_t([1.2]), _t(LS)):
+        k = TK.Matern(ls, nu=nu)
+        torch.testing.assert_close(TK.Kernel.dxdz_diag(k, _t(X)), k.dxdz_diag(_t(X)),
+                                   rtol=0, atol=1e-10)
+    torch.testing.assert_close(TK.Kernel.dx(k, _t(X), _t(Z)), k.dx(_t(X), _t(Z)),
+                               rtol=TOL, atol=TOL)
+    for a, b in zip(_t(X), _t(Z)):
+        d2 = (((a - b) / _t(LS)) ** 2).sum()
+        want = torch.exp(-0.5 * d2) if nu == math.inf else _matern_of_d(torch.sqrt(d2), nu)
+        assert abs(k.pairwise(a, b).item() - want.item()) <= 1e-14
+    for eps in (1e-7, 1e-5):  # either side of the series' edge at d² = 1e-12
+        b = _t(X[0]) + eps
+        d2 = (((_t(X[0]) - b) / _t(LS)) ** 2).sum()
+        want = torch.exp(-0.5 * d2) if nu == math.inf else _matern_of_d(torch.sqrt(d2), nu)
+        assert abs(k.pairwise(_t(X[0]), b).item() - want.item()) <= 1e-14
+
+
+def test_matern12_generic_dxdz_diag_raises():
+    """ν = 1/2 has no second derivative at a = b: the base class refuses it,
+    as ``Matern.dxdz_diag`` does."""
+    k = TK.Matern(_t(LS), nu=0.5)
+    for f in (TK.Kernel.dxdz_diag, TK.Matern.dxdz_diag):
+        with pytest.raises(NotImplementedError, match="nu=0.5"):
+            f(k, _t(X))
+
+
 # The generic derivatives (Kernel.dx, dxT, dxdz_diag on ``pairwise`` through
 # torch.func) against JAX's (jax.jacfwd / jacrev on its ``pairwise``).  RBF
-# factors only for dxdz_diag: at a = b the Matérn's d = sqrt(d² + 1e-36)
-# guard makes both packages' autodiff second derivative wrong, and wrong
-# differently (ROADMAP.md, queue 3).
+# factors only for dxdz_diag: at a = b JAX's autodiff second derivative of a
+# Matérn is wrong (its d = sqrt(d² + 1e-36) guard); the port's is held to
+# the closed form above.
 GENERIC = {
     "sum": (lambda K, ls: K.Constant(2.0) * K.RBF(ls) + K.Matern(0.9, nu=2.5) + K.White(0.1),
             ("pairwise", "dx", "dxT")),

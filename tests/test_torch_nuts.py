@@ -14,6 +14,11 @@ from gaussian_process_transportation_tpu_torch.convert import kernel_from_tree
 from gaussian_process_transportation_tpu_torch.ops import fused_lml as tfl
 from gaussian_process_transportation_tpu_torch.parallel import samplers as ts
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 MU = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64)
 SIGMA = torch.tensor([0.5, 2.0, 1.0], dtype=torch.float64)
 

@@ -7,6 +7,11 @@ import torch
 from gaussian_process_transportation_tpu.ops import quaternion as jq
 from gaussian_process_transportation_tpu_torch.ops import quaternion as tq
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 
 def _near_rotations(n=64, perturb=0.3, seed=0):
     """Random rotations with up to ``perturb`` non-orthogonal noise."""

@@ -13,6 +13,11 @@ import chip_smoke
 from gaussian_process_transportation_tpu_torch import kernels as K
 from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 
 def _grid_gp():
     """A small dense-grid case: N=300 standard-normal 2-D points, Y = sin X,

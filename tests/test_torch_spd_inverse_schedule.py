@@ -34,6 +34,11 @@ from gaussian_process_transportation_tpu.ops import pallas_gram as jpg
 from gaussian_process_transportation_tpu_torch.ops import batched_linalg as tbl
 from gaussian_process_transportation_tpu_torch.ops import pallas_gram as tpg
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 FAMILIES = ("rbf", "matern12", "matern32", "matern52")
 # the tolerances of the on-card checks (chip_smoke.py: F32_ATOL against the
 # twin, F32_INV_TOL against numpy's f64 inverse)

@@ -12,6 +12,11 @@ from gaussian_process_transportation_tpu_torch.convert import kernel_from_tree
 from gaussian_process_transportation_tpu_torch.ops import batched_linalg as tbl
 from gaussian_process_transportation_tpu_torch.transport import gpt as tgpt
 
+# One intra-op thread: the suite runs in several workers that share the
+# cores, and on tensors this small torch's default pool (a thread a core)
+# spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
+torch.set_num_threads(1)
+
 TOL = 1e-9  # the JAX package's own batched-vs-vmapped tolerance
 FIELDS = ("traj", "std", "delta", "delta_var", "min_abs_det", "ori")
 

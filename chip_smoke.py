@@ -2,8 +2,8 @@
 """On-card smoke run of the PyTorch port: the ensemble transport, the
 large-N exact GP, the hyperparameter fits (small and large N), the HMC and
 NUTS hyperposteriors, checkpointed runs, SMC particles, the active-learning
-GP, the diffeomorphism sweep, the mixed-precision solve and the transport
-variants.
+GP, the diffeomorphism sweep, the mixed-precision solve, the transport
+variants, the learned-map transports and the multi-frame baselines.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -174,7 +174,32 @@ Phases, one line each on stdout:
 25. ``AffineTransportation``, ``KMPTransport`` and
     ``LaplacianEditingTransport`` on the bench inputs: float64 on the card
     against float64 on the CPU to err/max|X| < 1e-6, float32 finite, its
-    error printed.
+    error printed;
+26. the eight learned-map transports (``MLPTransport``,
+    ``RandomForestTransport``, ``NeuralTransport``,
+    ``EnsembleNeuralTransport``, ``BijectiveTransport``,
+    ``EnsembleBijectiveTransport``, ``GMRTransport``, ``SVGPTransport``),
+    each at its defaults, at the comparison suite's shapes (phase 4's demo,
+    source and first target resampled to 100 points,
+    ``benchmarks/comparison.py:58-59``): float64 on the card against
+    float64 on the CPU with the same seed, every field to 1e-6 of its
+    largest entry (the forest's fitted map applied on both, as its host fit
+    flips near-tied splits; GMR's fields to 10x the spread that ε64 input
+    perturbations cause on the CPU, its Σ_xx being near-singular on these
+    inputs), samples of the right shape and finite, float32 finite with
+    its error printed, no launch of a hand kernel; the f32 fit's time (one
+    run after a warm-up) and the apply's (median of 5, CUDA events), and
+    for ``MLPTransport`` and ``EnsembleBijectiveTransport`` one traced fit's
+    wall and device ms, launches and idle share.  The random forest's split
+    search builds ``csrc/cart.cpp`` with g++ into ``_build/`` here;
+27. ``SVGPTransport`` on phase 9's member 0 (n=2500, D=3, Q=1000; M=100,
+    20 epochs, batch 128) with unit quaternions: float64 card vs CPU to
+    1e-6 of each field's largest entry, the quaternions unit to 1e-6, its
+    fit and apply times and one traced fit; ``fit_natgrad`` at the same
+    settings, card vs CPU; ``TPGMM()`` and ``HMMLQR()`` on six synthetic
+    demonstrations (``tests/test_baselines.py:20-42``) reproduced at the
+    seventh's frames, float64 card vs CPU to 1e-8 of max|traj|, float32
+    finite.
 
 Each path is driven with every launch count set to 0 just before and read
 just after.  Then one JSON line with the kernels' record and, last, the
@@ -1387,6 +1412,309 @@ def drive_variant(name, device, dtype, X, dX, S, S1):
     tr.fit_transportation()
     tr.apply_transportation()
     return tr
+
+
+# ---- phases 26-27: the learned-map transports and the multi-frame baselines
+
+# benchmarks/comparison.py:24-50 and the variants' defaults: every transport
+# at its own default settings
+LEARNED = ("MLPTransport", "RandomForestTransport", "NeuralTransport", "EnsembleNeuralTransport",
+           "BijectiveTransport", "EnsembleBijectiveTransport", "GMRTransport", "SVGPTransport")
+TRACED_FITS = ("MLPTransport", "EnsembleBijectiveTransport")  # the two largest fits
+N_CMP = 100  # run_comparison's n_traj and n_dist (benchmarks/comparison.py:58-59)
+# float64 on the card against float64 on the CPU, of each field's largest
+# entry; the baselines' trajectories of max|traj|
+LEARNED_TOL, BASELINE_TOL = 1e-6, 1e-8
+SVGP3_INDUCING, SVGP3_EPOCHS, SVGP3_BATCH = 100, 20, 128  # phase 27's 3-D SVGP
+FIELDS = ("training_traj", "training_delta", "std", "var_vel_transported", "training_ori")
+
+
+def comparison_inputs():
+    """Phase 26's inputs, as ``run_comparison`` forms them: phase 4's demo,
+    source and first target, each resampled to N_CMP points with the
+    port's ``resample``, and velocities by forward differences; float64
+    numpy."""
+    from gaussian_process_transportation_tpu_torch.utils.resample import resample
+
+    X, _, S, S1 = make_workload()
+    X, S, S1 = (resample(torch.as_tensor(a, dtype=torch.float64), num_points=N_CMP).numpy()
+                for a in (X, S, S1))
+    dX = np.zeros_like(X)
+    dX[:-1] = np.diff(X, axis=0)
+    return X, dX, S, S1
+
+
+def fit_learned(name, device, dtype, S, S1, **fit_kw):
+    """``transport.variants.<name>`` at its defaults, fitted on S → S1 in
+    ``dtype`` on ``device``."""
+    from gaussian_process_transportation_tpu_torch.transport import variants
+
+    tr = getattr(variants, name)(device=device)
+    tr.source_distribution, tr.target_distribution = (
+        torch.as_tensor(a, dtype=dtype, device=device) for a in (S, S1))
+    tr.fit_transportation(**fit_kw)
+    return tr
+
+
+def apply_learned(tr, X, dX, ori=None):
+    """``apply_transportation`` of the trajectory X, velocities dX and,
+    where given, orientations, put on the transport's device in the dtype
+    of its fit."""
+    dtype = torch.as_tensor(tr.source_distribution).dtype
+    put = lambda a: torch.as_tensor(a, dtype=dtype, device=tr.device)
+    tr.training_traj, tr.training_delta = put(X), put(dX)
+    if ori is not None:
+        tr.training_ori = put(ori)
+    tr.apply_transportation()
+    return tr
+
+
+def learned_fields(tr):
+    return {f: getattr(tr, f) for f in FIELDS if getattr(tr, f, None) is not None}
+
+
+def field_errors(got, want, scale=None):
+    """Each field's max |got − want| over the largest |want| entry (over
+    ``scale`` for the positions, where given)."""
+    out = {}
+    for f, w in learned_fields(want).items():
+        w = w.double().cpu()
+        ref = scale if (f == "training_traj" and scale) else w.abs().max().item()
+        out[f] = (getattr(got, f).double().cpu() - w).abs().max().item() / max(ref, 1e-300)
+    return out
+
+
+def forest_on_cpu(tr):
+    """A RandomForestTransport on the CPU holding the card run's fitted
+    affine map and forest."""
+    import copy
+    import dataclasses
+
+    cpu = lambda dc: type(dc)(**{f.name: getattr(dc, f.name).cpu()
+                                 for f in dataclasses.fields(dc)})
+    ref = copy.copy(tr)
+    ref.device = torch.device("cpu")
+    ref.affine_transform = copy.copy(tr.affine_transform)
+    ref.affine_transform.params = cpu(tr.affine_transform.params)
+    ref.delta_map = copy.copy(tr.delta_map)
+    ref.delta_map.params = cpu(tr.delta_map.params)
+    return ref
+
+
+def fmt_traced(fn):
+    """``path_breakdown`` of one fit (every kernel it launched), printed."""
+    b = path_breakdown(fn, "")
+    return (f"one traced fit {b['wall_ms']:.1f} ms wall, {b['device_ms']:.1f} ms of device "
+            f"kernels in {b['all_launches']} launches "
+            f"({100 * (1 - b['device_ms'] / b['wall_ms']):.1f}% of the wall idle)")
+
+
+def wall_s(fn):
+    """(seconds, result) of one call of ``fn``, the card synchronised
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def natgrad_posterior(device, S, S1, X):
+    """``svgp.fit_natgrad`` of the residual S1 − S at phase 27's settings in
+    float64 on ``device``: (fit seconds, posterior mean, posterior std at
+    X), the posteriors on the CPU."""
+    from gaussian_process_transportation_tpu_torch import kernels as K
+    from gaussian_process_transportation_tpu_torch.models import svgp
+    from gaussian_process_transportation_tpu_torch.models._training import cpu_generator
+
+    put = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+    kernel = K.Constant(1.0) * K.RBF(put(np.ones(S.shape[1])))
+    fit_s, state = wall_s(lambda: svgp.fit_natgrad(
+        kernel, put(S), put(S1 - S), num_inducing=SVGP3_INDUCING, num_epochs=SVGP3_EPOCHS,
+        batch_size=SVGP3_BATCH, generator=cpu_generator(0)))
+    mean, std = svgp.posterior_f(svgp.collapse(state), put(X))
+    return fit_s, mean.cpu(), std.cpu()
+
+
+def synthetic_frames(n_demos=7, T=40, seed=0):
+    """tests/test_baselines.py:20-42: demonstrations from frame 0's origin
+    to frame 1's with a bulge and a dwell at the goal."""
+    r = np.random.RandomState(seed)
+    demos_x, A, b = [], [], []
+    for _ in range(n_demos):
+        b0, b1 = r.uniform(-20, 20, 2), r.uniform(-20, 20, 2)
+        th = r.uniform(-np.pi, np.pi)
+        R1 = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        t = np.linspace(0, 1, T - 6)
+        path = np.outer(1 - t, b0) + np.outer(t, b1) + np.outer(np.sin(np.pi * t) * 5.0, R1 @ [0, 1])
+        demos_x.append(np.vstack([path, np.tile(path[-1], (6, 1))]))
+        A.append(np.tile(np.stack([np.eye(2), R1])[None], (T, 1, 1, 1)))
+        b.append(np.tile(np.stack([b0, b1])[None], (T, 1, 1)))
+    return demos_x, A, b
+
+
+def run_baselines(device, dtype):
+    """TPGMM() and HMMLQR() fitted on six synthetic demonstrations in
+    ``dtype`` on ``device``, each reproduced at the seventh's frames:
+    (TP-GMM trajectory, its covariances, HMM-LQR trajectory, fit seconds)."""
+    from gaussian_process_transportation_tpu_torch.models.hmm_lqr import HMMLQR
+    from gaussian_process_transportation_tpu_torch.models.tpgmm import TPGMM
+
+    demos_x, A, b = synthetic_frames()
+    demos_dx = [np.vstack([np.diff(x, axis=0), np.zeros((1, 2))]) for x in demos_x]
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    fit_x = [x.astype(np_dtype) for x in demos_x[:-1]]
+    A_new, b_new = list(A[-1][0]), list(b[-1][0])
+    t_tp, tp = wall_s(lambda: TPGMM(device=device).fit(fit_x, A[:-1], b[:-1]))
+    t_hmm, hmm = wall_s(lambda: HMMLQR(device=device).fit(fit_x, demos_dx[:-1], A[:-1], b[:-1]))
+    traj, cov = tp.reproduce(A_new, b_new)
+    return traj, cov, hmm.reproduce(A_new, b_new, x0=demos_x[-1][0]), (t_tp, t_hmm)
+
+
+def perturbation_spread(name, S, S1, X, dX, ref, trials=3):
+    """Each field's largest change against ``ref`` over ``trials`` float64
+    CPU runs of ``name`` with S1 and X moved by ε64·N(0, 1) of themselves:
+    the spread that rounding alone causes in this transport on these
+    inputs."""
+    eps = np.finfo(np.float64).eps
+    spread = {}
+    for seed in range(trials):
+        rng = np.random.default_rng(seed)
+        S1p, Xp = (a * (1 + eps * rng.standard_normal(a.shape)) for a in (S1, X))
+        tr = apply_learned(fit_learned(name, "cpu", torch.float64, S, S1p), Xp, dX)
+        for f, e in field_errors(tr, ref, float(np.abs(X).max())).items():
+            spread[f] = max(spread.get(f, 0.0), e)
+    return spread
+
+
+def phase26(device, tag):
+    """The eight learned-map transports at the comparison suite's shapes."""
+    t26 = time.perf_counter()
+    Xc, dXc, Sc, S1c = comparison_inputs()
+    scale26 = float(np.abs(Xc).max())
+    no_kernels = {name: 0 for name in counted()}
+    for name in LEARNED:
+        t_card = time.perf_counter()
+        card64 = apply_learned(fit_learned(name, device, torch.float64, Sc, S1c), Xc, dXc)
+        t_cpu = time.perf_counter()
+        t_card = t_cpu - t_card
+        bounds, note = {}, ""
+        if name == "RandomForestTransport":
+            # the forest's CART fit on the host is a discontinuous function of
+            # its inputs, and the aligned source points lie on a line, so the
+            # last bits in which the card's affine map differs from the CPU's
+            # flip near-tied splits: the card's fitted map is held against the
+            # same map applied on the CPU, and its residual targets against
+            # the CPU fit's, while the two fits end to end are printed
+            own = apply_learned(fit_learned(name, "cpu", torch.float64, Sc, S1c), Xc, dXc)
+            cpu64 = apply_learned(forest_on_cpu(card64), Xc, dXc)
+            err64 = field_errors(card64, cpu64, scale26)
+            err64["delta_distribution"] = ((card64.delta_distribution.cpu() - own.delta_distribution)
+                                           .abs().max().item()
+                                           / own.delta_distribution.abs().max().item())
+            note = (f", the card's fit against the CPU's own end to end "
+                    f"{max(field_errors(card64, own, scale26).values()):.3g} (not held: "
+                    "near-tied splits)")
+        else:
+            cpu64 = apply_learned(fit_learned(name, "cpu", torch.float64, Sc, S1c), Xc, dXc)
+            err64 = field_errors(card64, cpu64, scale26)
+        if name == "GMRTransport":
+            # the aligned source points lie on a line, so every component's
+            # Σ_xx has one eigenvalue at the regulariser's floor (κ ~ 1e5
+            # here), and the GMR Jacobian and std move by ~1e-3 of themselves
+            # for last-bit changes of the inputs: each field is held to 10x
+            # the spread that ε64 perturbations of S1 and X cause on the CPU
+            spread = perturbation_spread(name, Sc, S1c, Xc, dXc, cpu64)
+            bounds = {f: 10 * v for f, v in spread.items()}
+            lam = torch.linalg.eigvalsh(card64.gmr.params.covs[:, :2, :2].cpu())
+            note = (f", its bounds 10x the CPU's spread under ε64 input perturbations "
+                    + ", ".join(f"{f} {v:.3g}" for f, v in spread.items())
+                    + f" (Σ_xx condition {(lam[:, -1] / lam[:, 0]).max().item():.3g})")
+        t_cpu = time.perf_counter() - t_cpu
+        bounds = {f: max(LEARNED_TOL, bounds.get(f, 0.0)) for f in err64}
+        ratio = {f: e / bounds[f] for f, e in err64.items()}
+        draws = card64.sample_transportation()
+        if not (max(ratio.values()) < 1 and draws.dim() == 3 and draws.shape[1:] == (N_CMP, 2)
+                and torch.isfinite(draws).all()):
+            raise AssertionError(f"{name}: float64 on the card vs the CPU error/bound {ratio}, "
+                                 f"or its samples {tuple(draws.shape)} not finite")
+        tr32, counts26 = drive(lambda: apply_learned(
+            fit_learned(name, device, torch.float32, Sc, S1c), Xc, dXc))
+        expect_launches(name, counts26, no_kernels)
+        if not all(torch.isfinite(v).all() for v in learned_fields(tr32).values()):
+            raise AssertionError(f"{name}: the float32 run is not finite")
+        err32 = field_errors(tr32, card64, scale26)
+        fit_s, tr32 = wall_s(lambda: fit_learned(name, device, torch.float32, Sc, S1c))
+        apply_ms, _ = cuda_ms(lambda: apply_learned(tr32, Xc, dXc))
+        traced = ""
+        if name in TRACED_FITS:
+            traced = "; " + fmt_traced(lambda: fit_learned(name, device, torch.float32, Sc, S1c))
+        print(f"learned-map transport {name} at its defaults (Q=n={N_CMP}: phase 4's demo, "
+              f"source and first target resampled), no hand-kernel launch: fit {fit_s:.3f} s, "
+              f"apply {apply_ms:.3f} ms (f32; the apply a median of {REPS}, CUDA events)"
+              + traced + "; float64 card vs CPU error/bound "
+              + ", ".join(f"{f} {r:.3g}" for f, r in ratio.items()) + note
+              + "; float32 vs the float64 card run "
+              + ", ".join(f"{f} {e:.3g}" for f, e in err32.items())
+              + f"; samples {tuple(draws.shape)} finite; the f64 card run {t_card:.2f} s, the "
+              f"f64 CPU reference {t_cpu:.2f} s {tag}", flush=True)
+    print(f"phase 26: {time.perf_counter() - t26:.1f} s {tag}", flush=True)
+
+
+def phase27(device, tag):
+    """SVGPTransport at the 3-D surface scale, and the multi-frame baselines."""
+    t27 = time.perf_counter()
+    S3, T3, X3, dX3 = ensemble_3d_inputs()
+    q3 = np.random.default_rng(3).standard_normal((Q_3D, 4))
+    q3 /= np.linalg.norm(q3, axis=1, keepdims=True)
+    svgp_kw = dict(num_epochs=SVGP3_EPOCHS, num_inducing=SVGP3_INDUCING, batch_size=SVGP3_BATCH)
+    runs27 = {}
+    for dev, dtype in ((device, torch.float64), ("cpu", torch.float64), (device, torch.float32)):
+        tr = fit_learned("SVGPTransport", dev, dtype, S3, T3[0], **svgp_kw)
+        runs27[(str(dev), dtype)] = apply_learned(tr, X3, dX3, ori=q3)
+    card64 = runs27[(str(device), torch.float64)]
+    tr32 = runs27[(str(device), torch.float32)]
+    err27 = field_errors(card64, runs27[("cpu", torch.float64)], float(np.abs(X3).max()))
+    norm_err = max((torch.linalg.norm(t.training_ori.double(), dim=1) - 1).abs().max().item()
+                   for t in (card64, tr32))
+    if not (max(err27.values()) < LEARNED_TOL and norm_err < 1e-6
+            and all(torch.isfinite(v).all() for v in learned_fields(tr32).values())):
+        raise AssertionError(f"3-D SVGPTransport: float64 card vs CPU {err27}, quaternion norms "
+                             f"off by {norm_err:.3g}, or the float32 run not finite")
+    nat = {dev: natgrad_posterior(dev, S3, T3[0], X3) for dev in (device, "cpu")}
+    nat_err = max((a.cpu() - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(nat[device][1:], nat["cpu"][1:]))
+    if not nat_err < LEARNED_TOL:
+        raise AssertionError(f"fit_natgrad: float64 card vs CPU posterior {nat_err:.3g} of its "
+                             f"max (bound {LEARNED_TOL})")
+    fit27_s, tr32 = wall_s(lambda: fit_learned("SVGPTransport", device, torch.float32, S3, T3[0],
+                                               **svgp_kw))
+    apply27_ms, _ = cuda_ms(lambda: apply_learned(tr32, X3, dX3, ori=q3))
+    traced27 = fmt_traced(lambda: fit_learned("SVGPTransport", device, torch.float32, S3, T3[0],
+                                              **svgp_kw))
+    (tp64, cov64, hmm64, times64), (tpc, covc, hmmc, _), (tp32, cov32, hmm32, times32) = (
+        run_baselines(device, torch.float64), run_baselines("cpu", torch.float64),
+        run_baselines(device, torch.float32))
+    err_tp = np.abs(tp64 - tpc).max() / np.abs(tpc).max()
+    err_cov = np.abs(cov64 - covc).max() / np.abs(covc).max()
+    err_hmm = np.abs(hmm64 - hmmc).max() / np.abs(hmmc).max()
+    if not (max(err_tp, err_cov, err_hmm) < BASELINE_TOL
+            and all(np.isfinite(a).all() for a in (tp32, cov32, hmm32))):
+        raise AssertionError(f"baselines: float64 card vs CPU TP-GMM {err_tp:.3g}, covariances "
+                             f"{err_cov:.3g}, HMM-LQR {err_hmm:.3g} (bound {BASELINE_TOL}), or "
+                             "a float32 run not finite")
+    print(f"3-D SVGPTransport (n={N_3D}, D=3, Q={Q_3D}, member 0 of phase 9, M={SVGP3_INDUCING}, "
+          f"{SVGP3_EPOCHS} epochs, batch {SVGP3_BATCH}, unit quaternions): float64 card vs CPU "
+          "error/bound " + ", ".join(f"{f} {e / LEARNED_TOL:.3g}" for f, e in err27.items())
+          + f", quaternion norms within {norm_err:.3g} of 1; fit {fit27_s:.3f} s, apply "
+          f"{apply27_ms:.3f} ms (f32), {traced27}; fit_natgrad on the same data "
+          f"(f64, {nat[device][0]:.3f} s on the card): posterior mean and std card vs CPU "
+          f"{nat_err / LEARNED_TOL:.3g} of the bound; TPGMM() and HMMLQR() on six "
+          "synthetic demonstrations reproduced at the seventh's frames: float64 card vs CPU "
+          f"error/max|traj| TP-GMM {err_tp:.3g}, its covariances {err_cov:.3g}, HMM-LQR "
+          f"{err_hmm:.3g} (< {BASELINE_TOL}), float32 finite; fits on the card (f64, f32) TP-GMM "
+          f"{times64[0]:.3f} s, {times32[0]:.3f} s, HMM-LQR {times64[1]:.3f} s, {times32[1]:.3f} s; "
+          f"phase 27 {time.perf_counter() - t27:.1f} s {tag}", flush=True)
 
 
 def main() -> None:
@@ -2772,6 +3100,12 @@ def main() -> None:
           + "; ".join(f"{k}: float64 on the card vs the f64 CPU run err/max|X| {a:.3g} (< 1e-6), "
                       f"float32 {b:.3g}, fused_gp_predict_mean {c} in f32"
                       for k, (a, b, c) in var25.items()) + f" {tag}", flush=True)
+
+    # 26. the eight learned-map transports at the comparison suite's shapes
+    phase26(device, tag)
+
+    # 27. SVGP at the 3-D surface scale, and the multi-frame baselines
+    phase27(device, tag)
 
     # the launches of #2 and #3 in their paths' runs (phases 13 and 14)
     kernels_json["small_lml_value_grad"]["launches"] = counts14["small_lml_value_grad"]

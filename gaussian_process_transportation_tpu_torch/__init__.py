@@ -5,7 +5,9 @@ reference, which it never imports).  Plain tensor code is PyTorch; each of
 the JAX package's seven TPU kernels is a CUDA kernel written for Hopper
 under ``csrc/`` (the batched small Cholesky/inverse, the panel factor of
 the blocked Cholesky, the Gram tile and fused predicts, the fused
-small-N LML value and gradient), built with ``nvcc`` at first use.  Every
+small-N LML value and gradient), built with ``nvcc`` at first use; the
+random forest's split search is host C++ (``csrc/cart.cpp``), built with
+``g++`` at first use.  Every
 function dispatches on the device of the tensors it is given: CPU tensors
 take the plain PyTorch twins, CUDA tensors the kernels.  The entry points
 that make tensors (``GaussianProcessTransportation``, ``convert``) put

@@ -3,13 +3,17 @@
 The JAX objects are read duck-typed, by class name and field names, with
 ``np.asarray`` on every array leaf, so this module never imports JAX.
 Plain numpy dictionaries work the same way, which is how saved state or
-a test hands both packages the same parameters.
+a test hands both packages the same parameters.  The learned models' state
+(MLP and flow parameters, SVGP states, GMM and forest arrays, the
+multi-frame baselines' parameters) is read the same way, by field name,
+from the JAX objects or from mappings of arrays.
 
 Like the port's other entry points, every function puts its tensors on the
 card unless the caller asks for another device (``device="cpu"``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -18,11 +22,28 @@ import torch
 from . import kernels as K
 from .models.affine import AffineParams
 from .models.exact_gp import ExactGP
+from .models.flows import CouplingNet, CouplingParams
+from .models.gmr import ConditionalParams, GMMParams
+from .models.hmm_lqr import HMMParams
+from .models.random_forest import ForestParams
+from .models.svgp import CollapsedSVGP, SVGPParams, SVGPState
+from .models.tpgmm import TPGMMParams
 from .ops.blocked_chol import BlockedCholesky
 
 
 def _tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(value), dtype=dtype, device=device)
+
+
+def _field(obj, name: str):
+    """``obj[name]`` of a mapping, else the attribute ``name``."""
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def _fields(cls, obj, dtype, device):
+    """The dataclass ``cls`` with each of its fields read from ``obj``."""
+    return cls(**{f.name: _tensor(_field(obj, f.name), dtype, device)
+                  for f in dataclasses.fields(cls)})
 
 
 def kernel_from_tree(k, dtype: torch.dtype = torch.float64, device="cuda") -> K.Kernel:
@@ -93,3 +114,67 @@ def exact_gp_from_numpy(
         K_inv=opt("K_inv"),
         jitter=jitter,
     )
+
+
+def mlp_params_from_tree(params, dtype: torch.dtype = torch.float64, device="cuda") -> list:
+    """The port's MLP parameters from a list of (W, b) pairs, optionally
+    with a leading member axis (an ensemble's)."""
+    return [(_tensor(W, dtype, device), _tensor(b, dtype, device)) for W, b in params]
+
+
+def flow_layers_from_tree(layers, dtype: torch.dtype = torch.float64, device="cuda") -> list:
+    """The port's coupling stack from the JAX package's list of
+    ``CouplingParams`` (each net's ``layers`` and ``kind``), optionally
+    with a leading member axis."""
+    def net(n):
+        pairs = tuple((_tensor(W, dtype, device), _tensor(b, dtype, device))
+                      for W, b in _field(n, "layers"))
+        return CouplingNet(pairs, str(_field(n, "kind")))
+
+    return [CouplingParams(net(_field(p, "s_net")), net(_field(p, "t_net"))) for p in layers]
+
+
+def svgp_state_from_tree(state, dtype: torch.dtype = torch.float64, device="cuda") -> SVGPState:
+    """SVGPState from the JAX package's (its ``params``, ``kernel`` and
+    ``jitter``)."""
+    return SVGPState(params=_fields(SVGPParams, _field(state, "params"), dtype, device),
+                     kernel=kernel_from_tree(_field(state, "kernel"), dtype, device),
+                     jitter=float(_field(state, "jitter")))
+
+
+def collapsed_svgp_from_tree(c, dtype: torch.dtype = torch.float64,
+                             device="cuda") -> CollapsedSVGP:
+    """CollapsedSVGP from the JAX package's (theta, Z, alpha, Lk, Lw and
+    the kernel)."""
+    arrays = {n: _tensor(_field(c, n), dtype, device) for n in ("theta", "Z", "alpha", "Lk", "Lw")}
+    return CollapsedSVGP(**arrays, kernel=kernel_from_tree(_field(c, "kernel"), dtype, device))
+
+
+def gmm_params_from_numpy(params, dtype: torch.dtype = torch.float64, device="cuda") -> GMMParams:
+    """GMMParams from arrays log_weights, means and covs."""
+    return _fields(GMMParams, params, dtype, device)
+
+
+def conditional_from_numpy(cp, dtype: torch.dtype = torch.float64,
+                           device="cuda") -> ConditionalParams:
+    """ConditionalParams (a joint GMM conditioned on x) from its arrays."""
+    return _fields(ConditionalParams, cp, dtype, device)
+
+
+def forest_params_from_numpy(params, dtype: torch.dtype = torch.float64,
+                             device="cuda") -> ForestParams:
+    """ForestParams from arrays feature, threshold and value."""
+    return ForestParams(feature=_tensor(_field(params, "feature"), torch.int64, device),
+                        threshold=_tensor(_field(params, "threshold"), dtype, device),
+                        value=_tensor(_field(params, "value"), dtype, device))
+
+
+def tpgmm_params_from_numpy(params, dtype: torch.dtype = torch.float64,
+                            device="cuda") -> TPGMMParams:
+    """TPGMMParams from arrays priors, mu and sigma."""
+    return _fields(TPGMMParams, params, dtype, device)
+
+
+def hmm_params_from_numpy(params, dtype: torch.dtype = torch.float64, device="cuda") -> HMMParams:
+    """HMMParams from arrays init, trans, mu and sigma."""
+    return _fields(HMMParams, params, dtype, device)

@@ -17,10 +17,12 @@ from .gp_regressor import GaussianProcess
 from .affine import AffineTransform
 from .kmp import KMP
 from .laplacian_editing import LaplacianEditing
+from .mlp import MLP, EnsembleMLP
+from .flows import BijectiveNetwork, EnsembleBijectiveNetwork
+from .random_forest import EnsembleRandomForest
+from .svgp import StochasticVariationalGaussianProcess
+from .gmr import GMR
 
-# The JAX package also exports its learned models (MLP, EnsembleMLP,
-# BijectiveNetwork, EnsembleBijectiveNetwork, EnsembleRandomForest and
-# StochasticVariationalGaussianProcess): not ported yet (ROADMAP.md, queue 1).
 __all__ = [
     "ExactGP",
     "condition",
@@ -39,4 +41,10 @@ __all__ = [
     "AffineTransform",
     "KMP",
     "LaplacianEditing",
+    "MLP",
+    "EnsembleMLP",
+    "BijectiveNetwork",
+    "EnsembleBijectiveNetwork",
+    "EnsembleRandomForest",
+    "StochasticVariationalGaussianProcess",
 ]

@@ -4,16 +4,30 @@ from .variants import (
     AffineTransportation,
     KMPTransport,
     LaplacianEditingTransport,
+    MLPTransport,
+    RandomForestTransport,
+    NeuralTransport,
+    EnsembleNeuralTransport,
+    BijectiveTransport,
+    EnsembleBijectiveTransport,
+    SVGPTransport,
+    GMRTransport,
     finite_difference_jacobian,
 )
 
-# The JAX package also exports the transports of its learned delta maps
-# (the rest of transport/variants.py): not ported yet (ROADMAP.md, queue 1).
 __all__ = [
     "PolicyTransport",
     "GaussianProcessTransportation",
     "AffineTransportation",
     "KMPTransport",
     "LaplacianEditingTransport",
+    "MLPTransport",
+    "RandomForestTransport",
+    "NeuralTransport",
+    "EnsembleNeuralTransport",
+    "BijectiveTransport",
+    "EnsembleBijectiveTransport",
+    "SVGPTransport",
+    "GMRTransport",
     "finite_difference_jacobian",
 ]

@@ -1,8 +1,9 @@
 """On-card tests of the torch port's CUDA kernels, marked ``cuda``: each
 kernel against its plain twin on the card at small sizes, the wrappers
 refusing what the kernels do not take, and the launch counts of the
-batched transport, the blocked conditioning and the dense-grid predicts.
-They skip where no CUDA card is present.  On a machine with a card and nvcc (and no JAX):
+batched transport, the blocked conditioning and the dense-grid predicts;
+the learned models' graph-captured training and their transports against
+the CPU.  They skip where no CUDA card is present.  On a machine with a card and nvcc (and no JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 """
@@ -776,3 +777,96 @@ def test_active_learning_blocked_predict_takes_k_star(device, monkeypatch):
                                 return_std=True, epistemic_only=True)
     assert (mean - mean64).abs().max().item() <= 5e-3 * mean64.abs().max().item()
     assert (std - std64).abs().max().item() <= 5e-3 * std64.abs().max().item() + 1e-3
+
+
+# ---- the learned models: graph-captured training and the transports ----------
+
+def _learned_data(n=40, seed=0):
+    rng = np.random.default_rng(seed)
+    X = 2.0 * rng.standard_normal((n, 2))
+    return X, np.stack([np.sin(X[:, 0]), X[:, 0] * np.cos(X[:, 1])], 1)
+
+
+def _train_case(which, device, dtype):
+    """One deterministic training run (draws from a CPU generator) in
+    ``dtype`` on ``device``: the trained tensors, flattened."""
+    from gaussian_process_transportation_tpu_torch.models import flows, mlp, svgp
+    from gaussian_process_transportation_tpu_torch.models._training import (
+        cpu_generator, schedule,
+    )
+
+    Xn, Yn = _learned_data()
+    X, Y = (torch.as_tensor(a, dtype=dtype, device=device) for a in (Xn, Yn))
+    gen = cpu_generator(3)
+    if which == "mlp":
+        p0 = mlp.init_params(gen, (2, 16, 16, 2), members=3, dtype=dtype, device=device)
+        out, _ = mlp.train(p0, X, Y, schedule(gen, 40, 4, 8, members=3, device=device))
+        return [t for layer in out for t in layer]
+    if which == "flow":
+        l0 = flows.init_flow(gen, 2, 2, 8, members=2, dtype=dtype, device=device)
+        out, _ = flows.train_flow(l0, X, Y, schedule(gen, 40, 4, 8, members=2, device=device))
+        return [t for p in out for net in p for layer in net.layers for t in layer]
+    kernel = K.Constant(1.0) * K.RBF(torch.ones(2, dtype=dtype, device=device))
+    params = svgp.init_params(kernel, X, Y, svgp.draw_inducing(gen, 40, 2, 10, device))
+    step = svgp.train_natgrad if which == "natgrad" else svgp.train
+    out, _ = step(kernel, params, X, Y, schedule(gen, 40, 4, 16, device=device))
+    return [out.theta, out.Z, out.m_w, out.L_w_raw, out.raw_noise]
+
+
+@pytest.mark.parametrize("which", ["mlp", "flow", "svgp", "natgrad"])
+def test_graph_captured_training_matches_the_cpu(device, which, monkeypatch):
+    """On the card each step is one replay of a captured graph; float64
+    there equals the eager float64 run on the CPU to 1e-10 of each tensor's
+    largest entry, and float32 is finite."""
+    replays = []
+    replay = torch.cuda.CUDAGraph.replay
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay",
+                        lambda g: (replays.append(1), replay(g))[1])
+    got = _train_case(which, device, torch.float64)
+    assert len(replays) == (4 * (40 // 16) if which in ("svgp", "natgrad") else 4 * (40 // 8))
+    want = _train_case(which, "cpu", torch.float64)
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max().item() <= 1e-10 * max(w.abs().max().item(), 1.0)
+    assert all(torch.isfinite(t).all() for t in _train_case(which, device, torch.float32))
+
+
+@pytest.mark.parametrize("name", ["MLPTransport", "NeuralTransport", "EnsembleNeuralTransport",
+                                  "BijectiveTransport", "EnsembleBijectiveTransport",
+                                  "GMRTransport", "SVGPTransport"])
+def test_learned_transports_on_the_card_match_the_cpu(device, name):
+    """Each transport at narrow settings, float64 on the card against the
+    CPU to 1e-6 of each field's largest entry, chip_smoke's bound (GMR's
+    std moves by ~1e-9 of itself for last-bit input changes here; the
+    forest's host fit is held by chip_smoke's phase 26)."""
+    from gaussian_process_transportation_tpu_torch.transport import variants
+
+    kw, fit_kw = {
+        "MLPTransport": (dict(n_estimators=2, num_epochs=5), {}),  # num_epochs: the fit's
+        "NeuralTransport": (dict(hidden=(16, 16)), dict(num_epochs=20)),
+        "EnsembleNeuralTransport": (dict(n_estimators=2), dict(num_epochs=5)),
+        "BijectiveTransport": (dict(num_blocks=2, num_hidden=8), dict(num_epochs=20)),
+        "EnsembleBijectiveTransport": (dict(n_estimators=2, num_blocks=2, num_hidden=8),
+                                       dict(num_epochs=20)),
+        "GMRTransport": (dict(n_components=3, n_iter=20), {}),
+        "SVGPTransport": ({}, dict(num_epochs=5, num_inducing=12)),
+    }[name]
+    t = np.linspace(0, 1, 60)
+    X = np.stack([10 * t, 3 + 2 * np.sin(3 * t)], 1)
+    dX = np.vstack([np.diff(X, axis=0), np.zeros((1, 2))])
+    s = np.linspace(0, 1, 15)
+    S = np.stack([10 * s, 3 + 2 * np.sin(3 * s) + 0.3 * np.cos(7 * s)], 1)
+    S1 = S @ np.array([[0.96, -0.28], [0.28, 0.96]]).T + np.stack([0 * s + 1, np.sin(2 * s)], 1)
+    runs = []
+    for dev in (device, "cpu"):
+        tr = getattr(variants, name)(device=dev, **kw)
+        tr.source_distribution, tr.target_distribution = S, S1
+        tr.training_traj, tr.training_delta = X, dX
+        tr.fit_transportation(**fit_kw)
+        tr.apply_transportation()
+        runs.append(tr)
+    card, cpu = runs
+    for field in ("training_traj", "training_delta", "std", "var_vel_transported"):
+        if getattr(cpu, field, None) is not None:
+            want = getattr(cpu, field)
+            err = (getattr(card, field).cpu() - want).abs().max().item()
+            assert err <= 1e-6 * max(want.abs().max().item(), 1e-12), (field, err)

@@ -59,20 +59,16 @@ def test_resample_matches_jax(num_points, planar):
 # ---- the public surface against the JAX package's -------------------------
 
 # Names the JAX package exports that the port does not have yet (ROADMAP.md,
-# queue 1): the learned models, the multi-device modules and the learned
-# models' transports.
+# queue 1): the multi-device modules.
 NOT_PORTED = {
     "": set(),
-    "models": {"MLP", "EnsembleMLP", "BijectiveNetwork", "EnsembleBijectiveNetwork",
-               "EnsembleRandomForest", "StochasticVariationalGaussianProcess"},
+    "models": set(),
     "ops": set(),
     "parallel": {"make_mesh", "ensemble_sharding", "replicated", "transport_ensemble",
                  "posterior_transport_ensemble", "make_ensemble_train_step",
                  "ShardedBlockedCholesky", "sharded_gram_cholesky_solve", "fit_sharded",
                  "make_sharded_lml", "sharded_lml_value_and_grad"},
-    "transport": {"MLPTransport", "RandomForestTransport", "NeuralTransport",
-                  "EnsembleNeuralTransport", "BijectiveTransport", "EnsembleBijectiveTransport",
-                  "SVGPTransport", "GMRTransport"},
+    "transport": set(),
     "utils": set(),
 }
 EXTRA = {"": {"gpt"}}  # the port's own: the functional transport module at the top

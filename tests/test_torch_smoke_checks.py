@@ -207,3 +207,34 @@ def test_the_record_names_times_that_fell_back_to_cuda_events():
     v = {"ms": (1.0, 1.1, True), "plain_ms": (2.0, 2.0, False), "library_ms": None,
          "event_timed": ["generic_ms"]}
     assert chip_smoke.timing_of(v) == "cupti_device; cuda_event for plain_ms, generic_ms"
+
+
+def test_phase_27_frames_are_the_baseline_tests_and_phase_26_inputs_the_suites():
+    """Phase 27's copy of the baseline tests' synthetic frames equals
+    theirs; phase 26's inputs are phase 4's, resampled to the comparison
+    suite's 100 points as the JAX package resamples them."""
+    import jax.numpy as jnp
+
+    from gaussian_process_transportation_tpu.utils.resample import resample
+    from test_baselines import synthetic_frames
+
+    for got, want in zip(chip_smoke.synthetic_frames(), synthetic_frames(n_demos=7)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    X, dX, S, S1 = chip_smoke.comparison_inputs()
+    X4, _, S4, S14 = chip_smoke.make_workload()
+    for got, raw in ((X, X4), (S, S4), (S1, S14)):
+        want = np.asarray(resample(jnp.asarray(raw, dtype=jnp.float64), num_points=100))
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(dX[:-1], np.diff(X, axis=0))
+    assert not dX[-1].any()
+
+
+def test_the_forest_reference_applies_the_card_runs_fitted_map():
+    """``forest_on_cpu`` carries a fitted forest transport's affine map and
+    trees to a CPU copy that transports exactly as the original."""
+    X, dX, S, S1 = chip_smoke.comparison_inputs()
+    tr = chip_smoke.fit_learned("RandomForestTransport", "cpu", torch.float64, S, S1)
+    want = chip_smoke.apply_learned(tr, X, dX)
+    got = chip_smoke.apply_learned(chip_smoke.forest_on_cpu(want), X, dX)
+    assert max(chip_smoke.field_errors(got, want).values()) == 0.0

@@ -1,8 +1,9 @@
 """Port parity: ``ops/assignment.py``, ``models/kmp.py``,
-``models/laplacian_editing.py`` and the first part of
-``transport/variants.py`` (the finite-difference Jacobian, the affine,
-KMP and Laplacian-editing transports) against the JAX package's, float64
-on the CPU: the assignments exactly, the rest to 1e-8."""
+``models/laplacian_editing.py`` and ``transport/variants.py`` (the
+finite-difference Jacobian, the affine, KMP and Laplacian-editing
+transports, and the eight transports on learned delta maps, their fitted
+models carried across from JAX's through ``convert.py``) against the JAX
+package's, float64 on the CPU: the assignments exactly, the rest to 1e-8."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ from gaussian_process_transportation_tpu.models import laplacian_editing as jle
 from gaussian_process_transportation_tpu.ops import assignment as jas
 from gaussian_process_transportation_tpu.transport import variants as jvar
 from gaussian_process_transportation_tpu_torch import transport as tvar
+from gaussian_process_transportation_tpu_torch import convert
 from gaussian_process_transportation_tpu_torch.convert import kernel_from_tree
 from gaussian_process_transportation_tpu_torch.models import KMP, LaplacianEditing
 from gaussian_process_transportation_tpu_torch.models import laplacian_editing as tle
@@ -168,3 +170,98 @@ def test_affine_transportation_turns_orientations_as_jax():
         outs.append((tr.training_traj, tr.training_ori))
     for g, w in zip(*outs):
         _close(g, w)
+
+
+# The learned-map transports at narrow settings: (constructor keywords,
+# fit_transportation keywords), the same for both packages.
+LEARNED = {
+    "MLPTransport": (dict(n_estimators=2, num_epochs=1), {}),
+    "RandomForestTransport": (dict(n_estimators=5, max_depth=3), {}),
+    "NeuralTransport": (dict(hidden=(16, 16)), dict(num_epochs=2)),
+    "EnsembleNeuralTransport": (dict(n_estimators=2), dict(num_epochs=1)),
+    "BijectiveTransport": (dict(num_blocks=2, num_hidden=8), dict(num_epochs=2)),
+    "EnsembleBijectiveTransport": (dict(n_estimators=2, num_blocks=2, num_hidden=8),
+                                   dict(num_epochs=2)),
+    "GMRTransport": (dict(n_components=3, n_iter=5), {}),
+    "SVGPTransport": ({}, dict(num_epochs=2, num_inducing=8)),
+}
+
+
+def _carry_model(name, got, want):
+    """Put JAX's fitted model into the port's transport through convert.py."""
+    cpu = dict(device="cpu")
+    if name in ("MLPTransport", "NeuralTransport", "EnsembleNeuralTransport"):
+        got.delta_map.params = convert.mlp_params_from_tree(want.delta_map.params, **cpu)
+    elif name == "RandomForestTransport":
+        # carried too: the fit on the same data is JAX's bit for bit
+        # (test_torch_random_forest.py), but the aligned sources the two fit
+        # differ in their last bits (the Kabsch SVD), which can flip a
+        # near-tied split
+        got.delta_map.params = convert.forest_params_from_numpy(want.delta_map.params, **cpu)
+    elif name in ("BijectiveTransport", "EnsembleBijectiveTransport"):
+        got.model.layers = convert.flow_layers_from_tree(want.model.layers, **cpu)
+    elif name == "GMRTransport":
+        got.gmr.conditional = convert.conditional_from_numpy(want.gmr.conditional, **cpu)
+    else:
+        got.gp_delta_map.collapsed = convert.collapsed_svgp_from_tree(
+            want.gp_delta_map.collapsed, **cpu)
+
+
+def _fit_both(name, X, dX, S, S1, extra=None):
+    kw, fit_kw = LEARNED[name]
+    got, want = getattr(tvar, name)(device="cpu", **kw), getattr(jvar, name)(**kw)
+    for tr in (got, want):
+        tr.source_distribution, tr.target_distribution = S, S1
+        tr.training_traj, tr.training_delta = X, dX
+        for attr, value in (extra or {}).items():
+            setattr(tr, attr, value)
+        tr.fit_transportation(**fit_kw)
+    _carry_model(name, got, want)
+    got.apply_transportation(), want.apply_transportation()
+    return got, want
+
+
+@pytest.mark.parametrize("name", list(LEARNED))
+def test_learned_transports_match_jax(name):
+    """The protocol on numpy attributes with JAX's fitted model carried
+    across: the transported trajectory, its std, the velocities and their
+    variance where the transport has one; the samples have JAX's shape.
+    The SVGP transport runs in 3-D with orientations, which it turns by
+    the closest rotation to I + J_Ψ after the affine rotation."""
+    X, dX, S, S1 = _problem()
+    extra = None
+    if name == "SVGPTransport":
+        X, dX, S, S1 = (np.concatenate([a, 0.2 * np.sin(a[:, :1])], 1) for a in (X, dX, S, S1))
+        extra = dict(training_ori=np.tile([np.cos(0.2), 0.0, np.sin(0.2), 0.0], (len(X), 1)))
+    got, want = _fit_both(name, X, dX, S, S1, extra)
+    attrs = ["training_traj", "std", "training_delta"] + list(extra or ())
+    assert hasattr(got, "var_vel_transported") == hasattr(want, "var_vel_transported")
+    if hasattr(want, "var_vel_transported"):
+        attrs.append("var_vel_transported")
+    for attr in attrs:
+        assert getattr(got, attr).device.type == "cpu"
+        _close(getattr(got, attr), getattr(want, attr))
+    if extra:
+        np.testing.assert_allclose(torch.linalg.norm(got.training_ori, dim=1).numpy(), 1.0,
+                                   atol=1e-12)
+    draws = got.sample_transportation()
+    assert draws.shape == want.sample_transportation().shape and torch.isfinite(draws).all()
+
+
+def test_svgp_transport_converts_other_distributions_through_its_hook():
+    """Distributions that are not arrays go through the sensor hook, and
+    two of different types are refused."""
+    X, dX, S, S1 = _problem()
+
+    class Sensor(tvar.SVGPTransport):
+        def convert_distribution_to_array(self):
+            self.source_distribution = np.asarray(self.source_distribution)
+            self.target_distribution = np.asarray(self.target_distribution)
+
+    tr = Sensor(device="cpu")
+    tr.source_distribution, tr.target_distribution = S.tolist(), S1.tolist()
+    tr.fit_transportation(num_epochs=1, num_inducing=4)
+    assert isinstance(tr.source_distribution, np.ndarray)
+    tr.source_distribution = tuple(S.tolist())
+    with pytest.raises(TypeError, match="arrays"):
+        tr.fit_transportation(num_epochs=1)

@@ -3,7 +3,9 @@
 large-N exact GP, the hyperparameter fits (small and large N), the HMC and
 NUTS hyperposteriors, checkpointed runs, SMC particles, the active-learning
 GP, the diffeomorphism sweep, the mixed-precision solve, the transport
-variants, the learned-map transports and the multi-frame baselines.
+variants, the learned-map transports and the multi-frame baselines, obstacle
+avoidance and the obstacle flow field, the GP dynamical system, and the
+metrics and comparison suites.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -199,7 +201,43 @@ Phases, one line each on stdout:
     settings, card vs CPU; ``TPGMM()`` and ``HMMLQR()`` on six synthetic
     demonstrations (``tests/test_baselines.py:20-42``) reproduced at the
     seventh's frames, float64 card vs CPU to 1e-8 of max|traj|, float32
-    finite.
+    finite;
+28. obstacle avoidance at ``examples/obstacle_avoidance_ds.py``'s scenes:
+    the wavy DS through ``avoid`` around the ellipse and the cuboid (9
+    agents, 600 steps of 0.03), the modulated linear DS (50 agents, 800
+    steps of 0.25) and the same agents through ``avoid`` past the ellipse
+    moving and turning, each float64 on the card against the CPU to
+    ``ROLLOUT_TOL`` of max|x|, float32 with every state's Γ at least 1 and
+    no hand-kernel launch, its seconds and one traced step's launches; the
+    ROAM field on the example's 20x20 grid (395 of 400 points outside) and
+    on a 100x100 grid, float64 card vs CPU to ``AVOID_TOL``, finite outside
+    the obstacles, one ``avoid`` call's time;
+29. the obstacle flow field of ``examples/obstacle_flow_field_2d.py`` (60
+    vertices, 200 interior samples, the fit with 2 restarts, the warp of a
+    150-point trajectory and its velocities, the SDF projection of the
+    samples): float64 on the card against the CPU conditioned at the kernel
+    the card fitted, to ``FLOW_TOL``; float32's mean depth below a quarter
+    of the trajectory's; the fit's, the warp's and the projection's times;
+30. the GP dynamical system on a synthetic file in the LASA layout (7 demos
+    of 1,000 points, read by ``load_lasa``): (a) ``examples/lasa_ds.py``'s
+    fit and 600-step rollout, float64 card vs CPU and float32 vs float64;
+    (b) all 7,000 points (or the largest stride whose float32 factor is
+    finite) at (a)'s kernel, ``rollout_gp_ds`` from the 7 starts for 1,000
+    steps: one call of kernel #5 a step, its means against the f64 formula,
+    three steps under ``set_sync_debug_mode("error")``, the endpoints
+    against float64, its time; (c) ``vector_field`` on a 100x100 grid over
+    2,048 of the points with a cached K⁻¹: one call of kernel #6, mean and
+    variance against the f64 formula (the variance's bound with ε32 of its
+    cancelling terms) and two planted faults rejected; (d)
+    ``rollout_stable_gp_ds`` and ``min_variance_attractor_field`` on
+    ``spiral_demo``'s 3-D demonstration, float64 card vs CPU;
+31. ``run_comparison`` at its defaults (six methods, 100 points) in float32
+    on phase 26's inputs, its matrices against numpy float64 formulas on
+    its trajectories; ``ablation_study()`` and ``compare_methods()`` at
+    their defaults on a synthetic file in the reach-target layout (9 demos
+    of 200 points), their first repetition float64 on the card against the
+    CPU, their times and ``ranking_report``; DTW and Fréchet at T = 1,000
+    in float64 on the card against the host row sweep, with their launches.
 
 Each path is driven with every launch count set to 0 just before and read
 just after.  Then one JSON line with the kernels' record and, last, the
@@ -210,6 +248,7 @@ import contextlib
 import ctypes
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1717,6 +1756,672 @@ def phase27(device, tag):
           f"phase 27 {time.perf_counter() - t27:.1f} s {tag}", flush=True)
 
 
+# ---- phases 28-31: obstacle avoidance, the flow field, the GP dynamical
+# system, the metrics and the comparison suites ------------------------------
+
+# float64 on the card against float64 on the CPU: one avoid() call to
+# AVOID_TOL of its largest speed, a rollout to ROLLOUT_TOL of max|x| (the
+# libm functions of the two sides may differ in the last bit, and Euler
+# steps carry that along)
+AVOID_TOL, ROLLOUT_TOL, FLOW_TOL = 1e-10, 1e-8, 1e-8
+ROAM_GRIDS = (20, 100)  # the example's grid, and viz.py's 100x100 grid
+WAVY_STEPS, WAVY_DT, LINEAR_STEPS, LINEAR_DT = 600, 0.03, 800, 0.25
+# a moving obstacle's velocities: the ellipse drifts (−2, 1) and turns 4 rad
+# over the 200 time units of the rollout
+MOVING_LINEAR, MOVING_ANGULAR = (-0.01, 0.005), 0.02
+# examples/lasa_ds.py on a synthetic LASA file: 7 demos of 1,000 points,
+# the example's fit on every tenth point of the first three, velocities
+# scaled by 0.01
+LASA_DEMOS, LASA_T, LASA_STEPS, GPDS_STEPS = 7, 1000, 600, 1000
+# phase 30(b)'s training sizes, tried from the largest until the float32
+# factor is finite (evenly spaced points of all seven demos)
+GPDS_SIZES = (7000, 6500, 6000, 5500, 5000, 4500, 4000, 3500, 3000, 2000)
+VF_GRID, VF_N = 100, 2048  # phase 30(c): the dense grid over 2,048 points
+SPIRAL_STEPS = 1000  # rollout_stable_gp_ds's default
+# The stabilized rollout is chaotic near the demonstration (the unit
+# variance gradient turns where it vanishes): a CPU probe grew a 1e-15
+# relative change of its starts to 6e-12 of max|x| by step 200 and 2e-6 by
+# step 1,000, so float64 on the card is held to the CPU over its first
+# SPIRAL_HELD steps.  The variance-descent field goes through K⁻¹: held to
+# 10·κ(K)·ε64.
+SPIRAL_HELD = 200
+DP_T = 1000  # phase 31: DTW and Frechet at T = 1,000
+# the float32 GP-DS rollouts' states against float64 ones at the same
+# kernel, of max|x| (a CPU rehearsal read 6.8e-4 for (a) and 2.6e-4 for
+# (b): the fitted noise sits at its bound 1e-5, κ ~ 9e6)
+GPDS_F32_TOL = 5e-3
+REACH_DEMOS, REACH_T = 9, 200  # data/datasets.py:36-43's layout
+
+
+def example_obstacles(moving=False, **device):
+    """examples/obstacle_avoidance_ds.py:40-57: an ellipse and a cuboid;
+    with ``moving`` the ellipse has linear and angular velocity."""
+    from gaussian_process_transportation_tpu_torch.avoidance import Obstacles
+
+    ellipse = dict(shape="ellipse", center=[4.0, 1.5], axis_length=[2.5, 1.5], orientation=30,
+                   margin=0.1)
+    if moving:
+        ellipse.update(linear_velocity=MOVING_LINEAR, angular_velocity=MOVING_ANGULAR)
+    cuboid = dict(shape="cuboid", center=[7.0, -1.5], axis_length=[2.0, 1.5], orientation=-15,
+                  margin=0.1)
+    return Obstacles.from_dicts([ellipse, cuboid], **device)
+
+
+def roam_obstacles(**device):
+    """examples/obstacle_avoidance_ds.py:101-113: three turned ellipses with
+    off-center reference points."""
+    from gaussian_process_transportation_tpu_torch.avoidance import Obstacles
+
+    return Obstacles.from_dicts([
+        dict(shape="ellipse", center=[c0, c1], reference_point=[0.0, 0.3], axis_length=[0.3, 0.7],
+             orientation=ori)
+        for (c0, c1), ori in (((0.20, -3.1), 0), ((0.45, -2.65), 120), ((-0.05, -2.65), 240))],
+        **device)
+
+
+def wavy(x, attractor):
+    """The rotation-by-distance DS toward ``attractor`` (the example's)."""
+    diff = attractor[None, :] - x
+    dist = torch.linalg.vector_norm(diff, dim=1)
+    c, s = torch.cos(torch.sin(dist)), torch.sin(torch.sin(dist))
+    R = torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], 1)
+    return (R @ diff[:, :, None])[:, :, 0]
+
+
+def moved(obs, t):
+    """The obstacles after t time units at their velocities."""
+    import dataclasses
+
+    return dataclasses.replace(obs, center=obs.center + t * obs.linear_velocity,
+                               orientation=obs.orientation
+                               + t * obs.angular_velocity * (180.0 / math.pi))
+
+
+def avoid_rollout(obs, x0, n_steps, dt, field, moving=False):
+    """Euler steps x ← x + dt·avoid(obs(t), x, field(x)) into (n_steps, N, 2),
+    obs(t) the obstacles moved by their velocities where ``moving``; and the
+    least Γ of every state against the obstacles where they then are (a
+    device scalar, no host read in the loop)."""
+    from gaussian_process_transportation_tpu_torch.avoidance import avoid, gamma
+
+    traj = x0.new_empty((n_steps,) + tuple(x0.shape))
+    x, g_min = x0, None
+    for i in range(n_steps):
+        at = moved(obs, i * dt) if moving else obs
+        x = x + dt * avoid(at, x, field(x))
+        traj[i] = x
+        g = gamma(moved(obs, (i + 1) * dt) if moving else obs, x).min()
+        g_min = g if g_min is None else torch.minimum(g_min, g)
+    return traj, g_min
+
+
+def avoidance_scenes(device, dtype):
+    """Phase 28's three rollouts in ``dtype`` on ``device``, each a function
+    of the number of steps returning (trajectory, least Γ): the wavy DS
+    through avoid() (9 agents), the modulated linear DS (50 agents) and the
+    linear DS through avoid() past the moving ellipse (50 agents); and each
+    one's steps and dt."""
+    from gaussian_process_transportation_tpu_torch.avoidance import (
+        gamma, modulate_multiple, rollout)
+
+    put = dict(dtype=dtype, device=device)
+    att = torch.tensor([10.0, 0.0], **put)
+    obs, obs_mv = example_obstacles(**put), example_obstacles(moving=True, **put)
+    x9 = torch.as_tensor(np.stack([np.zeros(9), np.linspace(-3, 3, 9)], 1), **put)
+    x50 = torch.as_tensor(np.stack([np.full(50, -2.0), np.linspace(-4, 4, 50)], 1), **put)
+    linear = lambda x: 0.2 * (att[None] - x)
+
+    def modulated(n):
+        traj = rollout(linear, lambda x: modulate_multiple(obs, x), x50, n, LINEAR_DT)
+        return traj, gamma(obs, traj.reshape(-1, 2)).min()
+
+    return {
+        "wavy DS, avoid()": (lambda n: avoid_rollout(obs, x9, n, WAVY_DT, lambda x: wavy(x, att)),
+                             WAVY_STEPS),
+        "linear DS, modulate_multiple": (modulated, LINEAR_STEPS),
+        "linear DS, avoid() past the moving ellipse": (
+            lambda n: avoid_rollout(obs_mv, x50, n, LINEAR_DT, linear, moving=True), LINEAR_STEPS),
+    }
+
+
+def roam_field(device, dtype, n):
+    """The ROAM scene's avoid() field on an n×n grid over [−5, 1]²: (the
+    field, the grid points outside every obstacle)."""
+    from gaussian_process_transportation_tpu_torch.avoidance import avoid, gamma
+
+    put = dict(dtype=dtype, device=device)
+    obs = roam_obstacles(**put)
+    att = torch.tensor([-1.0, -1.0], **put)
+    g = torch.linspace(-5, 1, n, **put)
+    gx, gy = torch.meshgrid(g, g, indexing="xy")
+    grid = torch.stack([gx.reshape(-1), gy.reshape(-1)], 1)
+    return avoid(obs, grid, wavy(grid, att)), gamma(obs, grid).min(0).values > 1.0, (obs, grid, att)
+
+
+def flow_field_scene():
+    """examples/obstacle_flow_field_2d.py:36-55: a 60-vertex boundary, 200
+    interior samples, a 150-point trajectory crossing it and its
+    velocities (numpy, float64)."""
+    from gaussian_process_transportation_tpu_torch.avoidance.flow_field import sample_in_polygon
+
+    th = np.linspace(0, 2 * np.pi, 60, endpoint=False)
+    boundary = np.stack([5.0 + 2.0 * np.cos(th), 1.2 * np.sin(th) + 0.3 * np.sin(2 * th)], 1)
+    inside = sample_in_polygon(boundary, 200, rng=np.random.RandomState(0))
+    t = np.linspace(0, 1, 150)
+    traj = np.stack([10 * t, 0.2 * np.ones_like(t)], 1)
+    return boundary, inside, traj, np.gradient(traj, axis=0)
+
+
+def write_lasa_file(root, name="Synthetic", n_demos=LASA_DEMOS, T=LASA_T):
+    """A .mat file in the LASA layout (a 1 x n cell of structs with pos, t,
+    vel and acc, (2, T) each): n_demos quadratic Bezier curves of T points
+    from starts on a 40 mm ring in the left half plane to the origin, over
+    4 s, velocities and accelerations their derivatives."""
+    import scipy.io
+
+    demos = np.empty((1, n_demos), dtype=object)
+    t = np.linspace(0.0, 4.0, T)
+    s = t / 4.0
+    for i in range(n_demos):
+        th = np.pi / 2 + np.pi * (i + 0.5) / n_demos
+        start = 40.0 * np.array([np.cos(th), np.sin(th)])
+        ctrl = 0.6 * np.array([[np.cos(1.0), -np.sin(1.0)], [np.sin(1.0), np.cos(1.0)]]) @ start
+        pos = np.outer(start, (1 - s) ** 2) + np.outer(ctrl, 2 * s * (1 - s))
+        vel = (np.outer(start, -2 * (1 - s)) + np.outer(ctrl, 2 - 4 * s)) / 4.0
+        acc = np.outer(2 * start - 4 * ctrl, np.ones_like(s)) / 16.0
+        demos[0, i] = {"pos": pos, "t": t[None], "vel": vel, "acc": acc}
+    scipy.io.savemat(os.path.join(root, f"{name}.mat"), {"demos": demos})
+
+
+def lasa_demos():
+    """The synthetic LASA demos as the port's ``load_lasa`` reads them, from
+    a file written to a temporary directory."""
+    import tempfile
+
+    from gaussian_process_transportation_tpu_torch.data.datasets import load_lasa
+
+    with tempfile.TemporaryDirectory() as root:
+        write_lasa_file(root)
+        return load_lasa("Synthetic", root=root)
+
+
+def lasa_kernel(dtype, device):
+    """examples/lasa_ds.py:41: C(1)·Matern 5/2(5)+White(0.01)."""
+    from gaussian_process_transportation_tpu_torch import kernels as K
+
+    return (K.Constant(1.0) * K.Matern(5.0 * torch.ones(2, dtype=dtype, device=device), nu=2.5)
+            + K.White(0.01))
+
+
+def at_theta(kernel, dtype, device):
+    """``kernel`` with its hyperparameters put in ``dtype`` on ``device``."""
+    return kernel.with_theta(kernel.theta.detach().to(dtype=dtype, device=device))
+
+
+def condition_largest(kernel, X, Y, sizes=GPDS_SIZES):
+    """The GP on the first of ``sizes`` evenly spaced points of X whose
+    float32 factor and α are finite: (GP, the points' indices, the sizes
+    that failed)."""
+    from gaussian_process_transportation_tpu_torch.models import exact_gp as gp_core
+
+    failed = []
+    for n in sizes:
+        idx = torch.as_tensor(np.linspace(0, X.shape[0] - 1, n).round().astype(np.int64),
+                              device=X.device)
+        try:
+            gp = gp_core.condition(kernel, X[idx], Y[idx])
+            if bool(torch.isfinite(gp.alpha).all()):
+                return gp, idx, failed
+        except torch.linalg.LinAlgError:
+            pass
+        failed.append(n)
+    raise AssertionError(f"no float32 factor finite at the sizes {sizes}")
+
+
+def write_reach_file(path, n_demos=REACH_DEMOS, T=REACH_T, seed=0):
+    """A file in reach_target.npy's layout (data/datasets.py:36-43):
+    ``synthetic_frames``' demonstrations with two frames each."""
+    demos_x, A, b = synthetic_frames(n_demos=n_demos, T=T, seed=seed)
+    np.save(path, {"x": demos_x, "A": A, "b": b}, allow_pickle=True)
+    return path
+
+
+def row_sweep(D, combine):
+    """DTW (combine = np.add) or Frechet (np.maximum) of the distances D by
+    the JAX package's schedule, cell by cell in float64 on the host."""
+    n, m = D.shape
+    acc = np.cumsum(D[0]) if combine is np.add else np.maximum.accumulate(D[0])
+    for i in range(1, n):
+        row, left = np.empty(m), np.inf
+        for j in range(m):
+            left = combine(D[i, j], min(left, acc[j], acc[j - 1] if j else np.inf))
+            row[j] = left
+        acc = row
+    return float(acc[-1])
+
+
+def phase28(device, tag):
+    """Obstacle avoidance at the example's scenes and sizes."""
+    from gaussian_process_transportation_tpu_torch.avoidance import avoid
+
+    t28 = time.perf_counter()
+    f64, f32 = torch.float64, torch.float32
+    cpu64 = {name: run(n) for name, (run, n) in avoidance_scenes("cpu", f64).items()}
+    card64 = {name: run(n) for name, (run, n) in avoidance_scenes(device, f64).items()}
+    lines = []
+    for name, (run, n) in avoidance_scenes(device, f32).items():
+        (run_s, (traj32, g32)), counts28 = drive(lambda: wall_s(lambda: run(n)))
+        expect_launches(name, counts28, {k: 0 for k in counts28})
+        ref, g64 = cpu64[name]
+        scale = ref.abs().max().item()
+        err64 = (card64[name][0].cpu() - ref).abs().max().item() / scale
+        err32 = (traj32.double().cpu() - ref).abs().max().item() / scale
+        if not (err64 < ROLLOUT_TOL and g32.item() >= 1.0 and torch.isfinite(traj32).all()):
+            raise AssertionError(f"{name}: float64 card vs CPU {err64:.3g} of max|x| (bound "
+                                 f"{ROLLOUT_TOL}), or the float32 run's least Gamma "
+                                 f"{g32.item():.4f} < 1, or not finite")
+        step = path_breakdown(lambda: run(1), "")
+        lines.append(f"{name} {tuple(traj32.shape)}: least Gamma {g32.item():.4f} (f32), "
+                     f"{g64.item():.4f} (f64); f64 card vs CPU {err64:.3g} of max|x| (< "
+                     f"{ROLLOUT_TOL}), f32 vs f64 {err32:.3g}; {run_s:.3f} s (f32, wall, the "
+                     f"counted run: no hand-kernel launch), one traced step "
+                     f"{step['wall_ms']:.3f} ms wall, {step['device_ms']:.3f} ms device in "
+                     f"{step['all_launches']} launches")
+        if name.startswith("wavy"):
+            end = traj32[-1].double().cpu()
+            near = int((torch.linalg.vector_norm(end - torch.tensor([10.0, 0.0], dtype=f64), dim=1)
+                        < 1.0).sum())
+            if near != 9:
+                raise AssertionError(f"wavy DS: {near}/9 agents within 1.0 of the attractor")
+            lines[-1] += f"; {near}/9 agents within 1.0 of the attractor"
+    # the ROAM field: the example's 20x20 grid and the dense 100x100 grid
+    for n in ROAM_GRIDS:
+        v64, out64, _ = roam_field(device, f64, n)
+        vc, outc, _ = roam_field("cpu", f64, n)
+        (v32, out32, (obs_r, grid_r, att_r)), counts_r = drive(lambda: roam_field(device, f32, n))
+        expect_launches("ROAM field", counts_r, {k: 0 for k in counts_r})
+        err = ((v64.cpu() - vc)[outc].abs().max() / vc[outc].abs().max()).item()
+        if not (torch.equal(out64.cpu(), outc) and torch.equal(out32.cpu(), outc)
+                and err < AVOID_TOL and torch.isfinite(v32[out32]).all()):
+            raise AssertionError(f"ROAM field {n}x{n}: f64 card vs CPU {err:.3g} (bound "
+                                 f"{AVOID_TOL}), the points outside differ, or the f32 field is "
+                                 "not finite outside the obstacles")
+        if n == 20 and int(outc.sum()) != 395:
+            raise AssertionError(f"ROAM field: {int(outc.sum())}/400 grid points outside, the "
+                                 "example has 395")
+        ms, _ = cuda_ms(lambda: avoid(obs_r, grid_r, wavy(grid_r, att_r)))
+        lines.append(f"ROAM field {n}x{n}: {int(outc.sum())}/{n * n} points outside, finite "
+                     f"there; f64 card vs CPU {err:.3g} of max|v| (< {AVOID_TOL}); one avoid() "
+                     f"call {ms:.4f} ms (f32, median of {REPS}, CUDA events)")
+    print("obstacle avoidance (examples/obstacle_avoidance_ds.py's scenes): " + "; ".join(lines)
+          + f"; phase 28 {time.perf_counter() - t28:.1f} s {tag}", flush=True)
+
+
+def flow_field_run(device, dtype, boundary, inside, traj, vel, kernel=None):
+    """ObstacleFlowField on the scene in ``dtype`` on ``device``: fitted
+    (the default kernel, 2 restarts) or, with ``kernel``, conditioned at it;
+    then the warp of the trajectory and of its velocities.  Returns (field,
+    fit seconds, (warped, uncertainty, velocities))."""
+    from gaussian_process_transportation_tpu_torch.avoidance.flow_field import ObstacleFlowField
+    from gaussian_process_transportation_tpu_torch.models.gp_regressor import GaussianProcess
+
+    field = ObstacleFlowField(torch.as_tensor(boundary, dtype=dtype, device=device))
+    if kernel is not None:
+        field.gp = GaussianProcess(kernel=kernel, alpha=field.gp.alpha, optimizer=None)
+    sync = torch.cuda.synchronize if field.device.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    field.learn_flow_field(inside)
+    sync()
+    fit_s = time.perf_counter() - t0
+    warped, unc = field.transform_space(traj)
+    return field, fit_s, (warped, unc, field.transform_velocity(traj, vel))
+
+
+def phase29(device, tag):
+    """The obstacle flow field of examples/obstacle_flow_field_2d.py."""
+    from gaussian_process_transportation_tpu_torch.avoidance.flow_field import signed_distance
+
+    t29 = time.perf_counter()
+    f64, f32 = torch.float64, torch.float32
+    boundary, inside, traj, vel = flow_field_scene()
+    card, fit64_s, out64 = flow_field_run(device, f64, boundary, inside, traj, vel)
+    fitted = at_theta(card.gp.kernel_, f64, "cpu")
+    cpu, _, outc = flow_field_run("cpu", f64, boundary, inside, traj, vel, kernel=fitted)
+    errs = [((a.cpu() - b).abs().max() / b.abs().max()).item() for a, b in zip(out64, outc)]
+    proj64 = card.project_using_sdf(inside)
+    projc = cpu.project_using_sdf(inside)
+    # the projection stops where every |d| is below its tolerance (1e-6),
+    # which the last bits can decide a step earlier on one side: held there
+    err_p = (proj64.cpu() - projc).abs().max().item()
+    if not (max(errs) < FLOW_TOL and err_p <= 1e-6):
+        raise AssertionError(f"flow field: float64 card vs CPU at the card's kernel: warp, "
+                             f"uncertainty, velocities {errs} (bound {FLOW_TOL}), projection "
+                             f"{err_p:.3g} (bound 1e-6, its tolerance), iterations "
+                             f"{card.project_iterations} and {cpu.project_iterations}")
+    (field32, fit32_s, (warped, unc, new_vel)), counts29 = drive(
+        lambda: flow_field_run(device, f32, boundary, inside, traj, vel))
+    bd, tj = torch.as_tensor(boundary), torch.as_tensor(traj)
+    d_before = signed_distance(bd, tj)
+    d_after = signed_distance(bd, warped.double().cpu())
+    was_inside = d_before < 0
+    depth_before = (-d_before[was_inside]).mean().item()
+    depth_after = torch.clamp(-d_after[was_inside], min=0.0).mean().item()
+    if not (depth_after < 0.25 * depth_before and torch.isfinite(new_vel).all()
+            and torch.isfinite(unc).all()):
+        raise AssertionError(f"flow field f32: mean depth {depth_before:.3f} -> "
+                             f"{depth_after:.3f}, not below a quarter, or a non-finite warp")
+    warp_ms, _ = cuda_ms(lambda: (field32.transform_space(traj),
+                                  field32.transform_velocity(traj, vel)))
+    proj_s, _ = wall_s(lambda: field32.project_using_sdf(inside))
+    iters32 = field32.project_iterations
+    print(f"obstacle flow field (60-vertex boundary, 200 interior samples, 150-point "
+          f"trajectory): float64 on the card vs the CPU at the kernel the card fitted: warp, "
+          f"uncertainty, velocities {', '.join(f'{e:.3g}' for e in errs)} of their max, the SDF "
+          f"projection {err_p:.3g} (<= 1e-6) in {card.project_iterations} and "
+          f"{cpu.project_iterations} iterations; "
+          f"f32: {int(was_inside.sum())} trajectory points inside, mean depth "
+          f"{depth_before:.3f} -> {depth_after:.3f} after the warp (< 0.25x), hand-kernel "
+          f"launches {dict((k, v) for k, v in counts29.items() if v)}; the fit {fit32_s:.3f} s "
+          f"(f32, 2 restarts; f64 {fit64_s:.3f} s), the warp {warp_ms:.3f} ms (positions and "
+          f"velocities, median of {REPS}), the projection of the 200 samples {proj_s:.3f} s in "
+          f"{iters32} iterations (f32; f64 {card.project_iterations}); phase 29 "
+          f"{time.perf_counter() - t29:.1f} s {tag}", flush=True)
+
+
+def gp_ds_inputs(demos, dtype, device):
+    """examples/lasa_ds.py:36-37: every tenth point of the first three demos
+    and their velocities times 0.01; and all points of every demo."""
+    put = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    X = np.concatenate([d["pos"][::10] for d in demos[:3]])
+    dX = np.concatenate([d["vel"][::10] for d in demos[:3]]) * 0.01
+    X7 = np.concatenate([d["pos"] for d in demos])
+    dX7 = np.concatenate([d["vel"] for d in demos]) * 0.01
+    return put(X), put(dX), put(X7), put(dX7)
+
+
+def spiral_gp(device, dtype):
+    """The GP dynamical system of ``spiral_demo``'s 3-D demonstration (its
+    standard normals from a seeded CPU generator): C(1)·RBF(0.5)+White(1e-4)
+    on each point's step to the next; and four starts off the demo."""
+    from gaussian_process_transportation_tpu_torch import kernels as K
+    from gaussian_process_transportation_tpu_torch.data.datasets import spiral_demo
+    from gaussian_process_transportation_tpu_torch.models import exact_gp as gp_core
+    from gaussian_process_transportation_tpu_torch.models._training import cpu_generator
+
+    demo, _, new_surface = spiral_demo(cpu_generator(0), device=device)
+    put = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    ls = 0.5 * torch.ones(3, dtype=dtype, device=device)
+    kernel = K.Constant(1.0) * K.RBF(ls) + K.White(1e-4)
+    gp = gp_core.condition(kernel, put(demo[:-1]), put(np.diff(demo, axis=0)))
+    x0 = put(demo[[0, 120, 240, 400]] + np.array([0.3, -0.2, 0.25]))
+    return gp, x0, put(new_surface.reshape(-1, 3))
+
+
+def phase30(device, tag):
+    """The GP dynamical system: the LASA example's fit and rollout, the
+    rollout over all 7,000 points (kernel #5 a step), the dense vector field
+    (kernel #6) and the stabilized 3-D rollout."""
+    from gaussian_process_transportation_tpu_torch import viz
+    from gaussian_process_transportation_tpu_torch.models import exact_gp as gp_core
+    from gaussian_process_transportation_tpu_torch.models._training import cpu_generator
+
+    t30 = time.perf_counter()
+    f64, f32 = torch.float64, torch.float32
+    demos = lasa_demos()
+    X, dX, X7, dX7 = gp_ds_inputs(demos, f32, device)
+    # (a) the example's fit and its 600-step rollout
+    fit_s, gp_a = wall_s(lambda: gp_core.fit(lasa_kernel(f32, device), X, dX, n_restarts=2,
+                                             generator=cpu_generator(0)))
+    start = demos[0]["pos"][:1]
+    traj_a = viz.rollout_gp_ds(gp_a, torch.as_tensor(start, dtype=f32, device=device), LASA_STEPS)
+    ends = {}
+    for dev in (device, "cpu"):
+        Xd, dXd = (a.to(dtype=f64, device=dev) for a in (X, dX))
+        gp64 = gp_core.condition(at_theta(gp_a.kernel, f64, dev), Xd, dXd, gp_a.jitter)
+        ends[str(dev)] = viz.rollout_gp_ds(gp64, torch.as_tensor(start, dtype=f64, device=dev),
+                                           LASA_STEPS).cpu()
+    ref_a = ends["cpu"]
+    scale = ref_a.abs().max().item()
+    err_a64 = (ends[str(device)] - ref_a).abs().max().item() / scale
+    err_a32 = (traj_a.double().cpu() - ref_a).abs().max().item() / scale
+    goal_a = np.linalg.norm(traj_a[-1, 0].double().cpu().numpy() - demos[0]["pos"][-1])
+    if not (err_a64 < ROLLOUT_TOL and err_a32 < GPDS_F32_TOL):
+        raise AssertionError(f"LASA rollout: f64 card vs CPU {err_a64:.3g} of max|x| (bound "
+                             f"{ROLLOUT_TOL}), f32 vs f64 {err_a32:.3g} (bound {GPDS_F32_TOL})")
+    _, amp, ls = gp_core.stationary_family_params(gp_a.kernel)
+    noise = float(gp_core.white_noise_level(gp_a.kernel))
+    lines = [f"(a) the example's fit on {X.shape[0]} points (C(1)*Matern52(5)+White(0.01), 2 "
+             f"restarts, f32) {fit_s:.3f} s, amplitude {float(amp):.4g}, lengthscale "
+             f"{[round(v, 4) for v in ls.tolist()]}, noise {noise:.3g}; its "
+             f"{LASA_STEPS}-step rollout ends {goal_a:.3f} from the demo's goal; f64 card vs CPU "
+             f"{err_a64:.3g} of max|x| (< {ROLLOUT_TOL}), f32 vs f64 {err_a32:.3g} (< "
+             f"{GPDS_F32_TOL})"]
+
+    # (b) all 7,000 points at (a)'s kernel, 1,000 steps from the 7 starts
+    kernel32 = at_theta(gp_a.kernel, f32, device)
+    gp_b, idx_b, failed = condition_largest(kernel32, X7, dX7)
+    x0 = torch.as_tensor(np.stack([d["pos"][0] for d in demos]), dtype=f32, device=device)
+    traj_b, counts_b = drive(lambda: viz.rollout_gp_ds(gp_b, x0, GPDS_STEPS))
+    expect_launches("GP-DS rollout", counts_b, {
+        **{k: 0 for k in counts_b}, "fused_gp_predict_mean": GPDS_STEPS})
+    states = [x0, traj_b[GPDS_STEPS // 2 - 1], traj_b[-2]]
+    fam, amp_b, ls_b = gp_core.stationary_family_params(gp_b.kernel)
+    ex_b = max(mean_excess(gp_core.predict(gp_b, s), s, gp_b.X, gp_b.alpha, ls_b, amp_b, fam)
+               for s in states)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        viz.rollout_gp_ds(gp_b, x0, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    gp_b64 = gp_core.condition(at_theta(gp_a.kernel, f64, device), X7[idx_b].double(),
+                               dX7[idx_b].double())
+    traj_b64 = viz.rollout_gp_ds(gp_b64, x0.double(), GPDS_STEPS)
+    scale_b = traj_b64.abs().max().item()
+    err_b = (traj_b[-1].double() - traj_b64[-1]).abs().max().item() / scale_b
+    if not (ex_b < 1 and err_b < GPDS_F32_TOL and torch.isfinite(traj_b).all()):
+        raise AssertionError(f"GP-DS rollout over N={gp_b.X.shape[0]}: kernel #5 vs the f64 "
+                             f"formula error/bound {ex_b:.3g}, f32 endpoints vs f64 {err_b:.3g} "
+                             f"of max|x| (bound {GPDS_F32_TOL}), or not finite")
+    roll_ms, _ = cuda_ms(lambda: viz.rollout_gp_ds(gp_b, x0, GPDS_STEPS), reps=3)
+    # ten steps traced: a one-step session held no record of the mean
+    # kernel in four tries late in a run (CUPTI)
+    step = {k: v / 10 for k, v in path_breakdown(lambda: viz.rollout_gp_ds(gp_b, x0, 10),
+                                                 "mean_chunk").items()}
+    lines.append(
+        f"(b) all {X7.shape[0]} points at (a)'s kernel: the f32 factor "
+        + (f"not finite at N={failed} (torch.linalg.cholesky), finite at the largest N tried "
+           f"after, {gp_b.X.shape[0]} evenly spaced points" if failed
+           else f"finite at N={gp_b.X.shape[0]}")
+        + f"; rollout_gp_ds from the {LASA_DEMOS} starts, {GPDS_STEPS} steps: "
+        f"fused_gp_predict_mean {counts_b['fused_gp_predict_mean']} calls (one a step), its "
+        f"means at three states vs the f64 formula error/bound {ex_b:.3g}; three steps under "
+        f"set_sync_debug_mode('error') read nothing back; f32 endpoints vs f64 {err_b:.3g} of "
+        f"max|x| (< {GPDS_F32_TOL}); the rollout {roll_ms:.2f} ms (median of 3, CUDA events), "
+        f"{roll_ms / GPDS_STEPS:.4f} ms a step; ten steps traced, a step {step['wall_ms']:.3f} "
+        f"ms wall, {step['device_ms']:.4f} ms device in {step['all_launches']:.1f} launches, the "
+        f"mean kernel {step['kernel_ms']:.4f} ms in {step['kernel_launches']:.1f}")
+
+    # (c) the vector field on a 100x100 grid over 2,048 of the points
+    idx = np.linspace(0, X7.shape[0] - 1, VF_N).astype(int)
+    gp_c = gp_core.condition(kernel32, X7[idx], dX7[idx], cache_k_inv=True)
+    lo, hi = X7.min(0).values.tolist(), X7.max(0).values.tolist()
+    xs, ys = (torch.linspace(a, b, VF_GRID, dtype=f32, device=device) for a, b in zip(lo, hi))
+    (u, v, std), counts_c = drive(lambda: viz.vector_field(gp_c, xs, ys))
+    expect_launches("vector field", counts_c, {**{k: 0 for k in counts_c},
+                                               "fused_gp_predict_mean_var": 1})
+    pos, _ = viz._grid_points(xs, ys, gp_c.X)
+    prior = amp_b + gp_core.white_noise_level(gp_c.kernel)
+    args_c = (pos, gp_c.X, gp_c.alpha, gp_c.K_inv, ls_b, amp_b, prior)
+    ref_c = predict_f64(*args_c, fam)
+    terms = cancelling_terms(pos, gp_c.X, gp_c.K_inv, ls_b, amp_b, fam)
+    ex_cm = predict_excess(torch.stack([u.reshape(-1), v.reshape(-1)], 1), ref_c[1], ref_c)[0]
+    ex_cv = cond_var_excess(std[..., 0].reshape(-1) ** 2, ref_c[1], terms)
+    faults_c = var_faults(args_c, fam, ref_c[1], terms)
+    if not (ex_cm < 1 and ex_cv < 1 and min(faults_c.values()) >= 1):
+        raise AssertionError(f"vector field: kernel #6 vs the f64 formula error/bound mean "
+                             f"{ex_cm:.3g}, variance {ex_cv:.3g}; planted faults {faults_c}")
+    vf_ms, _ = cuda_ms(lambda: viz.vector_field(gp_c, xs, ys))
+    lines.append(f"(c) vector_field on a {VF_GRID}x{VF_GRID} grid over {VF_N} points "
+                 f"(cache_k_inv): fused_gp_predict_mean_var "
+                 f"{counts_c['fused_gp_predict_mean_var']} call, vs the f64 formula error/bound "
+                 f"mean {ex_cm:.3g}, variance {ex_cv:.3g} (the variance's bound with eps32 of "
+                 f"its cancelling terms: their sum reaches {terms.max().item():.3g} against "
+                 f"variances up to {ref_c[1].max().item():.3g}), planted faults rejected at "
+                 + ", ".join(f"{k} {x:.3g}" for k, x in faults_c.items())
+                 + f"; {vf_ms:.3f} ms (median of {REPS}, CUDA events)")
+
+    # (d) the stabilized rollout and the variance-descent field in 3-D
+    runs = []
+    for dev, dtype in ((device, f64), ("cpu", f64), (device, f32)):
+        gp_d, x0_d, queries = spiral_gp(dev, dtype)
+        runs.append((viz.rollout_stable_gp_ds(gp_d, x0_d, SPIRAL_STEPS).cpu(),
+                     viz.min_variance_attractor_field(gp_d, queries).cpu()))
+    (tr64, f64_field), (trc, fc), (tr32, f32_field) = runs
+    gp_cpu = spiral_gp("cpu", f64)[0]
+    eig = torch.linalg.eigvalsh(gp_cpu.kernel(gp_cpu.X))
+    field_tol = 10 * (eig[-1] / eig[0]).item() * np.finfo(np.float64).eps
+    scale_d = trc.abs().max().item()
+    err_d = (tr64 - trc)[:SPIRAL_HELD].abs().max().item() / scale_d
+    err_d_all = (tr64 - trc).abs().max().item() / scale_d
+    err_f = (f64_field - fc).abs().max().item()
+    if not (err_d < ROLLOUT_TOL and err_f < field_tol and torch.isfinite(tr32).all()
+            and torch.isfinite(f32_field).all()):
+        raise AssertionError(f"stabilized 3-D rollout: f64 card vs CPU over {SPIRAL_HELD} steps "
+                             f"{err_d:.3g} of max|x| (bound {ROLLOUT_TOL}), the variance-descent "
+                             f"field {err_f:.3g} (bound {field_tol:.3g}), or f32 not finite")
+    stable_s, _ = wall_s(lambda: viz.rollout_stable_gp_ds(*spiral_gp(device, f32)[:2],
+                                                          SPIRAL_STEPS))
+    lines.append(f"(d) rollout_stable_gp_ds on spiral_demo's 3-D demo ({SPIRAL_STEPS} steps, 4 "
+                 f"starts): f64 card vs CPU {err_d:.3g} of max|x| over the first {SPIRAL_HELD} "
+                 f"steps (< {ROLLOUT_TOL}), {err_d_all:.3g} over all (chaotic, not held); "
+                 f"min_variance_attractor_field at the target surface's 400 points {err_f:.3g} "
+                 f"(< 10 kappa eps64 = {field_tol:.3g}), f32 finite, {stable_s:.3f} s (f32, wall)")
+    print("GP dynamical system on a synthetic LASA file (7 demos x 1000 points): "
+          + "; ".join(lines) + f"; phase 30 {time.perf_counter() - t30:.1f} s {tag}", flush=True)
+    return {"fused_gp_predict_mean": counts_b["fused_gp_predict_mean"],
+            "fused_gp_predict_mean_var": counts_c["fused_gp_predict_mean_var"]}
+
+
+def cancelling_terms(Xq, X, K_inv, ls, amp, family):
+    """Σ_ij |k_i K⁻¹_ij k_j| per query in float64: the size of the terms that
+    the variance prior − k K⁻¹ kᵀ cancels, which float32 sums round at
+    about ε32 of."""
+    from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
+
+    k = pg.stationary_gram_plain(Xq.double(), X.double(), ls.double(), amp, family).abs()
+    return ((k @ K_inv.double().abs()) * k).sum(1)
+
+
+def cond_var_excess(var, var64, terms):
+    """The largest error over the bound of a variance against the f64
+    formula: ``predict_excess``'s VAR_REL·var64 + VAR_FLOOR, plus ε32 of the
+    cancelling terms (an ill-conditioned K⁻¹ makes them many times the
+    variance; a CPU rehearsal of phase 30(c) read the f32 dense twin at
+    0.077 of this bound and 11.3 of the plain one)."""
+    bound = VAR_REL * var64 + VAR_FLOOR + F32_EPS * terms
+    return ((var.double() - var64).abs() / bound).max().item()
+
+
+def var_faults(args, family, var64, terms):
+    """``cond_var_excess`` must reject a wrong kernel #6 at these inputs: the
+    variance doubled, and K⁻¹ column tile 1 dropped (``planted_faults``'
+    two faults).  Returns each fault's error/bound."""
+    from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
+
+    Xq, X, alpha, K_inv, ls, amp, prior = args
+    var = pg.fused_gp_predict_mean_var(Xq, X, alpha, K_inv, ls, amp, prior, family)[1]
+    K_drop = K_inv.clone()
+    K_drop[:, pg.MEAN_VAR_TILE_B:2 * pg.MEAN_VAR_TILE_B] = 0
+    var_drop = pg.fused_gp_predict_mean_var(Xq, X, alpha, K_drop, ls, amp, prior, family)[1]
+    return {"var x2": cond_var_excess(2 * var, var64, terms),
+            "column tile 1 dropped": cond_var_excess(var_drop, var64, terms)}
+
+
+def comparison_f64(out):
+    """``run_comparison``'s three matrices by numpy float64 formulas on the
+    trajectories and stds it returned."""
+    names = out["names"]
+    m = {k: np.asarray(out["trajectories"][k], np.float64) for k in names}
+    s = {k: np.asarray(out["stds"][k], np.float64) for k in names}
+    kl, wd, eu = (np.zeros((len(names), len(names))) for _ in range(3))
+    for i, a in enumerate(names):
+        for j, b in enumerate(names):
+            vp, vq, d2 = s[a] ** 2 + 1e-12, s[b] ** 2 + 1e-12, (m[a] - m[b]) ** 2
+            kl[i, j] = np.sum(0.5 * (np.log(vq / vp) + (vp + d2) / vq - 1.0))
+            wd[i, j] = np.mean(np.sqrt(np.sum(d2 / s[a] ** 2 + d2 / s[b] ** 2, 1)))
+            eu[i, j] = np.mean(np.sqrt(np.sum(2.0 * d2, 1)))
+    return {"divergence": kl, "distribution_distance": wd, "euclidean_distance": eu}
+
+
+def phase31(device, tag):
+    """The metrics and the comparison suites at their defaults."""
+    import tempfile
+
+    from gaussian_process_transportation_tpu_torch import benchmarks
+    from gaussian_process_transportation_tpu_torch.utils import metrics
+
+    t31 = time.perf_counter()
+    lines = []
+    # the surfaces comparison at its defaults, f32 on the card, on phase 26's inputs
+    Xc, _, Sc, S1c = comparison_inputs()
+    cmp_s, out = wall_s(lambda: benchmarks.run_comparison(
+        *(a.astype(np.float32) for a in (Xc, Sc, S1c)), device=device))
+    want = comparison_f64(out)
+    err_c = max(np.abs(out[k] - w).max() / max(np.abs(w).max(), 1e-300) for k, w in want.items())
+    if not (err_c < 1e-5 and all(np.isfinite(out[k]).all() for k in want)):
+        raise AssertionError(f"run_comparison: its matrices vs numpy f64 on its trajectories "
+                             f"{err_c:.3g} of their max (bound 1e-5, float32 sums)")
+    lines.append(f"run_comparison at its defaults ({len(out['names'])} methods, n_traj = n_dist "
+                 f"= {N_CMP}, f32): {cmp_s:.2f} s, its three matrices vs numpy f64 formulas "
+                 f"{err_c:.3g} of their max (< 1e-5)")
+    # the multi-frame suites on a synthetic file in reach_target.npy's layout
+    with tempfile.TemporaryDirectory() as root:
+        path = write_reach_file(os.path.join(root, "reach_target.npy"))
+        first = {dev: (benchmarks.ablation_study(number_repetitions=1, path=path, device=dev),
+                       benchmarks.compare_methods(number_repetitions=1, path=path, device=dev))
+                 for dev in (device, "cpu")}
+        (ab_card, cm_card), (ab_cpu, cm_cpu) = first[device], first["cpu"]
+        rel = lambda a, b: np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
+        err_ab = max(rel(ab_card[k], ab_cpu[k]) for k in ab_cpu)
+        err_cm = max(rel(cm_card[t][n], cm_cpu[t][n]) for t in cm_cpu for n in cm_cpu[t])
+        if not (err_ab < 1e-8 and err_cm < 1e-8):
+            raise AssertionError(f"the multi-frame suites' first repetition, f64 card vs CPU: "
+                                 f"ablation {err_ab:.3g}, comparison {err_cm:.3g} (bound 1e-8)")
+        ab_s, ab = wall_s(lambda: benchmarks.ablation_study(path=path, device=device))
+        cm_s, cm = wall_s(lambda: benchmarks.compare_methods(path=path, device=device))
+    if not (all(np.isfinite(v).all() for v in ab.values())
+            and all(np.isfinite(v).all() for per in cm.values() for v in per.values())):
+        raise AssertionError("the multi-frame suites' samples are not all finite")
+    report = benchmarks.ranking_report(cm)
+    lines.append(f"on a synthetic reach-target file ({REACH_DEMOS} demos of {REACH_T} points, "
+                 f"two frames): the first repetition f64 card vs CPU, ablation {err_ab:.3g}, "
+                 f"comparison {err_cm:.3g} of the largest sample (< 1e-8); ablation_study() at its "
+                 f"defaults {ab_s:.2f} s ({len(ab['df'])} reproductions, {len(ab['fde_ood'])} "
+                 f"out of distribution; median FDE {np.median(ab['fde']):.3g}), compare_methods() "
+                 f"{cm_s:.2f} s ({sum(len(v) for v in cm['Frechet Distance'].values())} samples a "
+                 f"metric); ranking_report: " + " | ".join(report.splitlines()))
+    # DTW and Frechet at T = 1,000 in f64 on the card against the row sweep
+    rng = np.random.default_rng(31)
+    A, B = (np.cumsum(rng.standard_normal((DP_T, 2)), 0) for _ in range(2))
+    At, Bt = (torch.as_tensor(a, dtype=torch.float64, device=device) for a in (A, B))
+    D = metrics._pairwise_dist(At, Bt).cpu().numpy()
+    dp = []
+    for name, fn, combine in (("dtw", metrics.dtw_distance, np.add),
+                              ("frechet", metrics.frechet_distance, np.maximum)):
+        got, want_dp = fn(At, Bt).item(), row_sweep(D, combine)
+        if not abs(got - want_dp) <= 1e-12 * abs(want_dp):
+            raise AssertionError(f"{name} at T={DP_T}: {got!r} on the card, the row sweep "
+                                 f"{want_dp!r}")
+        b = path_breakdown(lambda: fn(At, Bt), "")
+        dp.append(f"{name} {got:.6g} ({abs(got - want_dp) / want_dp:.3g} from the host row "
+                  f"sweep), {b['wall_ms']:.2f} ms wall, {b['all_launches']} launches over "
+                  f"{2 * DP_T - 1} anti-diagonals")
+    lines.append(f"at T={DP_T} (f64 on the card): " + "; ".join(dp))
+    print("metrics and comparison suites: " + "; ".join(lines)
+          + f"; phase 31 {time.perf_counter() - t31:.1f} s {tag}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -3107,6 +3812,13 @@ def main() -> None:
     # 27. SVGP at the 3-D surface scale, and the multi-frame baselines
     phase27(device, tag)
 
+    # 28-31. obstacle avoidance, the flow field, the GP dynamical system, the
+    # metrics and the comparison suites
+    phase28(device, tag)
+    phase29(device, tag)
+    counts30 = phase30(device, tag)
+    phase31(device, tag)
+
     # the launches of #2 and #3 in their paths' runs (phases 13 and 14)
     kernels_json["small_lml_value_grad"]["launches"] = counts14["small_lml_value_grad"]
     # the later paths' launches (phases 16, 17 and 19) beside the main path's
@@ -3122,7 +3834,10 @@ def main() -> None:
             active_learning_fit_launches=counts22[name])
     kernels_json["fused_gp_predict_mean"].setdefault("extra", {}).update(
         active_learning_predict_launches=counts22p["fused_gp_predict_mean"],
-        diffeo_sweep_launches=counts23["fused_gp_predict_mean"])
+        diffeo_sweep_launches=counts23["fused_gp_predict_mean"],
+        gp_ds_rollout_launches=counts30["fused_gp_predict_mean"])
+    kernels_json["fused_gp_predict_mean_var"].setdefault("extra", {}).update(
+        gp_ds_vector_field_launches=counts30["fused_gp_predict_mean_var"])
     kernels_json["small_lml_value_grad_md"].update(
         launches=counts13["small_lml_value_grad_md"], value_only_launches=counts13[VALUE_ONLY])
 

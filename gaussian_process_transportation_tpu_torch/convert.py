@@ -6,7 +6,8 @@ Plain numpy dictionaries work the same way, which is how saved state or
 a test hands both packages the same parameters.  The learned models' state
 (MLP and flow parameters, SVGP states, GMM and forest arrays, the
 multi-frame baselines' parameters) is read the same way, by field name,
-from the JAX objects or from mappings of arrays.
+from the JAX objects or from mappings of arrays, and so are the obstacle
+scenes and the fitted obstacle flow field.
 
 Like the port's other entry points, every function puts its tensors on the
 card unless the caller asks for another device (``device="cpu"``).
@@ -20,6 +21,8 @@ import numpy as np
 import torch
 
 from . import kernels as K
+from .avoidance.flow_field import ObstacleFlowField
+from .avoidance.geometry import Obstacles
 from .models.affine import AffineParams
 from .models.exact_gp import ExactGP
 from .models.flows import CouplingNet, CouplingParams
@@ -178,3 +181,33 @@ def tpgmm_params_from_numpy(params, dtype: torch.dtype = torch.float64,
 def hmm_params_from_numpy(params, dtype: torch.dtype = torch.float64, device="cuda") -> HMMParams:
     """HMMParams from arrays init, trans, mu and sigma."""
     return _fields(HMMParams, params, dtype, device)
+
+
+def obstacles_from_tree(obs, dtype: torch.dtype = torch.float64, device="cuda") -> Obstacles:
+    """The port's Obstacles from the JAX package's (or a mapping of its
+    fields' arrays)."""
+    return _fields(Obstacles, obs, dtype, device)
+
+
+def flow_field_from_tree(ff, dtype: torch.dtype = torch.float64,
+                         device="cuda") -> ObstacleFlowField:
+    """The port's ObstacleFlowField holding a fitted JAX one's state: its
+    boundary, PCA center, axes and dimensions, and its GP (the initial and
+    fitted kernels, the jitter ``alpha``, the restarts and the posterior
+    through :func:`exact_gp_from_numpy`)."""
+    gp = ff.gp
+    out = ObstacleFlowField(_tensor(ff.boundary, dtype, device),
+                            kernel=kernel_from_tree(gp.kernel, dtype, device), alpha=gp.alpha,
+                            n_restarts=gp.n_restarts_optimizer, device=device)
+    for name in ("center", "components", "dimensions"):
+        setattr(out, name, _tensor(getattr(ff, name), dtype, device))
+    if getattr(ff, "projected_boundary_points", None) is not None:
+        out.projected_boundary_points = _tensor(ff.projected_boundary_points, dtype, device)
+    state = gp.state
+    fitted = kernel_from_tree(state.kernel, dtype, device)
+    out.gp.state = exact_gp_from_numpy(
+        {key: getattr(state, key) for key in ("X", "Y", "alpha", "L", "K_inv")},
+        fitted, dtype, device, jitter=float(state.jitter))
+    out.gp.kernel_ = fitted
+    out.gp.noise_var_ = float(gp.noise_var_)
+    return out

@@ -377,11 +377,14 @@ mean_chunk_kernel(const float* __restrict__ Xq, const float* __restrict__ X,
   }
 }
 
-// mean[i] = amp * sum over the chunks c, in order, of partial[c, i]
+// mean[i] = amp * sum over the chunks c, in order, of partial[c, i]; amp is
+// read from amp_dev where that is not null
 __global__ void combine_mean_kernel(const float* __restrict__ partial, int chunks,
-                                    long long NqP, float amp, float* __restrict__ mean) {
+                                    long long NqP, const float* __restrict__ amp_dev,
+                                    float amp_v, float* __restrict__ mean) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= NqP) return;
+  const float amp = amp_dev ? *amp_dev : amp_v;
   float s = 0.f;
   for (int c = 0; c < chunks; ++c) s += partial[c * NqP + i];
   mean[i] = amp * s;
@@ -421,9 +424,10 @@ template <int kD>
 __global__ void __launch_bounds__(kVThreads, 2)
 mean_var_kernel(const float* __restrict__ Xq, const float* __restrict__ X,
                 const float* __restrict__ alpha, const float* __restrict__ Kinv, long long ldk,
-                int Nq, int N, int D_any, int P, float amp, int family, float* __restrict__ mean,
-                float* __restrict__ partial) {
+                int Nq, int N, int D_any, int P, const float* __restrict__ amp_dev, float amp_v,
+                int family, float* __restrict__ mean, float* __restrict__ partial) {
   const int D = kD > 0 ? kD : D_any;
+  const float amp = amp_dev ? *amp_dev : amp_v;
   extern __shared__ __align__(16) unsigned char var_smem_raw[];
   VarSmem& s = *reinterpret_cast<VarSmem*>(var_smem_raw);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -576,9 +580,11 @@ mean_var_kernel(const float* __restrict__ Xq, const float* __restrict__ X,
 }
 
 __global__ void combine_var_kernel(const float* __restrict__ partial, int tiles, int Nq,
-                                   float prior, float* __restrict__ var) {
+                                   const float* __restrict__ prior_dev, float prior_v,
+                                   float* __restrict__ var) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= Nq) return;
+  const float prior = prior_dev ? *prior_dev : prior_v;
   float s = 0.f;
   for (int t = 0; t < tiles; ++t) s += partial[static_cast<long long>(t) * Nq + q];
   var[q] = fmaxf(prior - s, 0.f);
@@ -650,12 +656,16 @@ extern "C" int stationary_gram_panels_f32(const void* Z, int n, int D, int B,
                            family, tiles, static_cast<cudaStream_t>(stream));
 }
 
+// The predicts' amp_dev and prior_dev are device pointers to one float32
+// value each or null, and then amp and prior are used: a value on the card
+// is read there, with no copy to the host.
+
 // partial is a (ceil(N / chunk), Nq, P) float32 scratch buffer sized by the
 // caller, who passes the chunk width it sized it for: another width than
 // the kernel's is refused (cudaErrorInvalidValue).
 extern "C" int predict_mean_f32(const void* Xq, const void* X, const void* alpha, int Nq, int N,
-                                int D, int P, float amp, int family, void* mean, void* partial,
-                                int chunk, void* stream) {
+                                int D, int P, const void* amp_dev, float amp, int family,
+                                void* mean, void* partial, int chunk, void* stream) {
   if (chunk != kMC) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int chunks = cdiv(N, kMC);
@@ -672,7 +682,8 @@ extern "C" int predict_mean_f32(const void* Xq, const void* X, const void* alpha
   }
   const long long NqP = static_cast<long long>(Nq) * P;
   combine_mean_kernel<<<static_cast<unsigned>((NqP + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(partial), chunks, NqP, amp, static_cast<float*>(mean));
+      static_cast<const float*>(partial), chunks, NqP, static_cast<const float*>(amp_dev), amp,
+      static_cast<float*>(mean));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -686,8 +697,9 @@ extern "C" int predict_mean_var_smem_bytes() { return static_cast<int>(sizeof(Va
 // another width than the kernel's is refused (cudaErrorInvalidValue).
 extern "C" int predict_mean_var_f32(const void* Xq, const void* X, const void* alpha,
                                     const void* Kinv, long long ldk, int Nq, int N, int D, int P,
-                                    float amp, float prior, int family, void* mean, void* var,
-                                    void* partial, int tile_b, void* stream) {
+                                    const void* amp_dev, float amp, const void* prior_dev,
+                                    float prior, int family, void* mean, void* var, void* partial,
+                                    int tile_b, void* stream) {
   if (tile_b != kVB) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int smem = static_cast<int>(sizeof(VarSmem));
@@ -698,11 +710,13 @@ extern "C" int predict_mean_var_f32(const void* Xq, const void* X, const void* a
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(cdiv(Nq, kVQ), tiles), kVThreads, smem, s>>>(
       static_cast<const float*>(Xq), static_cast<const float*>(X),
-      static_cast<const float*>(alpha), static_cast<const float*>(Kinv), ldk, Nq, N, D, P, amp,
-      family, static_cast<float*>(mean), static_cast<float*>(partial));
+      static_cast<const float*>(alpha), static_cast<const float*>(Kinv), ldk, Nq, N, D, P,
+      static_cast<const float*>(amp_dev), amp, family, static_cast<float*>(mean),
+      static_cast<float*>(partial));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   combine_var_kernel<<<cdiv(Nq, 256), 256, 0, s>>>(static_cast<const float*>(partial), tiles, Nq,
-                                                   prior, static_cast<float*>(var));
+                                                   static_cast<const float*>(prior_dev), prior,
+                                                   static_cast<float*>(var));
   return static_cast<int>(cudaGetLastError());
 }

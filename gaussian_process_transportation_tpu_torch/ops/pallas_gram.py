@@ -123,14 +123,9 @@ _ARGTYPES = {
                             ctypes.c_longlong, _I, _I, _P],
     "stationary_gram_panels_f32": [_P, _I, _I, _I, _P, _I, _HOST_FLOATS, _P, _F, _P, _F, _I, _P,
                                    _I, _I, _P],
-    "predict_mean_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
-    "predict_mean_var_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                             ctypes.c_void_p],
+    "predict_mean_f32": [_P, _P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _P, _I, _P],
+    "predict_mean_var_f32": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _F, _P, _F,
+                             _I, _P, _P, _P, _I, _P],
 }
 
 
@@ -265,7 +260,9 @@ def fused_gp_predict_mean(Xq: Tensor, X: Tensor, alpha: Tensor, lengthscale, amp
     For CUDA tensors one call of the fused kernel, which never writes the
     (Nq, N) Gram (its two CUDA launches: the partial sums of each chunk of
     ``MEAN_CHUNK`` training points, then their fixed-order sum; float32
-    only, P ≤ MAX_P).  For CPU tensors the twin."""
+    only, P ≤ MAX_P).  A one-element CUDA tensor amplitude is read by the
+    kernel where it lies, so the call reads nothing back to the host.  For
+    CPU tensors the twin."""
     if Xq.device.type != "cuda":
         return fused_gp_predict_mean_plain(Xq, X, alpha, lengthscale, amplitude, family)
     device = _check_points("fused_gp_predict_mean", Xq, X, alpha)
@@ -278,9 +275,9 @@ def fused_gp_predict_mean(Xq: Tensor, X: Tensor, alpha: Tensor, lengthscale, amp
         partial = torch.empty(-(-N // MEAN_CHUNK), Nq, P, dtype=torch.float32, device=device)
         Xqs, Xs = _kernel_points(Xq, lengthscale), _kernel_points(X, lengthscale)
         a = alpha.contiguous()
+        amp_keep, amp_args = gram_scalar_args(amplitude, device, "amplitude")
         _call("predict_mean_f32", device, Xqs.data_ptr(), Xs.data_ptr(), a.data_ptr(), Nq, N, D, P,
-              float(amplitude), _family_code(family), mean.data_ptr(), partial.data_ptr(),
-              MEAN_CHUNK)
+              *amp_args, _family_code(family), mean.data_ptr(), partial.data_ptr(), MEAN_CHUNK)
         fused_gp_predict_mean.launches += 1
     return mean
 
@@ -297,8 +294,9 @@ def fused_gp_predict_mean_var(Xq: Tensor, X: Tensor, alpha: Tensor, K_inv: Tenso
     For CUDA tensors one call of the fused kernel (its two CUDA launches:
     the tiles, then the fixed-order sum of their partial variances; float32
     only).  K⁻¹ is read in place when its columns have unit stride, at any
-    row stride and alignment; another layout is copied first.  For CPU
-    tensors the twin."""
+    row stride and alignment; another layout is copied first.  A one-element
+    CUDA tensor amplitude or prior is read by the kernels where it lies, so
+    the call reads nothing back to the host.  For CPU tensors the twin."""
     if Xq.device.type != "cuda":
         return fused_gp_predict_mean_var_plain(Xq, X, alpha, K_inv, lengthscale, amplitude,
                                                prior_diag, family)
@@ -314,8 +312,10 @@ def fused_gp_predict_mean_var(Xq: Tensor, X: Tensor, alpha: Tensor, K_inv: Tenso
         Xqs, Xs = _kernel_points(Xq, lengthscale), _kernel_points(X, lengthscale)
         a = alpha.contiguous()
         Ki = K_inv if K_inv.stride(1) == 1 else K_inv.contiguous()
+        amp_keep, amp_args = gram_scalar_args(amplitude, device, "amplitude")
+        prior_keep, prior_args = gram_scalar_args(prior_diag, device, "prior_diag")
         _call("predict_mean_var_f32", device, Xqs.data_ptr(), Xs.data_ptr(), a.data_ptr(),
-              Ki.data_ptr(), Ki.stride(0), Nq, N, D, P, float(amplitude), float(prior_diag),
+              Ki.data_ptr(), Ki.stride(0), Nq, N, D, P, *amp_args, *prior_args,
               _family_code(family), mean.data_ptr(), var.data_ptr(), partial.data_ptr(),
               MEAN_VAR_TILE_B)
         fused_gp_predict_mean_var.launches += 1

@@ -194,13 +194,13 @@ def time_mean(device):
     for name, lib in libs.items():
         chunk = variants[name][1]
         fn = lib.predict_mean_f32
-        fn.argtypes = [p, p, p, i, i, i, i, fl, i, p, p, i, p]
+        fn.argtypes = [p, p, p, i, i, i, i, p, fl, i, p, p, i, p]
         mean = torch.zeros(Nq, P, **f32)
         partial = torch.empty(-(-N // chunk), Nq, P, **f32)
         outs[name] = mean
         calls[name] = (lambda fn=fn, mean=mean, partial=partial, chunk=chunk: fn(
-            Xq.data_ptr(), X.data_ptr(), alpha.data_ptr(), Nq, N, D, P, 2.0, 0, mean.data_ptr(),
-            partial.data_ptr(), chunk, torch.cuda.current_stream().cuda_stream))
+            Xq.data_ptr(), X.data_ptr(), alpha.data_ptr(), Nq, N, D, P, None, 2.0, 0,
+            mean.data_ptr(), partial.data_ptr(), chunk, torch.cuda.current_stream().cuda_stream))
         if calls[name]() != 0:
             raise RuntimeError(f"variant {name!r} failed to launch")
     torch.cuda.synchronize()

@@ -870,3 +870,40 @@ def test_learned_transports_on_the_card_match_the_cpu(device, name):
             want = getattr(cpu, field)
             err = (getattr(card, field).cpu() - want).abs().max().item()
             assert err <= 1e-6 * max(want.abs().max().item(), 1e-12), (field, err)
+
+
+def test_gp_ds_rollout_step_reads_nothing_back(device, monkeypatch):
+    """A rollout step of the GP dynamical system with the fitted kernel's
+    amplitude a CUDA tensor: kernel #5 takes it by device pointer, so three
+    steps run under set_sync_debug_mode("error"), one launch each; and #5
+    and #6 with a CUDA-tensor amplitude and prior equal their runs with the
+    same values passed as numbers, bit for bit."""
+    from gaussian_process_transportation_tpu_torch import viz
+
+    _reset_counts(monkeypatch)
+    rng = np.random.default_rng(14)
+    f32 = dict(dtype=torch.float32, device=device)
+    X = torch.as_tensor(rng.uniform(-4, 4, (300, 2)), **f32)
+    kern = (K.Constant(torch.tensor(1.3, **f32)) * K.Matern(torch.tensor([1.5, 2.0], **f32), nu=2.5)
+            + K.White(torch.tensor(0.01, **f32)))
+    gp = tgp.condition(kern, X, -0.1 * X + 0.05 * torch.sin(X), cache_k_inv=True)
+    x0 = torch.as_tensor(rng.uniform(-4, 4, (7, 2)), **f32)
+    assert 7 * 300 >= tgp.FUSED_PREDICT_MIN_ELEMS
+    viz.rollout_gp_ds(gp, x0, 1)  # the build and the first launch
+    torch.cuda.synchronize()
+    tpg.fused_gp_predict_mean.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        traj = viz.rollout_gp_ds(gp, x0, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tpg.fused_gp_predict_mean.launches == 3 and torch.isfinite(traj).all()
+    ls, amp = torch.tensor([1.5, 2.0], **f32), torch.tensor(1.3, **f32)
+    prior = amp + 0.01
+    by_value = tpg.fused_gp_predict_mean(x0, X, gp.alpha, ls, 1.3, "matern52")
+    assert torch.equal(tpg.fused_gp_predict_mean(x0, X, gp.alpha, ls, amp, "matern52"), by_value)
+    Xq = torch.as_tensor(rng.uniform(-4, 4, (500, 2)), **f32)
+    want = tpg.fused_gp_predict_mean_var(Xq, X, gp.alpha, gp.K_inv, ls, 1.3, prior.item(),
+                                         "matern52")
+    got = tpg.fused_gp_predict_mean_var(Xq, X, gp.alpha, gp.K_inv, ls, amp, prior, "matern52")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

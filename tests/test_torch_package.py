@@ -62,6 +62,8 @@ def test_resample_matches_jax(num_points, planar):
 # queue 1): the multi-device modules.
 NOT_PORTED = {
     "": set(),
+    "avoidance": set(),
+    "benchmarks": set(),
     "models": set(),
     "ops": set(),
     "parallel": {"make_mesh", "ensemble_sharding", "replicated", "transport_ensemble",
@@ -158,3 +160,45 @@ def test_cholesky_with_jitter_and_the_rbf_aliases_match_jax():
             np.testing.assert_allclose(float(got[0]), float(want[0]))
             np.testing.assert_allclose(np.asarray(got[1]), np.asarray(want[1]))
     assert rbf_family_params(TK.RBF(1.0) + TK.RBF(2.0)) is None
+
+
+# ---- quirks of the JAX package the port does not copy ---------------------
+
+
+def _ranked_metrics():
+    rng = np.random.RandomState(0)
+    return {"Frechet Distance": {"GPT": np.abs(rng.randn(30)) * 0.1,
+                                 "DMP": np.concatenate([np.abs(rng.randn(29)) * 5 + 1, [np.nan]]),
+                                 "HMM": np.abs(rng.randn(30)) * 2 + 0.5}}
+
+
+def test_ranked_boxplot_leaves_the_matplotlib_backend_alone(tmp_path):
+    """The JAX package's ``ranked_boxplot`` switches the whole process to
+    Agg; the port's draws on a ``Figure`` and leaves the backend, and
+    pyplot's figures, as they were."""
+    import matplotlib
+    import matplotlib.pyplot as plt
+
+    from gaussian_process_transportation_tpu_torch.benchmarks.statistics import ranked_boxplot
+
+    before, figures = matplotlib.get_backend(), plt.get_fignums()
+    fig, axes = ranked_boxplot(_ranked_metrics(), out_path=str(tmp_path / "box.png"))
+    assert matplotlib.get_backend() == before and plt.get_fignums() == figures
+    assert (tmp_path / "box.png").stat().st_size > 0
+    assert [t.get_text() for t in axes[0].get_xticklabels()][0] == "GPT"
+
+
+def test_nan_samples_never_reach_mann_whitney(monkeypatch):
+    from gaussian_process_transportation_tpu_torch.benchmarks import statistics
+
+    seen = []
+    real = statistics.stats.mannwhitneyu
+
+    def checked(x, y, **kw):
+        seen.append(np.isnan(x).any() or np.isnan(y).any())
+        return real(x, y, **kw)
+
+    monkeypatch.setattr(statistics.stats, "mannwhitneyu", checked)
+    statistics.ranking_report(_ranked_metrics())
+    statistics.ranked_boxplot(_ranked_metrics())
+    assert len(seen) == 12 and not any(seen)

@@ -4,8 +4,9 @@ large-N exact GP, the hyperparameter fits (small and large N), the HMC and
 NUTS hyperposteriors, checkpointed runs, SMC particles, the active-learning
 GP, the diffeomorphism sweep, the mixed-precision solve, the transport
 variants, the learned-map transports and the multi-frame baselines, obstacle
-avoidance and the obstacle flow field, the GP dynamical system, and the
-metrics and comparison suites.
+avoidance and the obstacle flow field, the GP dynamical system, the
+metrics and comparison suites, and the multi-device slice (meshes over
+``torch.distributed`` ranks, the sharded ensemble, Cholesky and LML).
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -237,7 +238,32 @@ Phases, one line each on stdout:
     their defaults on a synthetic file in the reach-target layout (9 demos
     of 200 points), their first repetition float64 on the card against the
     CPU, their times and ``ranking_report``; DTW and Fréchet at T = 1,000
-    in float64 on the card against the host row sweep, with their launches.
+    in float64 on the card against the host row sweep, with their launches;
+32. the multi-device slice at full width in a one-rank NCCL group on the
+    card (``parallel/``; ``distributed.initialize`` and a (1, 1) mesh,
+    destroyed at the phase's end): (a) ``transport_ensemble`` at phase 4's
+    bench transport, bit for bit phase 4's result in one launch of #1; (b)
+    three ``make_ensemble_train_step`` steps at E=16384, finite, the first
+    loss within 1e-5 of the mean -LML of ``exact_gp`` over the members;
+    (c) ``sharded_gram_cholesky_solve`` on phase 8's inputs (20 launches
+    of #4): alpha against phase 8's f64 solve to phase 8's bound, its
+    difference to phase 8's alpha, log det against f64 and a re-solve
+    through the factor; (d) ``sharded_lml_value_and_grad`` on phase 16's
+    inputs (20 launches of #4): value and gradient within phase 16's f64
+    bound, as is ``blocked_lml_value_and_grad`` without refinement, the
+    gradient within 1e-4 of its largest entry of that one's; then
+    ``fit_sharded`` at maxiter 10 raising the LML; (e)
+    ``sample_gp_posterior(mesh=)`` at phase 14's workload, bit for bit
+    phase 14's chains, #2's launches counted; (f)
+    ``init_particles(mesh=)`` and 16 ``smc_step``s at phase 20's size, equal
+    to the run without a mesh; CUDA-event medians of (a), (c), (d) and (e)
+    beside phases 4, 8, 16 and 14;
+33. ``dryrun_multichip(8)`` on eight gloo ranks sharing the card (the
+    collectives pass CUDA tensors through gloo): its ``loss`` and
+    ``sharded_lml`` within 1e-4 of the JAX package's recorded run
+    (``MULTICHIP_r05.json``), the launches of #1, #2 and #4 on every rank,
+    and each rank's #4 against its plain twin at B=128; with two or more
+    cards also ``dryrun_multichip`` over NCCL, one rank a card.
 
 Each path is driven with every launch count set to 0 just before and read
 just after.  Then one JSON line with the kernels' record and, last, the
@@ -2422,6 +2448,274 @@ def phase31(device, tag):
           + f"; phase 31 {time.perf_counter() - t31:.1f} s {tag}", flush=True)
 
 
+# ---- phases 32-33: the multi-device slice -----------------------------------
+
+DRYRUN_RANKS = 8
+MULTICHIP_RECORD = "MULTICHIP_r05.json"  # the JAX package's dryrun on eight devices
+# the dryrun's launches a rank at DRYRUN_RANKS (E = 512 on 4 'ens' ranks: one
+# batched call each; 2 chains a rank, 1 + (10 + 10)·4 leapfrog evaluations;
+# N = 2048 in blocks of 128: every rank factors all 16 diagonal blocks)
+DRYRUN_LAUNCHES = {"transport": {"spd_inverse_elast_fused": 1},
+                   "hmc": {"small_lml_value_grad": 81},
+                   "cholesky": {"factor_panel": 16}, "lml": {"factor_panel": 16}}
+
+
+def jax_dryrun_summary(text):
+    """The numbers of a ``dryrun_multichip OK:`` line."""
+    line = [ln for ln in text.splitlines() if ln.startswith("dryrun_multichip OK:")][-1]
+    return {k: float(v) for k, v in re.findall(r"(loss|sharded_lml)=([-\d.]+)", line)}
+
+
+def phase32(device, tag, ref):
+    """The multi-device slice at full width in a one-rank NCCL group on the
+    card: (a) the transport ensemble, (b) three joint training steps, (c)
+    the distributed Cholesky, (d) the distributed LML and fit, (e) mesh HMC,
+    (f) mesh SMC, each against its one-process path; the CUDA-event times
+    beside those paths'.  The group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from gaussian_process_transportation_tpu_torch import kernels as K
+    from gaussian_process_transportation_tpu_torch.models import affine as affine_core
+    from gaussian_process_transportation_tpu_torch.models import exact_gp as gp_core
+    from gaussian_process_transportation_tpu_torch.ops import blocked_lml as bll
+    from gaussian_process_transportation_tpu_torch.parallel import (
+        distributed, ensemble, samplers, sharded_chol, sharded_lml, smc,
+    )
+    from gaussian_process_transportation_tpu_torch.parallel.mesh import make_mesh
+
+    t32 = time.perf_counter()
+    f32 = dict(dtype=torch.float32, device=device)
+    distributed.initialize(num_processes=1, backend="nccl")
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        backends = {ax: dist.get_backend(mesh[ax].get_group()) for ax in ("ens", "data")}
+        counts, ms, lines = {}, {}, []
+
+        # (a) the bench transport sharded over 'ens': phase 4's result
+        kernel, Sd, S1d, targets, Xd, dXd = ref["transport"]
+
+        def ens_path():
+            return ensemble.transport_ensemble(kernel, Sd, targets, Xd, dXd, mesh=mesh)
+
+        want = ref["main_path"]()
+        got, counts["transport"] = drive(ens_path)
+        expect_launches("transport_ensemble", counts["transport"], {
+            "spd_inverse_elast_fused": 1, "factor_panel": 0, "stationary_gram_panels": 0})
+        for name in want._fields:
+            w = getattr(want, name)
+            if w is not None and not torch.equal(getattr(got, name), w):
+                raise AssertionError(f"transport_ensemble's {name} differs from phase 4's")
+        del got, want
+        ms["a"] = cuda_ms(ens_path)
+        lines.append(f"(a) transport_ensemble E={targets.shape[0]} Q={Xd.shape[0]} n="
+                     f"{Sd.shape[0]}: bit for bit phase 4's fit_and_transport_batched, "
+                     f"spd_inverse_elast_fused launches {counts['transport']['spd_inverse_elast_fused']}")
+
+        # (b) three joint Adam steps over the members
+        step, optimizer = ensemble.make_ensemble_train_step(kernel, mesh=mesh)
+        E = targets.shape[0]
+        sources = Sd.expand(E, *Sd.shape)
+
+        def train():
+            theta, state, losses = kernel.theta, optimizer.init(kernel.theta), []
+            for _ in range(3):
+                theta, state, loss = step(theta, state, sources, targets)
+                losses.append(loss)
+            return torch.stack(losses), theta
+
+        (losses, theta_b), counts["train_step"] = drive(train)
+        aff = affine_core.fit_batched(Sd, targets)
+        src_al = affine_core.predict(aff, Sd)
+        want_b = -gp_core.log_marginal_likelihood(kernel, src_al, targets - src_al).double().mean()
+        rel_b = abs(losses[0].item() - want_b.item()) / abs(want_b.item())
+        if not (torch.isfinite(losses).all() and torch.isfinite(theta_b).all() and rel_b < 1e-5):
+            raise AssertionError(f"train steps: losses {losses.tolist()}, the first vs the mean "
+                                 f"-LML of exact_gp over the members {want_b.item():.6g}: {rel_b:.3g}")
+        lines.append(f"(b) make_ensemble_train_step x3 at E={E}: losses "
+                     f"{[round(v, 5) for v in losses.tolist()]} finite, the first within "
+                     f"{rel_b:.3g} of exact_gp's mean -LML (< 1e-5)")
+
+        # (c) the distributed Cholesky on phase 8's inputs
+        Xs, Ys, alpha8, a64, solve_ms = ref["solve"]
+        ls3 = torch.ones(D_SOLVE, **f32)
+
+        def chol_path():
+            return sharded_chol.sharded_gram_cholesky_solve(Xs, Ys, ls3, 2.0, 0.1, mesh,
+                                                            block=BLOCK)
+
+        (a_s, chol), counts["cholesky"] = drive(chol_path)
+        expect_launches("sharded_gram_cholesky_solve", counts["cholesky"], {
+            "factor_panel": N_SOLVE // BLOCK, "stationary_gram_panels": 0, "stationary_gram": 0})
+        err_c = ((a_s.double() - a64).abs().max() / a64.abs().max()).item()
+        diff8 = ((a_s - alpha8).abs().max() / alpha8.abs().max()).item()
+        K64 = f64_gram(Xs, 2.0, 0.1)
+        ld64 = 2.0 * torch.log(torch.diagonal(torch.linalg.cholesky(K64))).sum().item()
+        del K64
+        ld_err = abs(chol.logdet().item() - ld64) / abs(ld64)
+        again = chol.solve(Ys)
+        same = torch.equal(again, a_s)
+        re_err = ((again - a_s).abs().max() / a_s.abs().max()).item()
+        if not (err_c < 5e-3 and ld_err < 1e-4 and re_err < 1e-6):
+            raise AssertionError(f"sharded Cholesky at N={N_SOLVE}: alpha vs f64 {err_c:.3g} "
+                                 f"(phase 8's bound 5e-3), log det vs f64 {ld_err:.3g} (1e-4), "
+                                 f"a re-solve through the factor {re_err:.3g} (1e-6)")
+        del a_s, chol, again
+        ms["c"] = cuda_ms(chol_path)
+        lines.append(f"(c) sharded_gram_cholesky_solve N={N_SOLVE} D={D_SOLVE} block={BLOCK}: "
+                     f"factor_panel launches {counts['cholesky']['factor_panel']}; alpha vs the "
+                     f"f64 solve {err_c:.3g} (< 5e-3, phase 8's bound; phase 8's blocked solve "
+                     f"reads {ref['solve_err']:.3g}), vs phase 8's alpha {diff8:.3g} of its max; "
+                     f"log det vs f64 {ld_err:.3g} (< 1e-4); a re-solve through the factor "
+                     + ("bit for bit alpha" if same else f"{re_err:.3g} from alpha (< 1e-6)"))
+
+        # (d) the distributed LML and gradient, and fit_sharded, on phase 16's inputs
+        Xf, Yf, th16 = blocked_fit_inputs(device)
+        jit16, ref16 = ref["jit16"], ref["ref16"]
+
+        def lml_path():
+            return sharded_lml.sharded_lml_value_and_grad(
+                Xf, Yf, "rbf", th16[0], th16[1:1 + FIT_D], th16[1 + FIT_D], mesh, jitter=jit16,
+                block=BLOCK)
+
+        (v_d, g_d), counts["lml"] = drive(lml_path)
+        panels16 = -(-FIT_N // BLOCK)
+        expect_launches("sharded_lml_value_and_grad", counts["lml"], {
+            "factor_panel": panels16, "stationary_gram_panels": 0, "stationary_gram": 0})
+        v1, g1 = bll.blocked_lml_value_and_grad(Xf, Yf, "rbf", th16[0], th16[1:1 + FIT_D],
+                                                th16[1 + FIT_D], jitter=jit16, block=BLOCK,
+                                                refine_iters=0)
+        flat = lambda g: torch.cat([g[0].reshape(1), g[1], g[2].reshape(1)]).double()
+        rel_v = abs(v_d.item() - v1.item()) / abs(v1.item())
+        rel_g = ((flat(g_d) - flat(g1)).abs().max() / flat(g1).abs().max()).item()
+        # the value is held against float64 within phase 16's bound, as is the
+        # blocked LML without refinement: on an NVIDIA H100 80GB HBM3 (700 W)
+        # the two float32 values read 1.7e-4 apart (relative), the sharded one
+        # at 1.2e-4 of the bound
+        ex_d, ex_1 = blocked_excess(v_d, g_d, ref16), blocked_excess(v1, g1, ref16)
+        if not (rel_g < 1e-4 and max(ex_d) < 1 and max(ex_1) < 1):
+            raise AssertionError(f"sharded LML at N={FIT_N}: gradient vs the blocked LML (no "
+                                 f"refinement) {rel_g:.3g} of its largest (1e-4); error/bound vs "
+                                 f"f64 of the sharded LML {ex_d}, of the blocked one {ex_1}")
+        ms["d"] = cuda_ms(lml_path)
+        kern16 = K.Constant(2.0) * K.RBF(torch.ones(FIT_D, **f32)) + K.White(0.1)
+        t_fit = time.perf_counter()
+        (_, th_fit, vals), counts["fit"] = drive(lambda: sharded_lml.fit_sharded(
+            kern16, Xf, Yf, mesh, maxiter=FIT_MAXITER, block=BLOCK))
+        fit_s = time.perf_counter() - t_fit
+        th_vec = torch.cat([th_fit["log_amp"].reshape(1), th_fit["log_ls"],
+                            th_fit["log_noise"].reshape(1)])
+        lml_fit = blocked_lml_f64(Xf, Yf, th_vec, jit16)[0]
+        if not lml_fit >= ref16[0] + ref16[2]:
+            raise AssertionError(f"fit_sharded's LML {lml_fit:.6g} is not above the initial "
+                                 f"{ref16[0]:.6g} by the value's bound {ref16[2]:.3g}")
+        del Xf, Yf
+        lines.append(f"(d) sharded_lml_value_and_grad N={FIT_N} D={FIT_D}: factor_panel "
+                     f"launches {counts['lml']['factor_panel']}; value and gradient error/bound "
+                     f"vs f64 {ex_d[0]:.3g}, {ex_d[1]:.3g} (the blocked LML without refinement "
+                     f"{ex_1[0]:.3g}, {ex_1[1]:.3g}); against that blocked LML, value "
+                     f"{rel_v:.3g} relative, gradient {rel_g:.3g} of its largest (< 1e-4); fit_sharded "
+                     f"maxiter {FIT_MAXITER}: LML (f64) {ref16[0]:.6g} -> {lml_fit:.6g}, "
+                     f"{counts['fit']['factor_panel']} factor_panel launches, {fit_s:.3f} s")
+
+        # (e) mesh HMC at phase 14's workload: phase 14's chains
+        kern14, X14, Y14, hmc_kw, s14, hmc_ms = ref["hmc"]
+
+        def hmc_path():
+            return samplers.sample_gp_posterior(kern14, X14, Y14, seed=0, mesh=mesh, **hmc_kw)
+
+        (s_e, _), counts["hmc"] = drive(hmc_path)
+        want_e = 1 + (HMC_WARMUP + HMC_SAMPLES) * HMC_LEAPFROG
+        expect_launches("sample_gp_posterior(mesh=)", counts["hmc"],
+                        {"small_lml_value_grad": want_e, "small_lml_value_grad_md": 0})
+        if not torch.equal(s_e, s14):
+            raise AssertionError("mesh HMC differs from phase 14's chains")
+        ms["e"] = cuda_ms(hmc_path, reps=3)
+        lines.append(f"(e) sample_gp_posterior(mesh=) {HMC_CHAINS} chains, {HMC_WARMUP}+"
+                     f"{HMC_SAMPLES} steps of {HMC_LEAPFROG} leapfrog: bit for bit phase 14's, "
+                     f"small_lml_value_grad launches {counts['hmc']['small_lml_value_grad']}")
+
+        # (f) mesh SMC at phase 20's workload
+        kern20, ll20 = ref["smc"]
+
+        def smc_run(m):
+            p = smc.init_particles(kern20, Sd, S1d, Xd, SMC_PARTICLES,
+                                   torch.Generator(device=device).manual_seed(0), mesh=m)
+            gen, esss = torch.Generator(device=device).manual_seed(1), []
+            for _ in range(SMC_STEPS):
+                p, ess = smc.smc_step(p, ll20, gen, mesh=m)
+                esss.append(ess)
+            return p, torch.stack(esss)
+
+        (p_m, e_m), counts["smc"] = drive(lambda: smc_run(mesh))
+        p_1, e_1 = smc_run(None)
+        if not (torch.equal(p_m.trajectories, p_1.trajectories)
+                and torch.equal(p_m.log_weights, p_1.log_weights) and torch.equal(e_m, e_1)):
+            raise AssertionError("mesh SMC differs from the run without a mesh")
+        if any(counts["smc"].values()):
+            raise AssertionError(f"the SMC path launched a hand kernel: {counts['smc']}")
+        lines.append(f"(f) init_particles(mesh=) and smc_step x{SMC_STEPS} on {SMC_PARTICLES} "
+                     f"particles of Q={Xd.shape[0]}: equal to the run without a mesh "
+                     f"({int((e_m < 0.5 * SMC_PARTICLES).sum())} of {SMC_STEPS} steps resampled)")
+        del p_m, p_1
+    finally:
+        dist.destroy_process_group()
+    beside = {"a": ("phase 4's fit_and_transport_batched", ref["path_ms"]),
+              "c": ("phase 8's gram_cholesky_solve", solve_ms),
+              "d": ("phase 16's blocked_lml_value_and_grad", ref["lml_ms16"]),
+              "e": ("phase 14's sample_gp_posterior", hmc_ms)}
+    times = "; ".join(f"({k}) {ms[k][0]:.4f} ms {ms[k][1]} beside {what} {t:.4f} ms"
+                      for k, (what, t) in beside.items())
+    print(f"multi-device slice in a one-rank NCCL group (axes' backends {backends}) on the card: "
+          + "; ".join(lines) + f"; CUDA-event medians: {times}; phase 32 "
+          f"{time.perf_counter() - t32:.1f} s {tag}", flush=True)
+    return counts
+
+
+def phase33(tag):
+    """``dryrun_multichip`` on DRYRUN_RANKS gloo ranks sharing card 0, held
+    against the JAX package's recorded run; NCCL across cards where there
+    are two or more."""
+    from gaussian_process_transportation_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t33 = time.perf_counter()
+    want = jax_dryrun_summary(json.loads(
+        open(os.path.join(os.path.dirname(os.path.abspath(__file__)), MULTICHIP_RECORD)).read()
+    )["tail"])
+    torch.cuda.empty_cache()
+    outs = dryrun_multichip(DRYRUN_RANKS, device="cuda", backend="gloo")
+    rel = {k: abs(outs[0][k] - v) / abs(v) for k, v in want.items()}
+    if not max(rel.values()) <= 1e-4:
+        raise AssertionError(f"dryrun_multichip: loss {outs[0]['loss']}, sharded_lml "
+                             f"{outs[0]['sharded_lml']} vs the JAX record {want}")
+    for o in outs:
+        if not (o["device"].startswith("cuda") and o["backend"] == "gloo"):
+            raise AssertionError(f"rank {o['rank']} ran on {o['device']} over {o['backend']}")
+        for step, want_counts in DRYRUN_LAUNCHES.items():
+            expect_launches(f"dryrun rank {o['rank']} step {step}", o["counts"][step],
+                            want_counts)
+    fp = [o["factor_panel_vs_twin"] for o in outs]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        n_nccl = min(n_cards, DRYRUN_RANKS)
+        outs_nccl = dryrun_multichip(n_nccl)
+        nccl = (f"dryrun_multichip({n_nccl}) over NCCL, one rank a card: loss "
+                f"{outs_nccl[0]['loss']:.4f}, sharded_lml {outs_nccl[0]['sharded_lml']:.1f}")
+    else:
+        nccl = ("one card cannot take dryrun_multichip over NCCL with several ranks (NCCL "
+                "refuses two ranks on one card): not run")
+    print(f"multi-device dryrun: dryrun_multichip({DRYRUN_RANKS}) on {DRYRUN_RANKS} gloo ranks "
+          f"sharing cuda:0, every collective passing CUDA tensors through gloo: mesh "
+          f"{outs[0]['mesh']}, E={outs[0]['E']}, loss {outs[0]['loss']:.4f} and sharded_lml "
+          f"{outs[0]['sharded_lml']:.1f} vs the JAX record {want} (relative {rel}, < 1e-4), "
+          f"hmc_chains {outs[0]['hmc_chains']}, smc_ess {outs[0]['smc_ess']:.1f}, Cholesky vs f64 "
+          f"{outs[0]['chol_err']:.3g}; launches a rank {DRYRUN_LAUNCHES} on every rank; kernel #4 "
+          f"vs its twin at B=128 on each rank, largest {max(r for r, _ in fp):.3g} of its max "
+          f"(bounds 8*kappa*eps32 >= {min(b for _, b in fp):.3g}); rank 0's steps ended at "
+          f"{[round(t, 1) for t in outs[0]['marks'].values()]} s; {nccl}; phase 33 "
+          f"{time.perf_counter() - t33:.1f} s {tag}", flush=True)
+    return outs[0]["counts"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -3819,6 +4113,14 @@ def main() -> None:
     counts30 = phase30(device, tag)
     phase31(device, tag)
 
+    # 32-33. the multi-device slice: a one-rank NCCL group at full width, then
+    # dryrun_multichip on eight gloo ranks sharing the card
+    counts32 = phase32(device, tag, dict(
+        transport=(kernel, Sd, S1d, targets, Xd, dXd), main_path=main_path, path_ms=path_ms,
+        solve=(Xs, Ys, alpha, a64, solve_ms), solve_err=solve_err, jit16=jit16, ref16=ref16,
+        lml_ms16=lml_ms16, hmc=(kern14, X14, Y14, hmc_kw, s14, hmc_ms), smc=(kern20, ll20)))
+    counts33 = phase33(tag)
+
     # the launches of #2 and #3 in their paths' runs (phases 13 and 14)
     kernels_json["small_lml_value_grad"]["launches"] = counts14["small_lml_value_grad"]
     # the later paths' launches (phases 16, 17 and 19) beside the main path's
@@ -3840,6 +4142,19 @@ def main() -> None:
         gp_ds_vector_field_launches=counts30["fused_gp_predict_mean_var"])
     kernels_json["small_lml_value_grad_md"].update(
         launches=counts13["small_lml_value_grad_md"], value_only_launches=counts13[VALUE_ONLY])
+    # the multi-device paths' launches (phase 32 in one rank; phase 33 a rank)
+    kernels_json["spd_inverse_elast_fused"].setdefault("extra", {}).update(
+        transport_ensemble_launches=counts32["transport"]["spd_inverse_elast_fused"],
+        dryrun_transport_launches_per_rank=counts33["transport"]["spd_inverse_elast_fused"])
+    kernels_json["small_lml_value_grad"]["extra"].update(
+        mesh_hmc_launches=counts32["hmc"]["small_lml_value_grad"],
+        dryrun_hmc_launches_per_rank=counts33["hmc"]["small_lml_value_grad"])
+    kernels_json["factor_panel"]["extra"].update(
+        sharded_cholesky_launches=counts32["cholesky"]["factor_panel"],
+        sharded_lml_launches_per_evaluation=counts32["lml"]["factor_panel"],
+        fit_sharded_launches=counts32["fit"]["factor_panel"],
+        dryrun_cholesky_launches_per_rank=counts33["cholesky"]["factor_panel"],
+        dryrun_lml_launches_per_rank=counts33["lml"]["factor_panel"])
 
     # the record's times are the kernels' device times (CUPTI), named so by
     # "timing"; the CUDA-event times of the calls stand beside them

@@ -32,6 +32,7 @@ from .models.random_forest import ForestParams
 from .models.svgp import CollapsedSVGP, SVGPParams, SVGPState
 from .models.tpgmm import TPGMMParams
 from .ops.blocked_chol import BlockedCholesky
+from .parallel.sharded_chol import ShardedBlockedCholesky
 
 
 def _tensor(value, dtype: torch.dtype, device) -> torch.Tensor:
@@ -211,3 +212,26 @@ def flow_field_from_tree(ff, dtype: torch.dtype = torch.float64,
     out.gp.kernel_ = fitted
     out.gp.noise_var_ = float(gp.noise_var_)
     return out
+
+
+def sharded_cholesky_from_jax(chol, rank: int, mesh=None, axis: str = "data",
+                              dtype: torch.dtype = torch.float64,
+                              device="cuda") -> ShardedBlockedCholesky:
+    """One rank's part of a JAX ``ShardedBlockedCholesky`` (or a mapping of
+    its ``panels``, ``linvs``, ``n`` and ``block``, the global arrays as
+    numpy): device ``rank``'s rows of JAX's ``panels[j]`` (D·H_j, B) become
+    slot j, global panel j·D + rank, cut to its true height Np − k·B (JAX
+    pads each device's slot to H_j with zero rows), and its rows of
+    ``linvs[j]`` (D·B, B) the slot's L_kk⁻¹.  ``mesh`` is the port's mesh
+    whose ``axis`` has D ranks, this one at ``rank`` (None for D = 1);
+    every rank carries its own part, and the factor's :meth:`solve` and
+    :meth:`logdet` are then the port's collectives."""
+    panels, linvs = _field(chol, "panels"), _field(chol, "linvs")
+    n, B = int(_field(chol, "n")), int(_field(chol, "block"))
+    D = np.shape(linvs[0])[0] // B
+    slots, invs = [], []
+    for p, li in zip(panels, linvs):
+        H = np.shape(p)[0] // D
+        slots.append(_tensor(np.asarray(p)[rank * H:rank * H + H - rank * B], dtype, device))
+        invs.append(_tensor(np.asarray(li)[rank * B:(rank + 1) * B], dtype, device))
+    return ShardedBlockedCholesky(slots, invs, n, B, mesh, axis)

@@ -7,7 +7,9 @@ ctypes.  The host code (``csrc/<name>.cpp``: the random forest's split
 search) is built the same way with ``g++``.  The hash is over the source
 and the flags, so a changed source rebuilds and an unchanged one is
 reused.  Nothing is built at import, and a missing compiler or a failed
-build raises with the compiler's output.
+build raises with the compiler's output.  A process that has
+``GPT_TORCH_NO_BUILD`` set (the ranks of ``parallel._launch``) only loads:
+where the build is missing it raises instead of compiling.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ NVCC_FLAGS = (
 )
 # no FMA contraction: the split search's scores round as its numpy twin's
 GXX_FLAGS = ("-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC")
+NO_BUILD_ENV = "GPT_TORCH_NO_BUILD"
 
 
 def _nvcc() -> str:
@@ -53,6 +56,9 @@ def _compile(src: Path, compiler: str, flags: tuple) -> Path:
     lib = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
     if lib.exists():
         return lib
+    if os.environ.get(NO_BUILD_ENV):
+        raise RuntimeError(f"{lib.name} is not built and {NO_BUILD_ENV} forbids building it "
+                           "here: build it in the launching process first")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)

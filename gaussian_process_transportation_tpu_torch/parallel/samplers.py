@@ -22,6 +22,9 @@ Port of the single-device part of
   for CPU tensors; the generic route (any kernel, any n and p) runs the
   chains batched over ``torch.func.vmap`` of the gradient of
   ``models.exact_gp.log_marginal_likelihood``.
+  Under a mesh (``mesh=``) the chains shard over ``ens``: each rank runs
+  its contiguous chains, keyed by their global indices, and the samples
+  and per-chain diagnostics are gathered by broadcasts.
 * ``split_rhat`` and ``effective_sample_size``.
 
 Randomness is per chain, as in JAX: every draw is a counter-based hash
@@ -36,9 +39,6 @@ the same numbers however many chains run beside it (a run of chains
 plus sample range equals the monolithic run bit for bit.
 The hash is integer tensor arithmetic below 2⁶³, so a CPU and a CUDA
 tensor give the same integers.  The numbers differ from JAX's keys.
-
-Not ported yet: the ``mesh=`` sharding of ``sample_gp_posterior``
-(raises ``NotImplementedError``; ``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
@@ -49,11 +49,12 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from .mesh import axis_of
+
 LpAndGrad = Callable[[Tensor], Tuple[Tensor, Tensor]]
 State = Tuple[Tensor, Tensor, Tensor]  # positions (T, E), log-density (E,), gradient (T, E)
 
 _WARMUP_1, _WARMUP_2, _SAMPLING, _INIT = 0, 1, 2, 3
-_ROADMAP = "not ported yet: see ROADMAP.md, queue 1"
 # sample_gp_posterior's fused route takes p ≤ 8 output columns, as JAX's
 # route does; wider Y goes to the generic route.
 FUSED_ROUTE_MAX_P = 8
@@ -667,14 +668,42 @@ def sample_gp_posterior(
     NUTS, ``initial_step_size``, ``target_accept``).  ``chain_ids``
     (num_chains,) are the chains' global indices (default 0 …
     num_chains−1): chain e's initial position and draws depend on its index
-    alone."""
+    alone.  Under a mesh the chains shard over ``ens``: every rank calls
+    this with the same arguments, runs its contiguous share of the chains
+    and gets all of them back (samples and per-chain diagnostics gathered
+    by broadcasts), equal to the unsharded run chain for chain.  A chain
+    count that ``ens`` does not divide runs unsharded on every rank, as in
+    JAX."""
+    if algorithm not in ("hmc", "nuts"):
+        raise ValueError(f"algorithm must be 'hmc' or 'nuts', got {algorithm!r}")
+    if chain_ids is None:
+        chain_ids = torch.arange(num_chains, device=X.device)
+    ens = axis_of(mesh, "ens")
+    if num_chains % ens.size:
+        ens = axis_of(None, "ens")
+    rows = ens.shard(num_chains)
+    samples, info = _run_chains(kernel, X, Y, seed, chain_ids[rows], num_warmup, num_samples,
+                                algorithm, jitter, fused, use_kernel, kw)
+    if ens.group is not None:
+        samples = ens.gather(samples, num_chains)
+        info = {k: ens.gather(v, num_chains) for k, v in info.items()}
+    samples = samples.contiguous()  # one layout, so the diagnostics' sums round alike
+    diags = dict(rhat=split_rhat(samples), ess=effective_sample_size(samples),
+                 mean_accept=info["mean_accept"])
+    if "mean_tree_depth" in info:
+        diags["mean_tree_depth"] = info["mean_tree_depth"]
+    return samples, diags
+
+
+def _run_chains(kernel, X: Tensor, Y: Tensor, seed: int, chain_ids: Tensor, num_warmup: int,
+                num_samples: int, algorithm: str, jitter: float, fused: Optional[bool],
+                use_kernel: Optional[bool], kw) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """The chains ``chain_ids`` of :func:`sample_gp_posterior` on this rank:
+    (samples (C, S, n_theta), the per-chain ``mean_accept`` and, for NUTS,
+    ``mean_tree_depth``)."""
     from ..models.exact_gp import small_lml_theta_layout
     from ..ops import fused_lml
 
-    if mesh is not None:
-        raise NotImplementedError(f"sample_gp_posterior(mesh=...) is {_ROADMAP}")
-    if algorithm not in ("hmc", "nuts"):
-        raise ValueError(f"algorithm must be 'hmc' or 'nuts', got {algorithm!r}")
     sampler = hmc_batched if algorithm == "hmc" else nuts_batched
     Y2 = Y[:, None] if Y.dim() == 1 else Y
     layout = small_lml_theta_layout(kernel)
@@ -686,6 +715,7 @@ def sample_gp_posterior(
     dtype = torch.float32 if use_fused else X.dtype
     bounds = kernel.theta_bounds.to(dtype=dtype, device=device)
     lo, hi = bounds[:, 0], bounds[:, 1]
+    num_chains = chain_ids.shape[0]
     keys = _keys_of(seed, num_chains, device, chain_ids)
     u = chain_uniforms(keys, _INIT, 0, lo.shape[0], dtype).T  # (num_chains, n_theta)
     inits = lo + u * (hi - lo) * 0.5 + 0.25 * (hi - lo)  # the central half of the box
@@ -704,8 +734,4 @@ def sample_gp_posterior(
         samples, info = sampler(lp_and_grad, inits.T.contiguous(), seed=seed,
                                 num_warmup=num_warmup, num_samples=num_samples,
                                 chain_ids=chain_ids, **kw)
-    diags = dict(rhat=split_rhat(samples), ess=effective_sample_size(samples),
-                 mean_accept=info["mean_accept"])
-    if "mean_tree_depth" in info:
-        diags["mean_tree_depth"] = info["mean_tree_depth"]
-    return samples, diags
+    return samples, {k: info[k] for k in ("mean_accept", "mean_tree_depth") if k in info}

@@ -1,4 +1,4 @@
-"""SMC-style particle ensembles of transported policies, on one device.
+"""SMC-style particle ensembles of transported policies.
 
 Port of ``gaussian_process_transportation_tpu/parallel/smc.py``.  A
 particle is one posterior draw of a transported trajectory; its weight
@@ -10,8 +10,16 @@ Randomness comes from an explicit ``torch.Generator`` on the particles'
 device: the normals of ``init_particles`` and the one uniform offset of
 ``systematic_resample``.  Each function also takes those numbers directly
 (``normals``, ``offset``), so the same inputs give the same particles as
-another implementation.  The ``mesh=`` sharding of the JAX package is not
-ported yet (``ROADMAP.md``, queue 1).
+another implementation.
+
+Under a mesh (``mesh=``) the particles shard over ``ens``: each rank holds
+its contiguous share of the trajectories and the whole (E,) log-weights.
+JAX carries that sharding on the arrays and XLA inserts the collectives;
+here they are explicit: each rank evaluates the likelihood on its share,
+the (E,) log-likelihoods are gathered by broadcasts, every rank reweights
+and draws the resampling indices alike (the same generator state on every
+rank), and the survivors are taken from the gathered trajectories.  So a
+run on D ranks equals the one-rank run.
 """
 from __future__ import annotations
 
@@ -22,17 +30,13 @@ import torch
 from torch import Tensor
 
 from ..kernels import Kernel
-from ..models import affine as affine_core
-from ..models import exact_gp as gp_core
-from ..ops.linalg import add_diagonal
+from .ensemble import posterior_draws
+from .mesh import axis_of
 
 __all__ = [
     "ParticleEnsemble", "clearance_likelihood", "effective_sample_size", "goal_likelihood",
     "init_particles", "reweight", "smc_step", "systematic_resample",
 ]
-
-_ROADMAP = "not ported yet: see ROADMAP.md, queue 1"
-
 
 class ParticleEnsemble(NamedTuple):
     trajectories: Tensor  # (E, N, D) transported trajectory per particle
@@ -57,26 +61,24 @@ def init_particles(
     weights: γ(traj) + mean + L·ε, the GP fitted on (source, target) with
     fixed hyperparameters, L the Cholesky factor of the posterior
     covariance along γ(traj) (+1e-8·I), ε standard normals (E, N, D) from
-    ``generator`` (on the points' device) or given as ``normals``."""
-    from ..transport import gpt as gpt_mod
-
-    if mesh is not None:
-        raise NotImplementedError(f"init_particles(mesh=...) is {_ROADMAP}")
-    aff, gp = gpt_mod.fit_pipeline(kernel, source, target)
-    pos_aligned = affine_core.predict(aff, traj)
-    mean, cov = gp_core.predict_cov(gp, pos_aligned)
-    L = torch.linalg.cholesky(add_diagonal(cov, 1e-8))
-    if normals is None:
-        normals = torch.randn((n_particles,) + tuple(mean.shape), generator=generator,
-                              dtype=mean.dtype, device=mean.device)
-    trajs = (pos_aligned + mean)[None] + torch.matmul(L, normals)
-    return ParticleEnsemble(trajectories=trajs, log_weights=_uniform_log_weights(n_particles,
-                                                                                 mean))
+    ``generator`` (on the points' device) or given as ``normals``.  Under a
+    mesh the trajectories are this rank's share over ``ens`` (all normals
+    are drawn on every rank, and each keeps its rows) and the (E,)
+    log-weights are whole."""
+    trajs = posterior_draws(kernel, source, target, traj, n_particles, generator, normals,
+                            axis_of(mesh, "ens").shard(n_particles))
+    return ParticleEnsemble(trajectories=trajs,
+                            log_weights=_uniform_log_weights(n_particles, trajs))
 
 
-def reweight(particles: ParticleEnsemble, log_likelihoods: Tensor) -> ParticleEnsemble:
+def reweight(particles: ParticleEnsemble, log_likelihoods: Tensor,
+             mesh=None) -> ParticleEnsemble:
     """Multiply the weights by per-particle likelihoods and renormalise, in
-    log space."""
+    log space.  Under a mesh ``log_likelihoods`` are this rank's share's,
+    gathered over ``ens`` first."""
+    if mesh is not None:
+        log_likelihoods = axis_of(mesh, "ens").gather(log_likelihoods,
+                                                      particles.log_weights.shape[0])
     lw = particles.log_weights + log_likelihoods
     return particles._replace(log_weights=lw - torch.logsumexp(lw, 0))
 
@@ -88,11 +90,13 @@ def effective_sample_size(particles: ParticleEnsemble) -> Tensor:
 
 
 def systematic_resample(particles: ParticleEnsemble, generator: Optional[torch.Generator] = None,
-                        offset: Optional[Tensor] = None) -> ParticleEnsemble:
+                        offset: Optional[Tensor] = None, mesh=None) -> ParticleEnsemble:
     """Systematic (low-variance) resampling with one uniform ``offset`` in
     [0, 1) (drawn from ``generator`` when None): particle j is the first i
     whose cumulative weight reaches (offset + j)/E, the count of cumulative
-    weights below that point (JAX's prefix count), clipped to E − 1."""
+    weights below that point (JAX's prefix count), clipped to E − 1.  Under
+    a mesh every rank computes all E indices alike, gathers the (E, N, D)
+    trajectories over ``ens`` and keeps its share of the survivors."""
     lw = particles.log_weights
     E = lw.shape[0]
     if offset is None:
@@ -101,7 +105,11 @@ def systematic_resample(particles: ParticleEnsemble, generator: Optional[torch.G
     points = (torch.as_tensor(offset, dtype=lw.dtype, device=lw.device) / E
               + torch.arange(E, dtype=lw.dtype, device=lw.device) / E)
     idx = torch.clamp(torch.searchsorted(cum, points, right=False), max=E - 1)
-    return ParticleEnsemble(trajectories=particles.trajectories[idx],
+    trajs = particles.trajectories
+    if mesh is not None:
+        ens = axis_of(mesh, "ens")
+        trajs, idx = ens.gather(trajs, E), idx[ens.shard(E)]
+    return ParticleEnsemble(trajectories=trajs[idx],
                             log_weights=_uniform_log_weights(E, lw))
 
 
@@ -111,6 +119,7 @@ def smc_step(
     generator: Optional[torch.Generator] = None,
     ess_threshold: float = 0.5,
     offset: Optional[Tensor] = None,
+    mesh=None,
 ) -> Tuple[ParticleEnsemble, Tensor]:
     """One reweight step, resampled when ESS < ``ess_threshold``·E.
 
@@ -118,14 +127,15 @@ def smc_step(
     log-likelihoods.  The resample's offset is drawn from ``generator`` at
     every step (or given), whether or not it resamples, so the stream does
     not depend on the branch.  The branch is taken on the host: one read of
-    the ESS (a device sync) per step."""
-    particles = reweight(particles, log_likelihood_fn(particles.trajectories))
+    the ESS (a device sync) per step, the same on every rank of a mesh,
+    where ``log_likelihood_fn`` sees this rank's share."""
+    particles = reweight(particles, log_likelihood_fn(particles.trajectories), mesh)
     ess = effective_sample_size(particles)
     lw = particles.log_weights
     if offset is None:
         offset = torch.rand((), generator=generator, dtype=lw.dtype, device=lw.device)
     if bool(ess < ess_threshold * lw.shape[0]):
-        particles = systematic_resample(particles, offset=offset)
+        particles = systematic_resample(particles, offset=offset, mesh=mesh)
     return particles, ess
 
 

@@ -58,18 +58,14 @@ def test_resample_matches_jax(num_points, planar):
 
 # ---- the public surface against the JAX package's -------------------------
 
-# Names the JAX package exports that the port does not have yet (ROADMAP.md,
-# queue 1): the multi-device modules.
+# Names the JAX package exports that the port does not have: none is left.
 NOT_PORTED = {
     "": set(),
     "avoidance": set(),
     "benchmarks": set(),
     "models": set(),
     "ops": set(),
-    "parallel": {"make_mesh", "ensemble_sharding", "replicated", "transport_ensemble",
-                 "posterior_transport_ensemble", "make_ensemble_train_step",
-                 "ShardedBlockedCholesky", "sharded_gram_cholesky_solve", "fit_sharded",
-                 "make_sharded_lml", "sharded_lml_value_and_grad"},
+    "parallel": set(),
     "transport": set(),
     "utils": set(),
 }

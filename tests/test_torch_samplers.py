@@ -223,13 +223,26 @@ def test_sample_gp_posterior_chains_do_not_depend_on_the_number_of_chains(k):
 
 
 def test_routes_not_ported_yet_raise():
-    """Only the mesh sharding waits (ROADMAP.md, queue 1); NUTS, kernels
-    outside the fused family, n > 32 and the single-chain samplers run
-    (tests/test_torch_nuts.py, tests/test_torch_generic_route.py), and an
-    unknown algorithm is refused."""
+    """No route waits any longer: ``mesh=`` runs (here on a one-rank gloo
+    group in this process, equal to the run without a mesh bit for bit;
+    several ranks: tests/test_torch_parallel_mesh_samplers.py), as do NUTS,
+    kernels outside the fused family, n > 32 and the single-chain samplers
+    (tests/test_torch_nuts.py, tests/test_torch_generic_route.py).  An
+    unknown algorithm is still refused."""
+    import torch.distributed as dist
+
+    from gaussian_process_transportation_tpu_torch.parallel.distributed import initialize
+    from gaussian_process_transportation_tpu_torch.parallel.mesh import make_mesh
+
     X, Y, jk = _gp_case()
     tk = kernel_from_tree(jk, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.sample_gp_posterior(tk, _t(X), _t(Y), mesh=object())
+    kw = dict(seed=1, num_chains=4, num_warmup=4, num_samples=4, num_leapfrog=2)
+    want, _ = ts.sample_gp_posterior(tk, _t(X), _t(Y), **kw)
+    initialize(num_processes=1, backend="gloo")
+    try:
+        got, diags = ts.sample_gp_posterior(tk, _t(X), _t(Y), mesh=make_mesh(1, 1, "cpu"), **kw)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want) and diags["mean_accept"].shape == (4,)
     with pytest.raises(ValueError, match="algorithm"):
         ts.sample_gp_posterior(tk, _t(X), _t(Y), algorithm="mala")

@@ -118,9 +118,12 @@ Phases, one line each on stdout:
     ``factor_panel``), its value and gradient against the dense float64
     formula on the card within ``blocked_lml_f64``'s bound, a planted fault
     (the largest gradient entry negated) rejected, its time (median of 5)
-    and TFLOP/s against the 3·N³/3 model; then ``fit_blocked`` with
-    ``maxiter`` cut to 10 (1 + 20 launches an evaluation), its LML (f64) at
-    least the initial one, its wall time and peak memory;
+    and TFLOP/s against the 3·N³/3 model; then ``fit_blocked`` (optax's
+    L-BFGS and zoom line search, ``models/_lbfgs.py``) with ``maxiter`` cut
+    to 10: its iterations, evaluations and line-search rounds counted, 1 +
+    20 launches for each evaluation and for the conditioning, its LML (f64)
+    past the initial one by the value's f32 bound, its wall time and peak
+    memory;
 17. ``sample_gp_posterior(algorithm="nuts")`` at the hmc workload (256
     chains, 48+48 steps, max_depth 8): finite samples, the launches of #2,
     64 chains equal bit for bit to the first 64 of 256, posterior means
@@ -140,8 +143,10 @@ Phases, one line each on stdout:
     bench transport's S, S1 and X with 8192 particles, its mean against
     the analytic posterior mean;
 21. ``fit_jit`` on the bench transport's residual (n=20, D=2, p=2, phase
-    13's kernel and bounds, f32, 5 restarts as six lanes, maxiter 100): 701
-    launches of #2 a call, the fitted LML (f64) at least the start's and
+    13's kernel and bounds, f32, 5 restarts as six lanes, maxiter 100):
+    one launch of #2 for each counted evaluation of the lanes (each
+    iteration's, each line-search round's, and the final values), the
+    fitted LML (f64) at least the start's and
     within 1e-3 of the port's f64 CPU fit, its time (median of 5); then the
     façade with ``jit_fit=True`` on the bench inputs against the f64 CPU
     transport at the kernel it fitted to err/max|X| < 1e-3, and the same
@@ -153,12 +158,14 @@ Phases, one line each on stdout:
     float32 and float64 picks at N=3000, m=2000 equal through the seed and
     100 greedy picks, the final variances at 256 unselected points against
     the f64 Schur complement, ``fit_blocked`` on the subset (maxiter cut to
-    5; its launches of #7 and #4), its LML (f64) at least the start's, one
+    5; its counted evaluations, each one launch of #7 and 40 of #4), its
+    LML (f64) at least the start's, one
     value+grad at N=20,000 (median of 3), peak memory, ``predict`` (no
     launch of #5: k_star @ α, as in JAX) and ``derivative`` at Q=1000
     against an f64 predict from the same subset, their times;
 23. ``GaussianProcessTransportationDiffeo(jit_fit=True).optimize_diffeomorphism``
-    on the bench inputs, 20 trials: the launches of #2, each trial's
+    on the bench inputs, 20 trials: the launches of #2 equal to the fits'
+    counted evaluations, each trial's
     residual against the port's f64 CPU residual at the kernel the card
     fitted within 1e-3·(1 + κ·ε32), every fit's LML (f64) at least its
     start's, the best bound the same as in f64 at those kernels (or within
@@ -252,7 +259,8 @@ Phases, one line each on stdout:
     inputs (20 launches of #4): value and gradient within phase 16's f64
     bound, as is ``blocked_lml_value_and_grad`` without refinement, the
     gradient within 1e-4 of its largest entry of that one's; then
-    ``fit_sharded`` at maxiter 10 raising the LML; (e)
+    ``fit_sharded`` at maxiter 10 raising the LML, 20 launches of #4 for
+    each counted evaluation; (e)
     ``sample_gp_posterior(mesh=)`` at phase 14's workload, bit for bit
     phase 14's chains, #2's launches counted; (f)
     ``init_particles(mesh=)`` and 16 ``smc_step``s at phase 20's size, equal
@@ -1374,6 +1382,24 @@ def drive_timed(path):
 
     out, counts = drive(run)
     return out, counts, ev[0].elapsed_time(ev[1])
+
+
+def drive_fit(path, runner=drive):
+    """``runner(path)`` (``drive`` or ``drive_timed``) with the fits'
+    L-BFGS counters (``models/_lbfgs.py::lbfgs_minimize``) set to 0 just
+    before as well: the runner's results, then the counts of its iterations,
+    evaluations (value-and-gradient calls, each one batched call of all
+    lanes) and line-search rounds read just after."""
+    from gaussian_process_transportation_tpu_torch.models._lbfgs import lbfgs_minimize as f
+
+    f.iterations = f.evaluations = f.rounds = 0
+    out = runner(path)
+    return (*out, dict(iterations=f.iterations, evaluations=f.evaluations, rounds=f.rounds))
+
+
+def fit_text(opt):
+    return (f"{opt['iterations']} iterations, {opt['evaluations']} evaluations, "
+            f"{opt['rounds']} line-search rounds")
 
 
 def smc_inputs(device):
@@ -2599,9 +2625,12 @@ def phase32(device, tag, ref):
         ms["d"] = cuda_ms(lml_path)
         kern16 = K.Constant(2.0) * K.RBF(torch.ones(FIT_D, **f32)) + K.White(0.1)
         t_fit = time.perf_counter()
-        (_, th_fit, vals), counts["fit"] = drive(lambda: sharded_lml.fit_sharded(
+        (_, th_fit, vals), counts["fit"], opt_fit = drive_fit(lambda: sharded_lml.fit_sharded(
             kern16, Xf, Yf, mesh, maxiter=FIT_MAXITER, block=BLOCK))
         fit_s = time.perf_counter() - t_fit
+        expect_launches("fit_sharded", counts["fit"], {  # panels16 an evaluation
+            "factor_panel": panels16 * opt_fit["evaluations"], "stationary_gram_panels": 0,
+            "stationary_gram": 0})
         th_vec = torch.cat([th_fit["log_amp"].reshape(1), th_fit["log_ls"],
                             th_fit["log_noise"].reshape(1)])
         lml_fit = blocked_lml_f64(Xf, Yf, th_vec, jit16)[0]
@@ -2614,8 +2643,9 @@ def phase32(device, tag, ref):
                      f"vs f64 {ex_d[0]:.3g}, {ex_d[1]:.3g} (the blocked LML without refinement "
                      f"{ex_1[0]:.3g}, {ex_1[1]:.3g}); against that blocked LML, value "
                      f"{rel_v:.3g} relative, gradient {rel_g:.3g} of its largest (< 1e-4); fit_sharded "
-                     f"maxiter {FIT_MAXITER}: LML (f64) {ref16[0]:.6g} -> {lml_fit:.6g}, "
-                     f"{counts['fit']['factor_panel']} factor_panel launches, {fit_s:.3f} s")
+                     f"maxiter {FIT_MAXITER}: {fit_text(opt_fit)}, LML (f64) {ref16[0]:.6g} -> "
+                     f"{lml_fit:.6g}, {counts['fit']['factor_panel']} factor_panel launches, "
+                     f"{fit_s:.3f} s")
 
         # (e) mesh HMC at phase 14's workload: phase 14's chains
         kern14, X14, Y14, hmc_kw, s14, hmc_ms = ref["hmc"]
@@ -3502,28 +3532,13 @@ def main() -> None:
     lml_ms16, lml_all16 = cuda_ms(lml_step)
     tflops16 = (3 * FIT_N**3 / 3 + 2 * FIT_N**2 * FIT_D + 8 * FIT_N**2) / (lml_ms16 / 1e3) / 1e12
     kern16 = K.Constant(2.0) * K.RBF(torch.ones(FIT_D, **f32)) + K.White(0.1)
-    evals = {"value_and_grad": 0, "value": 0}
-    real_vg, real_v = bll.blocked_lml_value_and_grad, bll.blocked_lml_value
-
-    def counted_vg(*a, **k):
-        evals["value_and_grad"] += 1
-        return real_vg(*a, **k)
-
-    def counted_v(*a, **k):
-        evals["value"] += 1
-        return real_v(*a, **k)
-
-    bll.blocked_lml_value_and_grad, bll.blocked_lml_value = counted_vg, counted_v
-    try:
-        torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.perf_counter()
-        gp16, counts16 = drive(lambda: gp_core.fit_blocked(kern16, Xf, Yf, maxiter=FIT_MAXITER,
-                                                           block=BLOCK))
-        fit_s16 = time.perf_counter() - t0
-    finally:
-        bll.blocked_lml_value_and_grad, bll.blocked_lml_value = real_vg, real_v
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    gp16, counts16, opt16 = drive_fit(lambda: gp_core.fit_blocked(kern16, Xf, Yf,
+                                                                  maxiter=FIT_MAXITER, block=BLOCK))
+    fit_s16 = time.perf_counter() - t0
     peak16 = torch.cuda.max_memory_allocated(device) / 2**30
-    n_eval = evals["value_and_grad"] + evals["value"]
+    n_eval = opt16["evaluations"]
     expect_launches("fit_blocked", counts16, {  # every evaluation, then condition_blocked
         "stationary_gram_panels": n_eval + 1, "factor_panel": panels16 * (n_eval + 1),
         "stationary_gram": 0})
@@ -3539,7 +3554,7 @@ def main() -> None:
           f"{ref16[0]:.6g}); planted fault (theta {worst}'s gradient negated) rejected at "
           f"{fault16:.3g}; one value+grad {lml_ms16:.4f} ms {lml_all16} (median of {REPS}, CUDA "
           f"events) = {tflops16:.3f} TFLOP/s (3N^3/3 model); fit_blocked maxiter {FIT_MAXITER}: "
-          f"{evals['value_and_grad']} value+grad and {evals['value']} value evaluations, "
+          f"{fit_text(opt16)}, "
           f"{counts16['stationary_gram_panels']} Gram launches and {counts16['factor_panel']} "
           f"factor_panel (condition_blocked's included), LML (f64) {ref16[0]:.6g} -> "
           f"{lml_fit:.6g}, theta {[round(v, 4) for v in th_fit.tolist()]}, {fit_s16:.3f} s wall, "
@@ -3708,10 +3723,14 @@ def main() -> None:
         return gp_core.fit_jit(kern21, src21, res21, n_restarts=JIT_RESTARTS,
                                generator=torch.Generator().manual_seed(0), maxiter=JIT_MAXITER)
 
-    gp21, counts21 = drive(jit_path)
-    want21 = 1 + JIT_MAXITER * (6 + 1)  # _lbfgs_elast: a value+grad, six candidates a step
-    expect_launches("fit_jit", counts21, {"small_lml_value_grad": want21,
+    gp21, counts21, opt21 = drive_fit(jit_path)
+    # one launch for each evaluation of all lanes: the iterations' and the
+    # line searches', then the final value of every lane
+    expect_launches("fit_jit", counts21, {"small_lml_value_grad": opt21["evaluations"],
                                           "small_lml_value_grad_md": 0})
+    if opt21["iterations"] != JIT_MAXITER or \
+            opt21["evaluations"] != JIT_MAXITER + opt21["rounds"] + 1:
+        raise AssertionError(f"fit_jit's L-BFGS: {fit_text(opt21)} at maxiter {JIT_MAXITER}")
     src64, res64 = residual_inputs("cpu", torch.float64)
     kern21_64 = fit_kernel(**f64)
     gp21_64 = gp_core.fit_jit(kern21_64, src64, res64, n_restarts=JIT_RESTARTS,
@@ -3730,9 +3749,10 @@ def main() -> None:
     tr21 = GaussianProcessTransportation(kernel_transport=fit_kernel(**f32), jit_fit=True)
     tr21.source_distribution, tr21.target_distribution = S, S1
     tr21.training_traj, tr21.training_delta = X, dX
-    _, counts21f = drive(lambda: (tr21.fit_transportation(), tr21.apply_transportation()))
+    _, counts21f, opt21f = drive_fit(lambda: (tr21.fit_transportation(),
+                                              tr21.apply_transportation()))
     expect_launches("the façade with jit_fit", counts21f,
-                    {"small_lml_value_grad": want21, "small_lml_value_grad_md": 0})
+                    {"small_lml_value_grad": opt21f["evaluations"], "small_lml_value_grad_md": 0})
     def facade_rel(theta):
         one = gpt.fit_and_transport(kern21_64.with_theta(theta),
                                     *(torch.as_tensor(a, **f64) for a in (S, S1, X, dX)),
@@ -3756,11 +3776,13 @@ def main() -> None:
         raise AssertionError(f"the façade check passes a planted fault: error/bound {fault21}")
     print(f"fit_jit: the bench transport's residual n={N_MAIN} D=2 p=2, C(10)*RBF(4)+White(0.01) "
           f"with phase 13's bounds, f32, {JIT_RESTARTS} restarts ({lanes21} lanes), maxiter "
-          f"{JIT_MAXITER}: small_lml_value_grad launches {counts21['small_lml_value_grad']} a call; "
+          f"{JIT_MAXITER}: {fit_text(opt21)}, small_lml_value_grad launches "
+          f"{counts21['small_lml_value_grad']} a call; "
           f"LML (f64) start {l21_start:.6g} -> {l21_card:.6g}, the f64 CPU fit's {l21_cpu:.6g} "
           f"(within 1e-3 of it); {jit_ms:.4f} ms {jit_all} (median of {REPS}, CUDA events); the "
-          f"façade with jit_fit=True on the bench inputs: {counts21f['small_lml_value_grad']} "
-          f"launches of #2, err/max|X| vs the f64 CPU fit_and_transport at its fitted kernel "
+          f"façade with jit_fit=True on the bench inputs: {fit_text(opt21f)}, "
+          f"{counts21f['small_lml_value_grad']} launches of #2, err/max|X| vs the f64 CPU "
+          f"fit_and_transport at its fitted kernel "
           + ", ".join(f"{k}: {v:.3g}" for k, v in rel21.items()) + f" (< {TRAJ_TOL}); planted "
           f"faults rejected, error/bound " + ", ".join(f"{k} {v:.3g}" for k, v in fault21.items())
           + f" {tag}",
@@ -3786,9 +3808,8 @@ def main() -> None:
         raise AssertionError(f"greedy_variance_select at N={AL_CHECK_N}: float32 and float64 picks "
                              f"part at {first_diff}, inside the seed and the first "
                              f"{AL_CHECK_GREEDY} greedy picks")
-    sel22, evals22 = {}, {"value_and_grad": 0, "value": 0}
-    real_sel, real_vg22, real_v22 = ga.greedy_variance_select, bll.blocked_lml_value_and_grad, \
-        bll.blocked_lml_value
+    sel22 = {}
+    real_sel = ga.greedy_variance_select
 
     def timed_select(kernel, X_, m, seed_idx, noise=0.0):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -3798,29 +3819,19 @@ def main() -> None:
         sel22.update(idx=idx, d=d, events=ev, host_s=time.perf_counter() - t22)
         return idx
 
-    def counted_vg22(*a, **k):
-        evals22["value_and_grad"] += 1
-        return real_vg22(*a, **k)
-
-    def counted_v22(*a, **k):
-        evals22["value"] += 1
-        return real_v22(*a, **k)
-
     model22 = ga.GaussianProcessActiveLearning(
         kern22, n_samples_max=AL_M, blocked_kwargs=dict(maxiter=AL_MAXITER, block=BLOCK))
     ga.greedy_variance_select = timed_select
-    bll.blocked_lml_value_and_grad, bll.blocked_lml_value = counted_vg22, counted_v22
     try:
         torch.cuda.reset_peak_memory_stats(device)
         t22 = time.perf_counter()
-        _, counts22 = drive(lambda: model22.fit(Xa, Ya))
+        _, counts22, opt22 = drive_fit(lambda: model22.fit(Xa, Ya))
         fit_s22 = time.perf_counter() - t22
     finally:
         ga.greedy_variance_select = real_sel
-        bll.blocked_lml_value_and_grad, bll.blocked_lml_value = real_vg22, real_v22
     peak22 = torch.cuda.max_memory_allocated(device) / 2**30
     sel_ms = sel22["events"][0].elapsed_time(sel22["events"][1])
-    n_eval22 = evals22["value_and_grad"] + evals22["value"]
+    n_eval22 = opt22["evaluations"]
     panels22 = -(-AL_M // BLOCK)
     expect_launches("GaussianProcessActiveLearning.fit", counts22, {  # evaluations + condition
         "stationary_gram_panels": n_eval22 + 1, "factor_panel": panels22 * (n_eval22 + 1),
@@ -3881,8 +3892,8 @@ def main() -> None:
           f"agree through {first_diff} (>= {m0c} seed + {AL_CHECK_GREEDY}); final variances at "
           f"{AL_SCHUR_POINTS} unselected points vs the f64 Schur complement error/bound "
           f"{ex22:.3g} (bound {AL_SCHUR_TOL}*(amp+noise)); fit_blocked on the subset (maxiter cut "
-          f"to {AL_MAXITER}): {evals22['value_and_grad']} value+grad and {evals22['value']} value "
-          f"evaluations, stationary_gram_panels {counts22['stationary_gram_panels']}, factor_panel "
+          f"to {AL_MAXITER}): {fit_text(opt22)}, stationary_gram_panels "
+          f"{counts22['stationary_gram_panels']}, factor_panel "
           f"{counts22['factor_panel']} launches (condition_blocked's included), LML (f64) "
           f"{l22_start:.6g} -> {l22_fit:.6g}; one value+grad at N={AL_M} {step22_ms:.4f} ms "
           f"{step22_all} (median of 3, CUDA events); the whole fit {fit_s22:.3f} s wall, the fit after the "
@@ -3911,10 +3922,14 @@ def main() -> None:
         return err
 
     tr23.diffeomorphism_error = recorded
-    best23, counts23, sweep_ms = drive_timed(
-        lambda: tr23.optimize_diffeomorphism(n_trials=DIFFEO_TRIALS))
+    best23, counts23, sweep_ms, opt23 = drive_fit(
+        lambda: tr23.optimize_diffeomorphism(n_trials=DIFFEO_TRIALS), runner=drive_timed)
+    # a fit_jit a trial and one for the best: each evaluation one launch
     expect_launches("optimize_diffeomorphism", counts23, {
-        "small_lml_value_grad": (DIFFEO_TRIALS + 1) * want21, "small_lml_value_grad_md": 0})
+        "small_lml_value_grad": opt23["evaluations"], "small_lml_value_grad_md": 0})
+    if opt23["iterations"] != (DIFFEO_TRIALS + 1) * JIT_MAXITER:
+        raise AssertionError(f"the sweep's fits: {fit_text(opt23)}, expected "
+                             f"{DIFFEO_TRIALS + 1} fits of {JIT_MAXITER} iterations")
     # each trial against the port's f64 CPU run at the kernel the card
     # fitted (float32's jitter floor included): the residual to 1e-3·(1 +
     # κ·ε32), κ the fitted Gram's condition number (a fit at the noise
@@ -3997,8 +4012,9 @@ def main() -> None:
             not torch.isfinite(mean23).all():
         raise AssertionError("the heteroscedastic field is not finite and non-negative")
     print(f"diffeomorphism sweep: GaussianProcessTransportationDiffeo(jit_fit=True) on the bench "
-          f"inputs (Q={Q_MAIN}, n={N_MAIN}), {DIFFEO_TRIALS} trials and the refit, f32: "
-          f"small_lml_value_grad launches {counts23['small_lml_value_grad']}, "
+          f"inputs (Q={Q_MAIN}, n={N_MAIN}), {DIFFEO_TRIALS} trials and the refit, f32: the "
+          f"fits' {fit_text(opt23)}, small_lml_value_grad launches "
+          f"{counts23['small_lml_value_grad']}, "
           f"fused_gp_predict_mean {counts23['fused_gp_predict_mean']}; {sweep_ms:.1f} ms (CUDA "
           f"events, one run); each trial's residual vs the f64 CPU residual at the kernel it "
           f"fitted: rel max {np.max(np.abs(err32 - err_at) / err_at):.3g}, error/bound max "

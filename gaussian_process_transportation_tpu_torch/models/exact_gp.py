@@ -10,9 +10,9 @@ of the predictive variance; and the hyperparameter fits: the log marginal
 likelihood with its analytic gradient, ``fit`` (scipy L-BFGS-B with
 restarts), ``fit_ensemble_fused`` (per-lane projected L-BFGS over the
 fused small-LML kernel of ``ops/fused_lml.py``, one launch per candidate),
-``fit_jit`` (the restarts of one dataset as lanes of that L-BFGS) and
-``fit_blocked`` (the large-N fit, projected L-BFGS over the blocked
-LML of ``ops/blocked_lml.py``).
+``fit_jit`` (the restarts of one dataset as lanes of optax's L-BFGS and
+zoom line search, ``models/_lbfgs.py``) and ``fit_blocked`` (the large-N
+fit, that L-BFGS over the blocked LML of ``ops/blocked_lml.py``).
 
 Conventions follow the original project's sklearn wrapper: the std may
 exclude the White-noise level (``epistemic_only``), and the Jacobian
@@ -32,6 +32,7 @@ from ..kernels import DEFAULT_BOUNDS, Constant, Kernel, Matern, Product, RBF, Su
 from ..ops import fused_lml, pallas_gram
 from ..ops.blocked_chol import BlockedCholesky, gram_cholesky_solve
 from ..ops.linalg import add_diagonal, cho_solve_lower, log_det_from_chol, tri_solve_lower
+from ._lbfgs import lbfgs_minimize, negated_lml
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -545,7 +546,6 @@ def _lbfgs_elast(
     armijo_c: float = 1e-4,
     max_backtrack: int = 6,
     value_b: Optional[Callable[[Tensor], Tensor]] = None,
-    max_step: Optional[float] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Per-lane projected L-BFGS (minimization) on (T, L) parameters.
 
@@ -557,15 +557,9 @@ def _lbfgs_elast(
     maxiter·max_backtrack Armijo candidates, whose gradient is not used, go
     to ``value_b`` (values only; by default the value of
     ``value_and_grad_b``).  ``value_b`` must give the values
-    ``value_and_grad_b`` gives, bit for bit, or the path changes.  With one
-    lane the backtracking ends once its candidate is accepted (an accepted
-    step is never halved again, so the iterates are the same): a host read
-    for each candidate saves the rest of the candidates, which at one lane
-    are a large-N fit's whole evaluations; many lanes keep the fixed count
-    and no host read.  ``max_step`` scales each lane's direction down so
-    that its largest entry is at most that (a steepest-descent first step
-    of −g can otherwise leave the bounds' far corner in one step when |g|
-    is in the thousands, as at large N).  Returns (x, value)."""
+    ``value_and_grad_b`` gives, bit for bit, or the path changes.  No host
+    read.  Returns (x, value).  The JAX package runs it for
+    ``fit_ensemble_fused`` only, as the port does."""
     if value_b is None:
         def value_b(x):
             return value_and_grad_b(x)[0]
@@ -598,16 +592,12 @@ def _lbfgs_elast(
             r = r + S[kk] * (alphas[kk] - b)[None, :]
         d = -r
         d = torch.where((dot(d, g) < 0.0)[None, :], d, -g)  # else steepest descent
-        if max_step is not None:
-            d = d * torch.clamp(max_step / torch.clamp(d.abs().amax(0), min=1e-30), max=1.0)
         dg = torch.clamp(dot(d, g), max=-1e-30)
         t = x0.new_ones(L)
         for _ in range(max_backtrack):
             v_try = value_b(clip(x + t[None, :] * d))
             ok = v_try <= v + armijo_c * t * dg
             t = torch.where(ok, t, 0.5 * t)
-            if L == 1 and bool(ok.all()):
-                break
         x_new = clip(x + t[None, :] * d)
         v_new, g_new = value_and_grad_b(x_new)
         # keep only steps that decreased (the last halving was not checked)
@@ -705,15 +695,17 @@ def fit_jit(
     jitter: float = 1e-10,
     maxiter: int = 100,
 ) -> ExactGP:
-    """Multi-restart fit with every restart a lane of one per-lane projected
-    L-BFGS (:func:`_lbfgs_elast`, ``maxiter`` iterations), then
-    conditioning at the lane of the lowest negative LML.
+    """Multi-restart fit with every restart a lane of optax's L-BFGS and
+    zoom line search (:func:`._lbfgs.lbfgs_minimize`, ``maxiter``
+    iterations, θ clipped to the log-space bounds after each), as the JAX
+    package's ``fit_jit`` runs them under ``vmap``; then conditioning at
+    the lane of the lowest negative LML at its final θ.
 
     The starts are ``kernel.theta`` (clipped to the log-space bounds) and
     ``n_restarts`` draws uniform in them from ``generator`` (a CPU
     generator, so that every device starts from the same points; seed 0
-    when None).  All lanes share
-    (X, Y), so their value and gradient is one batched call a candidate:
+    when None).  All lanes share (X, Y), so their value and gradient is
+    one batched call a line-search candidate:
 
     * fused, for a kernel of the fused family (:func:`small_lml_theta_layout`)
       and n ≤ ``fused_lml.MAX_N``: ``ops.fused_lml.small_lml_value_grad``,
@@ -722,13 +714,12 @@ def fit_jit(
     * otherwise (a float64 CUDA X too) ``torch.func.vmap`` of the LML's
       gradient over the lanes, in X's dtype, for any kernel.
 
-    A non-finite value reads 1e25 and its gradient 0; a non-finite gradient
-    entry reads 0.  The fit conditions on the best lane whose Gram factors
-    (the next best where a float32 Gram at the noise floor does not; JAX's
-    would give NaN).  Rows with NaN targets are dropped first.  The JAX
-    package runs optax's L-BFGS with a zoom line search; this one halves
-    its step (Armijo), so the two reach the same optimum by different
-    paths."""
+    A non-finite value reads 1e25, its gradient 0·∂ (NaN where the Gram
+    does not factor, which the line search reads as outside the domain),
+    and an iteration's first gradient has its non-finite entries set to 0.
+    The fit conditions on the best lane whose Gram factors (the next best
+    where a float32 Gram at the noise floor does not; JAX's would give
+    NaN).  Rows with NaN targets are dropped first."""
     Xd, Y2 = _filter_nan_rows(X, Y)
     theta0 = kernel.theta
     if theta0.numel() == 0:
@@ -769,16 +760,13 @@ def fit_jit(
             return val, grad.T
 
     def nll_b(th: Tensor) -> Tuple[Tensor, Tensor]:
-        val, grad = lml_lanes(th)
-        bad = ~torch.isfinite(val)
-        v = torch.where(bad, torch.full_like(val, 1e25), -val)
-        g = torch.where(torch.isfinite(grad) & ~bad[None, :], -grad, torch.zeros_like(grad))
-        return v, g
+        return negated_lml(*lml_lanes(th))
 
-    x, v = _lbfgs_elast(nll_b, starts.T.contiguous(), lo[:, None], hi[:, None], maxiter)
+    x, _, v = lbfgs_minimize(nll_b, starts.T.contiguous(), lo[:, None], hi[:, None], maxiter,
+                             final_value=True)
     # the best lane whose Gram factors in X's dtype: a float32 fit at its
     # noise floor can reach a Gram that condition()'s Cholesky refuses
-    for lane in torch.argsort(v).tolist():
+    for lane in torch.argsort(v, stable=True).tolist():
         try:
             return condition(kernel.with_theta(x[:, lane]), Xd, Y2, jitter)
         except torch.linalg.LinAlgError:
@@ -806,14 +794,6 @@ def _family_nodes(kernel: Kernel):
     return nodes["const"], nodes["base"], nodes["white"]
 
 
-# fit_blocked's largest step of one log-hyperparameter per iteration: a
-# factor of e.  The blocked LML's gradient at N = 10⁴ runs to thousands, and
-# an uncapped steepest-descent first step clipped to the bounds made every
-# candidate non-definite (chip_smoke.py phase 16 on an H100 stayed at its
-# start through 10 iterations).
-FIT_BLOCKED_MAX_STEP = 1.0
-
-
 def fit_blocked(
     kernel: Kernel,
     X: Tensor,
@@ -825,25 +805,26 @@ def fit_blocked(
 ) -> ExactGP:
     """Large-N hyperparameter fit through the blocked panel Cholesky.
 
-    Projected L-BFGS (:func:`_lbfgs_elast`, one lane, ``maxiter``
-    iterations, steps of at most ``FIT_BLOCKED_MAX_STEP`` in each log
-    hyperparameter) over the negative blocked LML of ``ops/blocked_lml.py``.
-    The JAX package drives optax's L-BFGS, whose zoom line search needs no
-    cap; the port has no optax, and its Armijo backtracking from a unit
-    step does (``max_step``, the one option only this fit sets).  Each
-    evaluation is one Gram-panel launch and one ``factor_panel`` call a
-    panel for a CUDA X, the gradient by the trace identity, never autograd
+    ``maxiter`` iterations of optax's L-BFGS and zoom line search
+    (:func:`._lbfgs.lbfgs_minimize`, one lane), as the JAX package's
+    ``fit_blocked`` runs them, over the negative blocked LML of
+    ``ops/blocked_lml.py``.  Every line-search candidate is a value and
+    gradient: one Gram-panel launch and one ``factor_panel`` call a panel
+    for a CUDA X, the gradient by the trace identity, never autograd
     through the factorization and never a dense (N, N) Gram.  θ is (log
     amplitude, log ℓ per input axis, log noise) in float32, clipped to the
-    log-bounds of the kernel's nodes; a non-finite value reads 1e25 and a
-    non-finite gradient entry 0.  Rows with NaN targets are dropped first.
-    ``refine_iters`` None takes ``blocked_lml.refine_steps``'s rule.
+    log-bounds of the kernel's nodes after each step; a non-finite value
+    reads 1e25 and its gradient NaN where the Gram does not factor (the
+    line search's outside-domain reading); an iteration's first gradient
+    has its non-finite entries set to 0.  Rows with NaN targets are dropped
+    first.  ``refine_iters`` None takes ``blocked_lml.refine_steps``'s
+    rule.
 
     Needs the C·stationary(+White) family (``ValueError`` otherwise).
     Returns :func:`condition_blocked` at the optimum, with the kernel
     rebuilt as Constant·base + White at the fitted values and the input
     nodes' bounds."""
-    from ..ops.blocked_lml import blocked_lml_value, blocked_lml_value_and_grad
+    from ..ops.blocked_lml import blocked_lml_value_and_grad
 
     parts = stationary_family_params(kernel)
     if parts is None:
@@ -875,18 +856,10 @@ def fit_blocked(
         th = x[:, 0]
         val, (g_amp, g_ls, g_noise) = blocked_lml_value_and_grad(
             Xd, Y2, fam, th[0], th[1:1 + D], th[1 + D], **lml_kw)
-        v = -val.reshape(1)
-        g = -torch.cat([g_amp.reshape(1), g_ls, g_noise.reshape(1)])[:, None]
-        v = torch.where(torch.isfinite(v), v, torch.full_like(v, 1e25))
-        return v, torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+        return negated_lml(val.reshape(1),
+                           torch.cat([g_amp.reshape(1), g_ls, g_noise.reshape(1)])[:, None])
 
-    def nll(x: Tensor):  # the line search's candidates: the value alone
-        th = x[:, 0]
-        v = -blocked_lml_value(Xd, Y2, fam, th[0], th[1:1 + D], th[1 + D], **lml_kw).reshape(1)
-        return torch.where(torch.isfinite(v), v, torch.full_like(v, 1e25))
-
-    x, _ = _lbfgs_elast(nll_and_grad, x0, lo, hi, maxiter, value_b=nll,
-                        max_step=FIT_BLOCKED_MAX_STEP)
+    x, _, _ = lbfgs_minimize(nll_and_grad, x0, lo, hi, maxiter)
     th = x[:, 0]
     base_bounds = base_node.bounds if base_node is not None else DEFAULT_BOUNDS
     ls_fit = torch.exp(th[1:1 + D])

@@ -13,6 +13,10 @@ Matrices are stacked as (n, n, E): entry (i, j) of member e sits at
   ``_spd_inv_kernel``; it takes CUDA tensors only.
 * ``spd_inverse_elast_auto`` sends a CUDA tensor to the kernel and a CPU
   tensor to the twin.
+* ``small_cholesky`` and ``small_cho_solve`` factor and solve small SPD
+  matrices over any leading batch axes (torch batches them as they are;
+  the JAX package's ``custom_vmap`` rules, which re-lay a vmapped batch
+  ensemble-last for the TPU, have nothing to do here).
 """
 from __future__ import annotations
 
@@ -85,6 +89,20 @@ def cho_solve_elast(L: Tensor, B: Tensor) -> Tensor:
             s = s - L[k, i][None, :] * x[k]
         x[i] = s * inv_diag[i][None, :]
     return torch.stack(x, dim=0)
+
+
+def small_cholesky(K: Tensor) -> Tensor:
+    """Lower Cholesky of small SPD matrices K (..., n, n); a matrix that is
+    not positive definite gives NaN, as XLA's Cholesky does."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info != 0)[..., None, None], torch.full_like(L, float("nan")), L)
+
+
+def small_cho_solve(L: Tensor, B: Tensor) -> Tensor:
+    """(L Lᵀ)⁻¹ B for lower factors L (..., n, n) and B (..., n, p), by a
+    forward then a backward triangular solve; batch axes broadcast."""
+    y = torch.linalg.solve_triangular(L, B, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
 # The wrapper picks one of the kernel's instances from n and the dtype

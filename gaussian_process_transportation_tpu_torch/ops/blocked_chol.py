@@ -381,14 +381,25 @@ def gram_cholesky_solve(X: Tensor, Y: Tensor, lengthscale, amplitude, noise,
                         block: int = 512, refine_iters=None, family: str = "rbf",
                         group=None) -> Tuple[Tensor, BlockedCholesky]:
     """K = amp·k(X, X) + noise·I → blocked Cholesky → α = K⁻¹Y, followed by
-    ``refine_iters`` steps of iterative refinement α ← α + K⁻¹(Y − Kα)
+    up to ``refine_iters`` steps of iterative refinement α ← α + K⁻¹(Y − Kα)
     with the residual from the panels (None: 1 below 32 panels, 2 from 32
-    up).  ``group`` is ignored, as in :func:`cholesky_panels`."""
+    up).  A column keeps a step only where it lowers that column's residual
+    norm: once κ·ε of the dtype passes about 1 the steps diverge, each one
+    multiplying the residual (a float32 Gram at N = 20,000 with noise
+    8.4e-5 on an H100: 6.6e-5, then 1.6e-3 and 4.7e-2), and the solve keeps
+    its best iterate.  On a Gram where every step lowers the residual, α is
+    the plain refinement's, bit for bit.  ``group`` is ignored, as in
+    :func:`cholesky_panels`."""
     panels, n = stationary_gram_panels(X, lengthscale, amplitude, noise, block, family)
     chol = cholesky_panels(panels, n)
     squeeze = Y.dim() == 1
     Y2 = (Y[:, None] if squeeze else Y).to(panels[0].dtype)
     alpha = chol.solve(Y2)
+    resid = Y2 - symmetric_matvec_panels(panels, alpha, n)
     for _ in range(refine_steps(len(panels), refine_iters)):
-        alpha = alpha + chol.solve(Y2 - symmetric_matvec_panels(panels, alpha, n))
+        step = alpha + chol.solve(resid)
+        step_resid = Y2 - symmetric_matvec_panels(panels, step, n)
+        keep = torch.linalg.vector_norm(step_resid, dim=0) < torch.linalg.vector_norm(resid, dim=0)
+        alpha = torch.where(keep, step, alpha)
+        resid = torch.where(keep, step_resid, resid)
     return (alpha[:, 0] if squeeze else alpha), chol

@@ -192,22 +192,23 @@ def fit_sharded(kernel, X: Tensor, Y: Tensor, mesh, axis: str = "data", maxiter:
     optimum is the caller's: :func:`sharded_gram_cholesky_solve` or, on
     one card, ``models.exact_gp.condition_blocked``.
 
-    Mirrors the port's ``models.exact_gp.fit_blocked``: projected L-BFGS
-    (``exact_gp._lbfgs_elast``, one lane, steps of at most
-    ``FIT_BLOCKED_MAX_STEP`` in each log hyperparameter, the line search's
-    candidates through :func:`sharded_lml_value`) over the negative
-    sharded LML, θ in float32 clipped to the log-bounds of the kernel's
-    nodes, a non-finite value read as 1e25 and a non-finite gradient entry
-    as 0, rows with NaN targets dropped.  The JAX package drives optax's
-    L-BFGS with its zoom line search; the port has no optax (as for
-    ``fit_blocked``).  Every rank computes the same values bit for bit, so
-    every rank takes the same steps.  The fitted kernel is Constant·base +
-    White at the fitted values with the input nodes' bounds."""
+    Mirrors ``models.exact_gp.fit_blocked``: ``maxiter`` iterations of
+    optax's L-BFGS and zoom line search (``models._lbfgs.lbfgs_minimize``,
+    one lane, every candidate a :func:`sharded_lml_value_and_grad`), as the
+    JAX package's ``fit_sharded`` runs them, over the negative sharded LML;
+    θ in float32 clipped to the log-bounds of the kernel's nodes after each
+    step, a non-finite value read as 1e25 (its gradient NaN where the Gram
+    does not factor), an iteration's first gradient with its non-finite
+    entries set to 0, rows with NaN targets dropped.  Every rank computes
+    the same values bit for bit, so every rank takes the same steps and
+    reads the same end of each line search.  The fitted kernel is
+    Constant·base + White at the fitted values with the input nodes'
+    bounds."""
     from ..kernels import Constant, Matern, RBF, White
     from ..kernels.stationary import DEFAULT_BOUNDS
-    from ..models.exact_gp import (FIT_BLOCKED_MAX_STEP, _eff_jitter, _family_nodes,
-                                   _filter_nan_rows, _lbfgs_elast, stationary_family_params,
-                                   white_noise_level)
+    from ..models._lbfgs import lbfgs_minimize, negated_lml
+    from ..models.exact_gp import (_eff_jitter, _family_nodes, _filter_nan_rows,
+                                   stationary_family_params, white_noise_level)
 
     parts = stationary_family_params(kernel)
     if parts is None:
@@ -231,28 +232,16 @@ def fit_sharded(kernel, X: Tensor, Y: Tensor, mesh, axis: str = "data", maxiter:
     rows = [log_bounds(const_node)] + [log_bounds(base_node)] * D + [log_bounds(white_node)]
     lo, hi = torch.tensor(rows, **f32).T[:, :, None]
     lml_kw = dict(mesh=mesh, axis=axis, block=block, jitter=_eff_jitter(torch.float32, jitter))
-    trace = []
 
     def nll_and_grad(x: Tensor):
         th = x[:, 0]
         val, (g_amp, g_ls, g_noise) = sharded_lml_value_and_grad(
             Xd, Y2, fam, th[0], th[1:1 + D], th[1 + D], **lml_kw)
-        v = -val.reshape(1)
-        g = -torch.cat([g_amp.reshape(1), g_ls, g_noise.reshape(1)])[:, None]
-        v = torch.where(torch.isfinite(v), v, torch.full_like(v, 1e25))
-        trace.append(v)
-        return v, torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+        return negated_lml(val.reshape(1),
+                           torch.cat([g_amp.reshape(1), g_ls, g_noise.reshape(1)])[:, None])
 
-    def nll(x: Tensor):
-        th = x[:, 0]
-        v = -sharded_lml_value(Xd, Y2, fam, th[0], th[1:1 + D], th[1 + D], **lml_kw).reshape(1)
-        return torch.where(torch.isfinite(v), v, torch.full_like(v, 1e25))
-
-    x, _ = _lbfgs_elast(nll_and_grad, x0, lo, hi, maxiter, value_b=nll,
-                        max_step=FIT_BLOCKED_MAX_STEP)
-    # the value at each iteration's start: a step is kept only where it
-    # decreased, so the running minimum of the evaluated values
-    vals = torch.cummin(torch.cat(trace), 0).values[:maxiter]
+    x, vals, _ = lbfgs_minimize(nll_and_grad, x0, lo, hi, maxiter)
+    vals = vals[:, 0]
     th = x[:, 0]
     theta = {"log_amp": th[0], "log_ls": th[1:1 + D], "log_noise": th[1 + D]}
     base_bounds = base_node.bounds if base_node is not None else DEFAULT_BOUNDS

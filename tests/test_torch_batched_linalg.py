@@ -91,3 +91,31 @@ def test_fused_wrapper_refuses_cpu_tensors(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         tbl.spd_inverse_elast_fused(K)
     assert tbl.spd_inverse_elast_fused.launches == 0
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["one", "vmap"])
+def test_small_cholesky_and_cho_solve_match_jax_f64(batched):
+    """small_cholesky and small_cho_solve against JAX's, float64, to 1e-10:
+    one (n, n) matrix, and a batch that JAX runs under ``jax.vmap`` (its
+    custom_vmap rule: the ensemble-last twins) and the port as leading
+    axes; a matrix that is not positive definite factors to NaN."""
+    import jax
+
+    n, E, p = 11, 5, 3
+    K = _spd_batch(n, E, seed=7).astype(np.float64)
+    B = np.random.default_rng(8).standard_normal((E, n, p))
+    if not batched:
+        K, B = K[0], B[0]
+        chol, solve = jbl.small_cholesky, jbl.small_cho_solve
+    else:
+        chol, solve = jax.vmap(jbl.small_cholesky), jax.vmap(jbl.small_cho_solve)
+    L_j = np.asarray(chol(jnp.asarray(K)))
+    X_j = np.asarray(solve(jnp.asarray(L_j), jnp.asarray(B)))
+    L = tbl.small_cholesky(torch.as_tensor(K))
+    np.testing.assert_allclose(L.numpy(), L_j, rtol=1e-10, atol=1e-10)
+    X = tbl.small_cho_solve(L, torch.as_tensor(B))
+    np.testing.assert_allclose(X.numpy(), X_j, rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(np.einsum("...ij,...jk->...ik", K, X.numpy()), B, atol=1e-10)
+    bad = torch.as_tensor(K).clone()
+    bad[..., 0, 0] = -1.0
+    assert torch.isnan(tbl.small_cholesky(bad)).all()

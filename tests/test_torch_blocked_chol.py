@@ -293,6 +293,51 @@ def test_refine_iters_auto_rule(monkeypatch, panels, threshold, solves):
     assert len(calls) == solves
 
 
+def _plain_refinement(panels, chol, Y, n, steps):
+    """α = K⁻¹Y refined ``steps`` times with no test of the residual."""
+    alpha = chol.solve(Y)
+    for _ in range(steps):
+        alpha = alpha + chol.solve(Y - tbc.symmetric_matvec_panels(panels, alpha, n))
+    return alpha
+
+
+@pytest.mark.parametrize("factor", ["exact", "diverging"])
+def test_refinement_keeps_a_step_only_where_it_lowers_the_residual(monkeypatch, factor):
+    """float32, 300 points.  With the Gram's own factor the one step lowers
+    each column's residual and α is the plain refinement's bit for bit.
+    With a factor whose preconditioned Gram has eigenvalues past 2 (the
+    factor of K − 0.9·noise·I, as a float32 factor at κ·ε32 > 1 behaves),
+    the plain refinement's residual grows at each of three steps; the solve
+    keeps the unrefined α, nearer the float64 solution."""
+    rng = np.random.default_rng(13)
+    X = torch.as_tensor(rng.standard_normal((300, 2)), dtype=torch.float32)
+    Y = torch.as_tensor(rng.standard_normal((300, 2)), dtype=torch.float32)
+    noise = 0.05
+    real = tbc.cholesky_panels
+    if factor == "diverging":
+        def shifted(panels, n, group=None):
+            moved = [p.clone() for p in panels]
+            for p in moved:
+                p[:128].diagonal().sub_(0.9 * noise)
+            return real(moved, n)
+        monkeypatch.setattr(tbc, "cholesky_panels", shifted)
+    steps = 1 if factor == "exact" else 3
+    alpha, chol = tbc.gram_cholesky_solve(X, Y, 1.0, 1.0, noise, block=128, refine_iters=steps)
+    panels, n = tbc.stationary_gram_panels(X, 1.0, 1.0, noise, 128, "rbf")
+    resid = torch.stack([
+        torch.linalg.vector_norm(Y - tbc.symmetric_matvec_panels(panels, a, n), dim=0)
+        for a in [_plain_refinement(panels, chol, Y, n, k) for k in range(steps + 1)]])
+    plain = _plain_refinement(panels, chol, Y, n, steps)
+    a64 = np.linalg.solve(_dense_gram(X.double().numpy(), 1.0, 1.0, "rbf")
+                          + noise * np.eye(300), Y.double().numpy())
+    if factor == "exact":
+        assert bool((resid[1] < resid[0]).all()) and torch.equal(alpha, plain)
+    else:
+        assert bool((resid[1:] > resid[:-1]).all())
+        assert torch.equal(alpha, chol.solve(Y))
+        assert _rel(alpha, a64) < _rel(plain, a64)
+
+
 def test_group_is_accepted_and_ignored():
     K = torch.as_tensor(_spd(384, seed=11))
     panels = tbc._split_panels(K, 128, 384)

@@ -703,17 +703,24 @@ def test_blocked_lml_matches_its_cpu_twin(device, family, monkeypatch):
 
 def test_fit_jit_runs_its_lanes_on_kernel_2(device, monkeypatch):
     """fit_jit on float32 CUDA tensors: one launch of kernel #2 for each
-    candidate of all lanes (1 + maxiter·7), no other hand kernel; the fitted
+    evaluation of all lanes that its L-BFGS counts (each iteration's, each
+    line-search round's and the final values), no other hand kernel; the fitted
     LML (f64) within 1e-3 of the same fit through the twin on the CPU; and
     #2 at fit_jit's shape (n=20 D=2 p=2, six lanes, both n_ls) against its
     twin and the f64 formula to chip_smoke's bound."""
+    from gaussian_process_transportation_tpu_torch.models._lbfgs import lbfgs_minimize
+
     _reset_lml_counts(monkeypatch)
+    for name in ("iterations", "evaluations", "rounds"):
+        monkeypatch.setattr(lbfgs_minimize, name, 0)
     src, res = chip_smoke.residual_inputs(device, torch.float32)
     kern = chip_smoke.fit_kernel(dtype=torch.float32, device=device)
     gp = tgp.fit_jit(kern, src, res, n_restarts=2, maxiter=5,
                      generator=torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
-    assert tfl.small_lml_value_grad.launches == 1 + 5 * 7
+    assert lbfgs_minimize.iterations == 5
+    assert lbfgs_minimize.evaluations == 5 + lbfgs_minimize.rounds + 1
+    assert tfl.small_lml_value_grad.launches == lbfgs_minimize.evaluations
     assert tfl.small_lml_value_grad_md.launches == 0
     src_c, res_c = chip_smoke.residual_inputs("cpu", torch.float32)
     twin = tgp.fit_jit(chip_smoke.fit_kernel(dtype=torch.float32, device="cpu"), src_c, res_c,

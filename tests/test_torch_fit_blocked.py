@@ -1,7 +1,8 @@
 """Port parity: the large-N hyperparameter fit ``exact_gp.fit_blocked``
-against the JAX package's (optax L-BFGS over its blocked LML, Pallas
-``factor_panel`` in interpret mode) and against the port's dense scipy
-fit, the fitted LML read in float64 by the dense formula."""
+against the JAX package's (both optax's L-BFGS and zoom line search, over
+the port's blocked LML and JAX's with its Pallas ``factor_panel`` in
+interpret mode): θ after the first iterations, and the fitted LML read in
+float64 by the dense formula, also against the port's dense scipy fit."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +19,7 @@ from gaussian_process_transportation_tpu_torch.models import exact_gp as tgp
 # spins against them (a 7 s check read 175 s so on a loaded 8-core CPU).
 torch.set_num_threads(1)
 
-N, D, B, MAXITER = 200, 2, 128, 20  # two panels, the last one padded
+N, D, B, MAXITER, EARLY = 200, 2, 128, 20, 3  # two panels, the last one padded
 
 
 def _case():
@@ -52,16 +53,31 @@ def fits():
                 dense=_lml64(dense.kernel, X, Y), gp=port)
 
 
+def test_fit_blocked_takes_jaxs_first_steps():
+    """After EARLY iterations (the second's line search zooms back from a
+    unit step) θ is JAX's within 1e-3 in each log hyperparameter.  float32
+    sets the tolerance: the two blocked LMLs differ by ~1e-5 relative, and
+    the zoom's cubic through float32 values carries that to ~1e-4 in θ
+    (read on the CPU)."""
+    X, Y, jk = _case()
+    port = tgp.fit_blocked(kernel_from_tree(jk, torch.float32, "cpu"), torch.as_tensor(X),
+                           torch.as_tensor(Y), maxiter=EARLY, block=B)
+    ref = jgp.fit_blocked(jk, jnp.asarray(X), jnp.asarray(Y), maxiter=EARLY, block=B,
+                          interpret=True)
+    want = kernel_from_tree(ref.kernel, device="cpu").theta.numpy()
+    np.testing.assert_allclose(port.kernel.theta.double().numpy(), want, rtol=0, atol=1e-3)
+
+
 def test_fit_blocked_raises_the_lml(fits):
-    """The L-BFGS keeps only steps that lower −LML: the fitted LML is at
-    least the start's (here by hundreds)."""
+    """The line search takes only steps that lower −LML enough: the fitted
+    LML is at least the start's (here by hundreds)."""
     assert fits["port"] >= fits["start"] + 100.0
 
 
 @pytest.mark.parametrize("other", ["jax", "dense"])
 def test_fit_blocked_reaches_the_optimum_of_the_other_fits(fits, other):
-    """Three optimizers (the port's projected L-BFGS in float32, JAX's optax
-    L-BFGS in float32, scipy's L-BFGS-B in float64) from the same start,
+    """Three fits (the port's and JAX's optax L-BFGS in float32, scipy's
+    L-BFGS-B in float64) from the same start,
     read by the same f64 formula: within 1e-3 of the LML's magnitude."""
     assert abs(fits["port"] - fits[other]) <= 1e-3 * abs(fits[other]), fits
 
@@ -103,9 +119,9 @@ def test_fit_blocked_matern_fit_raises_the_lml():
 def test_fit_blocked_moves_from_the_large_n_start():
     """scripts/bench_blocked_lml.py's data and start at N = 1000: the
     gradient runs to hundreds, and a steepest-descent first step of −g
-    would leave the definite region in every candidate; steps of at most
-    ``FIT_BLOCKED_MAX_STEP`` in each log hyperparameter raise the LML by
-    hundreds in ten iterations."""
+    would leave the definite region; optax's first step of norm
+    min(1, 1/‖g‖)·‖g‖ ≤ 1 and its line search raise the LML by hundreds in
+    ten iterations."""
     rng = np.random.default_rng(0)
     X = rng.standard_normal((1000, 3)).astype(np.float32)
     Y = (np.sin(2.0 * X[:, :1]) + 0.1 * rng.standard_normal((1000, 1))).astype(np.float32)

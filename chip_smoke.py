@@ -5,8 +5,9 @@ NUTS hyperposteriors, checkpointed runs, SMC particles, the active-learning
 GP, the diffeomorphism sweep, the mixed-precision solve, the transport
 variants, the learned-map transports and the multi-frame baselines, obstacle
 avoidance and the obstacle flow field, the GP dynamical system, the
-metrics and comparison suites, and the multi-device slice (meshes over
-``torch.distributed`` ranks, the sharded ensemble, Cholesky and LML).
+metrics and comparison suites, the multi-device slice (meshes over
+``torch.distributed`` ranks, the sharded ensemble, Cholesky and LML), and
+the bench stages of ``bench.py``'s port.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
@@ -271,7 +272,21 @@ Phases, one line each on stdout:
     ``sharded_lml`` within 1e-4 of the JAX package's recorded run
     (``MULTICHIP_r05.json``), the launches of #1, #2 and #4 on every rank,
     and each rank's #4 against its plain twin at B=128; with two or more
-    cards also ``dryrun_multichip`` over NCCL, one rank a card.
+    cards also ``dryrun_multichip`` over NCCL, one rank a card;
+34. the bench stages (``gaussian_process_transportation_tpu_torch/bench.py``,
+    the port of ``bench.py``) at full size: ``bench_ours`` (E=16384, one
+    launch of #1 a call) with three members against the f64 CPU run as in
+    phase 4; ``bench_cholesky`` at ``"high"`` (JAX's stage) and at
+    ``"highest"``, each with TFLOP/s, the 8192² product rates at both
+    precisions and the share of each, 1 Gram and 20 ``factor_panel``
+    launches a solve, and alpha within phase 8's bound of its f64 solve
+    (the unrefined "high" solve printed beside it); ``matmul_at(..., "high")``
+    on a 4096² pair within 2^-14 relative of f64, and the one-pass
+    ``"default"`` (the lo terms dropped) rejected by that check;
+    ``bench_hmc`` (1,537 launches of #2 a call), ``bench_smc``,
+    ``bench_reference_cpu`` and ``vs_baseline``; then ``python -m
+    gaussian_process_transportation_tpu_torch.bench`` as a subprocess, its
+    one JSON line parsed for the five metrics.
 
 Each path is driven with every launch count set to 0 just before and read
 just after.  Then one JSON line with the kernels' record and, last, the
@@ -301,6 +316,7 @@ CUPTI_TRIES = 4  # profiler sessions tried before a time falls back (traced_rows
 SOURCES = ("spd_inverse_elast", "factor_panel", "stationary_gram", "fused_lml")
 
 N_SOLVE, D_SOLVE, BLOCK = 10240, 3, 512
+SOLVE_REL_TOL = 5e-3  # the N=10240 solve's alpha against f64, relative to max|alpha|
 E_3D, N_3D, Q_3D = 16, 2500, 1000
 NQ_GRID, N_GRID = 100, 2048
 TILE_EDGES = (1, 127, 128, 129, 300)  # around the mean-and-variance kernel's 128-wide tiles
@@ -443,6 +459,33 @@ def make_workload(n_traj=Q_MAIN, n_dist=N_MAIN):
     dX = np.zeros_like(X)
     dX[:-1] = np.diff(X, axis=0)
     return X, dX, S, S1
+
+
+def member_errors(res, kernel64_of, S, X, dX, targets, members):
+    """err/max|X| of traj and delta at ``members`` of a bench transport
+    result against the port's f64 run on the CPU (phases 4 and 34)."""
+    from gaussian_process_transportation_tpu_torch.transport import gpt
+
+    f64 = dict(dtype=torch.float64, device="cpu")
+    ref = gpt.fit_and_transport_batched(
+        kernel64_of(f64), torch.as_tensor(S, **f64), targets[members].to(**f64),
+        torch.as_tensor(X, **f64), torch.as_tensor(dX, **f64))
+    scale = float(np.abs(X).max())
+    rel = {}
+    for i, e in enumerate(members):
+        for name in ("traj", "delta"):
+            got = getattr(res, name)[e].double().cpu()
+            rel[f"{name}[{e}]"] = (got - getattr(ref, name)[i]).abs().max().item() / scale
+    if max(rel.values()) >= TRAJ_TOL:
+        raise AssertionError(f"bench transport differs from the f64 CPU run: {rel}")
+    return rel
+
+
+def bench_kernel(**dev):
+    """The bench transport's C(10)·RBF(4)+White(0.01)."""
+    from gaussian_process_transportation_tpu_torch import kernels as K
+
+    return K.Constant(10.0) * K.RBF(4.0 * torch.ones(2, **dev)) + K.White(0.01)
 
 
 def cuda_ms(fn, reps=REPS):
@@ -2746,6 +2789,128 @@ def phase33(tag):
     return outs[0]["counts"]
 
 
+BENCH_METRICS = ("value", "vs_baseline", "tflops_chol_n10240", "hmc_samples_per_s",
+                 "smc_particles_per_s")
+PRODUCT_N, PRODUCT_TOL = 4096, 2.0**-14  # the "high" product check: ~16 bits of each operand
+
+
+def phase34(device, tag, a64, solve_bound):
+    """The bench stages of ``gaussian_process_transportation_tpu_torch/bench.py``
+    at full size, each driven with the launch counts set to 0 just before;
+    then the module as a subprocess.  Returns the stages' launches a call
+    (a solve for the Cholesky stage)."""
+    from gaussian_process_transportation_tpu_torch import bench as tb
+    from gaussian_process_transportation_tpu_torch.ops import blocked_chol as bc
+    from gaussian_process_transportation_tpu_torch.ops.linalg import matmul_at
+
+    t34 = time.perf_counter()
+    X, dX, S, S1 = tb.make_workload()
+    counts, per_call = {}, {}
+
+    # the transport: E_MAIN members, one launch of #1 a call; three members
+    # against the f64 CPU run, as phase 4
+    iters, reps = 5, 3
+    (rate_t, det_t), counts["transport"] = drive(
+        lambda: tb.bench_ours(X, dX, S, S1, iters=iters, reps=reps, device=device))
+    calls = 1 + iters * reps
+    expect_launches("bench_ours", counts["transport"], {"spd_inverse_elast_fused": calls})
+    per_call["transport"] = counts["transport"]["spd_inverse_elast_fused"] / calls
+    res = tb.transport_fn(X, dX, S, S1, device=device)()
+    targets = res.traj.new_tensor(S1)[None] + torch.linspace(0.0, 1.0, E_MAIN,
+                                                             device=device)[:, None, None]
+    rel = member_errors(res, lambda dev: bench_kernel(**dev), S, X, dX, targets,
+                        [0, E_MAIN // 2, E_MAIN - 1])
+    del res
+    print(f"bench transport: bench_ours E={E_MAIN} f32: {rate_t:.1f} traj/s (median of {reps} x "
+          f"{iters} calls, CUDA events, rep_ms {[round(t, 4) for t in det_t['rep_ms']]}); "
+          f"spd_inverse_elast_fused launches {counts['transport']['spd_inverse_elast_fused']} in "
+          f"{calls} calls; err/max|X| vs f64 CPU " + ", ".join(f"{k}: {v:.3g}" for k, v in rel.items())
+          + f" (< {TRAJ_TOL}) {tag}", flush=True)
+
+    # the Cholesky stage at "high" (JAX's) and at "highest"
+    chol = {}
+    for precision in ("high", "highest"):
+        iters, reps = 15, 3
+        (tf, det), counts[precision] = drive(lambda: tb.bench_cholesky(
+            precision=precision, iters=iters, reps=reps, device=device,
+            roofline_m=8192 if precision == "high" else 0))
+        solves = 1 + iters * reps
+        per = {k: counts[precision][k] / solves for k in ("stationary_gram_panels", "factor_panel")}
+        if per != {"stationary_gram_panels": 1, "factor_panel": -(-N_SOLVE // BLOCK)}:
+            raise AssertionError(f"bench_cholesky({precision}) launches a solve {per}")
+        Xs, Ys = tb.cholesky_inputs(N_SOLVE, device)
+        ls3 = torch.ones(D_SOLVE, device=device)
+        err = {}
+        for refine in (None, 0):
+            alpha = bc.gram_cholesky_solve(Xs, Ys, ls3, 2.0, 0.1, block=BLOCK,
+                                           precision=precision, refine_iters=refine)[0]
+            err[refine] = ((alpha.double() - a64).abs().max() / a64.abs().max()).item()
+        if not err[None] < solve_bound:
+            raise AssertionError(f"bench_cholesky({precision}) alpha rel err {err[None]:.3g} >= "
+                                 f"{solve_bound}")
+        chol[precision] = (tf, det, per, err)
+        per_call[precision] = per
+    r_highest = chol["high"][1]["roofline_highest_tflops"]
+    r_high = chol["high"][1]["roofline_high_tflops"]
+    print(f"bench cholesky: gram_cholesky_solve N={N_SOLVE} B={BLOCK} D={D_SOLVE}, 8192^2 product "
+          f"rates highest {r_highest:.2f} and high {r_high:.2f} TFLOP/s; " + "; ".join(
+              f"{p}: {tf:.3f} TFLOP/s ({100 * tf / r_highest:.1f}% of highest's rate, "
+              f"{100 * tf / r_high:.1f}% of high's), median {1e3 * tb.cholesky_flops(N_SOLVE) / tf / 1e12:.4f} ms "
+              f"(rep_ms {[round(t, 4) for t in det['rep_ms']]}), launches a solve {per}, alpha rel err "
+              f"vs f64 {err[None]:.3g} (< {solve_bound}: one refinement step with the residual in "
+              f"float32 brings any precision's solve to the float32 solve's accuracy, phase 8's "
+              f"bound), unrefined {err[0]:.3g}"
+              for p, (tf, det, per, err) in chol.items()) + f" {tag}", flush=True)
+
+    # the product check: "high" within PRODUCT_TOL of f64; the one-pass
+    # "default" (the lo terms dropped) must be rejected by the same check
+    gen = torch.Generator(device=device).manual_seed(34)
+    a, b = (torch.randn(PRODUCT_N, PRODUCT_N, generator=gen, device=device) for _ in range(2))
+    c64 = a.double() @ b.double()
+    prod = {p: ((matmul_at(a, b, p).double() - c64).abs().max() / c64.abs().max()).item()
+            for p in ("high", "default", "highest")}
+    del a, b, c64
+    if not (prod["high"] < PRODUCT_TOL <= prod["default"]):
+        raise AssertionError(f"matmul_at at {PRODUCT_N}^2: rel err {prod} against {PRODUCT_TOL}")
+    print(f"matmul_at {PRODUCT_N}^2 f32 vs f64, max|err|/max|C|: high {prod['high']:.3g} "
+          f"(< 2^-14 = {PRODUCT_TOL:.3g}), the planted fault default (lo terms dropped) "
+          f"{prod['default']:.3g} rejected, highest {prod['highest']:.3g} {tag}", flush=True)
+
+    # the samplers and the host reference
+    reps = 3
+    (rate_h, det_h), counts["hmc"] = drive(lambda: tb.bench_hmc(reps=reps, device=device))
+    want_h = (1 + reps) * (1 + (HMC_WARMUP + HMC_SAMPLES) * HMC_LEAPFROG)
+    expect_launches("bench_hmc", counts["hmc"], {"small_lml_value_grad": want_h})
+    per_call["hmc"] = counts["hmc"]["small_lml_value_grad"] / (1 + reps)
+    (rate_s, det_s), counts["smc"] = drive(lambda: tb.bench_smc(device=device))
+    if any(counts["smc"].values()):
+        raise AssertionError(f"bench_smc launched a hand kernel: {counts['smc']}")
+    ref_rate = tb.bench_reference_cpu(X, dX, S, S1)
+    print(f"bench samplers: bench_hmc {rate_h:.1f} hmc_samples_per_s (rep_ms "
+          f"{[round(t, 2) for t in det_h['rep_ms']]}, small_lml_value_grad launches "
+          f"{per_call['hmc']:.0f} a call); bench_smc {rate_s:.1f} "
+          f"smc_particles_per_s (rep_ms {[round(t, 3) for t in det_s['rep_ms']]}); "
+          f"bench_reference_cpu {ref_rate:.1f} traj/s on the host; vs_baseline "
+          f"{rate_t / ref_rate:.2f} {tag}", flush=True)
+
+    # the module, as a user runs it
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", PKG + ".bench"], capture_output=True, text=True,
+                         timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    sys.stderr.write(out.stderr)
+    if out.returncode != 0:
+        raise AssertionError(f"python -m {PKG}.bench exited {out.returncode}")
+    lines = out.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    if len(lines) != 1 or not all(isinstance(line.get(k), float) and math.isfinite(line[k])
+                                  for k in BENCH_METRICS):
+        raise AssertionError(f"python -m {PKG}.bench printed {out.stdout!r}")
+    print(f"python -m {PKG}.bench: one JSON line in {time.perf_counter() - t0:.1f} s, "
+          + ", ".join(f"{k} {line[k]:.4g}" for k in BENCH_METRICS)
+          + f", card {line['card']!r}; phase 34 {time.perf_counter() - t34:.1f} s {tag}", flush=True)
+    return per_call
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -2830,24 +2995,13 @@ def main() -> None:
 
     members = [0, E_MAIN // 2, E_MAIN - 1]
     f64 = dict(dtype=torch.float64, device="cpu")
-    kernel64 = K.Constant(10.0) * K.RBF(4.0 * torch.ones(2, **f64)) + K.White(0.01)
-    ref = gpt.fit_and_transport_batched(
-        kernel64, torch.as_tensor(S, **f64), targets[members].to(**f64),
-        torch.as_tensor(X, **f64), torch.as_tensor(dX, **f64),
-    )
     scale = float(np.abs(X).max())
-    rel = {}
-    for i, e in enumerate(members):
-        for name in ("traj", "delta"):
-            got = getattr(res, name)[e].double().cpu()
-            rel[f"{name}[{e}]"] = (got - getattr(ref, name)[i]).abs().max().item() / scale
-    if max(rel.values()) >= TRAJ_TOL:
-        raise AssertionError(f"main path differs from the f64 CPU run: {rel}")
+    rel = member_errors(res, lambda dev: bench_kernel(**dev), S, X, dX, targets, members)
     print(f"main path: E={E_MAIN} Q={Q_MAIN} n={N_MAIN} f32, fields {sorted(fields)} finite, "
           f"kernel launches {launches}, err/max|X| vs f64 CPU "
           + ", ".join(f"{k}: {v:.3g}" for k, v in rel.items())
           + f" (< {TRAJ_TOL}) {tag}", flush=True)
-    del res, ref
+    del res
 
     # 5. times
     K_main = spd_batch(N_MAIN, E_MAIN)
@@ -2995,8 +3149,9 @@ def main() -> None:
     a64 = torch.cholesky_solve(Ys.double(), torch.linalg.cholesky(K64))
     del K64
     solve_err = ((alpha.double() - a64).abs().max() / a64.abs().max()).item()
-    if not solve_err < 5e-3:
-        raise AssertionError(f"gram_cholesky_solve alpha rel err {solve_err:.3g} >= 5e-3")
+    if not solve_err < SOLVE_REL_TOL:
+        raise AssertionError(f"gram_cholesky_solve alpha rel err {solve_err:.3g} >= "
+                             f"{SOLVE_REL_TOL}")
     solve_ms, solve_all = cuda_ms(solve_path)
     n = N_SOLVE
     tflops = (2 * n * n * 3 + n**3 / 3 + 4 * n * n * 3) / (solve_ms / 1e3) / 1e12
@@ -3021,7 +3176,7 @@ def main() -> None:
     print(f"large-N solve: gram_cholesky_solve N={n} D={D_SOLVE} block={BLOCK}: factor_panel "
           f"launches {counts8['factor_panel']}, stationary_gram_panels "
           f"{counts8['stationary_gram_panels']} (stationary_gram {counts8['stationary_gram']}); "
-          f"alpha rel err vs f64 {solve_err:.3g} (< 5e-3); {solve_ms:.4f} ms {solve_all} = "
+          f"alpha rel err vs f64 {solve_err:.3g} (< {SOLVE_REL_TOL}); {solve_ms:.4f} ms {solve_all} = "
           f"{tflops:.3f} TFLOP/s; f32 matmul 8192^2 {mm_tflops:.3f} TFLOP/s (TF32 off); "
           "blocked vs torch.linalg.cholesky+cholesky_solve (dense Gram included): "
           + ", ".join(f"N={k}: {a:.4f} vs {b:.4f} ms (condition() takes the {r} path)"
@@ -4137,6 +4292,9 @@ def main() -> None:
         lml_ms16=lml_ms16, hmc=(kern14, X14, Y14, hmc_kw, s14, hmc_ms), smc=(kern20, ll20)))
     counts33 = phase33(tag)
 
+    # 34. the bench stages, bench.py's port, and its module
+    counts34 = phase34(device, tag, a64, SOLVE_REL_TOL)
+
     # the launches of #2 and #3 in their paths' runs (phases 13 and 14)
     kernels_json["small_lml_value_grad"]["launches"] = counts14["small_lml_value_grad"]
     # the later paths' launches (phases 16, 17 and 19) beside the main path's
@@ -4165,6 +4323,15 @@ def main() -> None:
     kernels_json["small_lml_value_grad"]["extra"].update(
         mesh_hmc_launches=counts32["hmc"]["small_lml_value_grad"],
         dryrun_hmc_launches_per_rank=counts33["hmc"]["small_lml_value_grad"])
+    # the bench stages' launches (phase 34), a call or a solve
+    kernels_json["spd_inverse_elast_fused"]["extra"].update(
+        bench_transport_launches_per_call=counts34["transport"])
+    kernels_json["small_lml_value_grad"]["extra"].update(
+        bench_hmc_launches_per_call=counts34["hmc"])
+    for name in ("stationary_gram_panels", "factor_panel"):
+        kernels_json[name]["extra"].update(
+            bench_cholesky_high_launches_per_solve=counts34["high"][name],
+            bench_cholesky_highest_launches_per_solve=counts34["highest"][name])
     kernels_json["factor_panel"]["extra"].update(
         sharded_cholesky_launches=counts32["cholesky"]["factor_panel"],
         sharded_lml_launches_per_evaluation=counts32["lml"]["factor_panel"],

@@ -6,17 +6,23 @@ panels, ``panels[k]`` (Np − k·B, B), Np = N rounded up to the block B.
 Each panel's (B, B) diagonal block is factored by ``factor_panel``, which
 returns L_kk **and** L_kk⁻¹ — the CUDA kernel ``csrc/factor_panel.cu`` for
 a CUDA tensor, the plain twin ``factor_panel_plain`` for a CPU one.  With
-the inverses in hand everything else is a matrix product (``torch.matmul``,
-full float32: TF32 stays off, see the package ``__init__``):
+the inverses in hand everything else is a matrix product:
 
 * the history correction of panel k, one (Np−kB, kB)·(kB, B) product;
 * the sub-diagonal part of panel k (a triangular solve), one product
   against L_kk⁻ᵀ;
 * forward and backward substitution, one product per panel and sweep.
 
-The JAX package works in float32 throughout and has a ``precision``
-argument for its TPU matrix passes; the port has neither: the kernels take
-float32, and the twins (hence CPU runs) keep the dtype they are given.
+The products run at ``precision`` (``ops.linalg``'s mapping, JAX's
+argument; "highest" by default, as in JAX): "highest" is ``torch.matmul`` in
+full float32 (TF32 stays off, see the package ``__init__``), "high" three
+bfloat16 passes on a hi/lo split and "default" one, for float32 CUDA
+tensors.  A factor is split into its bfloat16 parts once, panel by panel as
+each becomes final, and so is each L_kk⁻¹: the history products read the
+parts and never split them again.  Residuals are always taken at
+"highest", as in JAX.  The kernels take float32; the twins (hence CPU runs)
+keep the dtype they are given, and there every precision is that dtype's
+product, as the JAX package's CPU backend ignores its ``precision``.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from torch import Tensor
 
 from . import _cuda
 from . import pallas_gram as pg
+from .linalg import Split, check_precision, matmul_at, operand, reduced, split_once
 from .pallas_gram import STATIONARY_FAMILIES, stationary_from_sqdist
 
 __all__ = [
@@ -101,10 +108,19 @@ class BlockedCholesky:
     logical dimension: rows past it factor a padding block and are dropped
     by the solves."""
 
-    def __init__(self, panels: Sequence[Tensor], linvs: Tensor, n: int):
+    def __init__(self, panels: Sequence[Tensor], linvs: Tensor, n: int, splits=None):
         self.panels = tuple(panels)
         self.linvs = linvs
         self.n = n
+        # precision -> (the panels' and the L_kk⁻¹'s product operands)
+        self._operands = dict(splits or {})
+
+    def operands(self, precision: str):
+        """(panels, L_kk⁻¹) as they enter products at ``precision``: the
+        float32 tensors, or their :class:`~.linalg.Split` parts, split once
+        (by :func:`cholesky_panels` as it went, or at the first
+        reduced-precision solve) and kept."""
+        return split_once(self._operands, precision, self.panels, self.linvs)
 
     @property
     def block(self) -> int:
@@ -138,37 +154,64 @@ class BlockedCholesky:
             b = torch.cat([b, b.new_zeros(pad, b.shape[1])], dim=0)
         return b.to(self.linvs.dtype), squeeze
 
-    def _forward(self, b: Tensor) -> List[Tensor]:
+    def _forward(self, b: Tensor, precision: str) -> List[Tensor]:
         """y = L⁻¹ b, right-looking: one shrinking product per panel."""
         B = self.block
+        panels, linvs = self.operands(precision)
         ys = []
         rest = b
-        for k, p in enumerate(self.panels):
-            yk = self.linvs[k] @ rest[:B]
+        for k, p in enumerate(panels):
+            yk = matmul_at(linvs[k], rest[:B], precision)
             ys.append(yk)
             if p.shape[0] > B:
-                rest = rest[B:] - p[B:] @ yk
+                rest = rest[B:] - matmul_at(p[B:], yk, precision)
         return ys
 
-    def solve(self, b: Tensor) -> Tensor:
-        """(L Lᵀ)⁻¹ b by blocked substitution, 2P products."""
+    def solve(self, b: Tensor, precision: str = "highest") -> Tensor:
+        """(L Lᵀ)⁻¹ b by blocked substitution, 2P products at ``precision``."""
         B = self.block
         b, squeeze = self._pad_rhs(b)
-        ys = self._forward(b)
+        ys = self._forward(b, precision)
+        panels, linvs = self.operands(precision)
         below = b.new_zeros(0, b.shape[1])
-        for j in reversed(range(len(self.panels))):
+        for j in reversed(range(len(panels))):
             s = ys[j]
             if below.shape[0]:
-                s = s - self.panels[j][B:].T @ below
-            below = torch.cat([self.linvs[j].T @ s, below], dim=0)
+                s = s - matmul_at(panels[j][B:].T, below, precision)
+            below = torch.cat([matmul_at(linvs[j].T, s, precision), below], dim=0)
         x = below[: self.n]
         return x[:, 0] if squeeze else x
 
-    def solve_lower(self, b: Tensor) -> Tensor:
-        """L⁻¹ b (forward substitution only)."""
+    def solve_lower(self, b: Tensor, precision: str = "highest") -> Tensor:
+        """L⁻¹ b (forward substitution only) at ``precision``."""
         b, squeeze = self._pad_rhs(b)
-        y = torch.cat(self._forward(b), dim=0)[: self.n]
+        y = torch.cat(self._forward(b, precision), dim=0)[: self.n]
         return y[:, 0] if squeeze else y
+
+    def refined_solve(self, panels: Sequence[Tensor], Y: Tensor, steps: int,
+                      precision: str = "highest") -> Tensor:
+        """α = K⁻¹Y for Y (n, p), K the Gram whose lower ``panels`` this
+        factor factors, with up to ``steps`` steps of iterative refinement
+        α ← α + K⁻¹(Y − Kα): the solves at ``precision``, the residual from
+        the panels always at "highest" (as JAX's).  A column keeps a step
+        only where it lowers that column's residual norm: once κ·ε of the
+        dtype passes about 1 the steps diverge, each one multiplying the
+        residual (a float32 Gram at N = 20,000 with noise 8.4e-5 on an
+        H100: 6.6e-5, then 1.6e-3 and 4.7e-2), and the solve keeps its best
+        iterate.  Where every step lowers the residual, α is the plain
+        refinement's, bit for bit."""
+        alpha = self.solve(Y, precision)
+        if not steps:
+            return alpha
+        resid = Y - symmetric_matvec_panels(panels, alpha, self.n)
+        for _ in range(steps):
+            step = alpha + self.solve(resid, precision)
+            step_resid = Y - symmetric_matvec_panels(panels, step, self.n)
+            keep = (torch.linalg.vector_norm(step_resid, dim=0)
+                    < torch.linalg.vector_norm(resid, dim=0))
+            alpha = torch.where(keep, step, alpha)
+            resid = torch.where(keep, step_resid, resid)
+        return alpha
 
 
 def _split_panels(K: Tensor, B: int, n: int, diag_pad: float = 1.0) -> List[Tensor]:
@@ -185,12 +228,21 @@ def _split_panels(K: Tensor, B: int, n: int, diag_pad: float = 1.0) -> List[Tens
     return [K[k * B:, k * B:(k + 1) * B] for k in range(Np // B)]
 
 
-def cholesky_panels(panels: Sequence[Tensor], n: int, group=None) -> BlockedCholesky:
+def cholesky_panels(panels: Sequence[Tensor], n: int, precision: str = "highest",
+                    group=None) -> BlockedCholesky:
     """Left-looking blocked Cholesky over lower-triangle column panels.
 
     Each panel applies its whole history correction as one product against
     the dense lower factor accumulated so far, then ``factor_panel`` on its
-    diagonal block and one product against L_kk⁻ᵀ for the rest.
+    diagonal block and one product against L_kk⁻ᵀ for the rest; the
+    products at ``precision``, the panel factor always in full float32 (as
+    JAX's).  Where the products are reduced, each panel is split into its
+    bfloat16 parts once, as it becomes final, into dense part buffers that
+    the later history products read (the three passes as three
+    float32-output products of the parts, not one of K-tripled copies:
+    those copies of the whole history would cost as many bytes as the
+    parts themselves), and each L_kk⁻¹ likewise; the factor keeps them for
+    its solves.
 
     ``group`` is accepted and ignored: the JAX package's grouped form
     (``cholesky_panels_grouped``) exists only to bound the TPU compiler's
@@ -201,31 +253,41 @@ def cholesky_panels(panels: Sequence[Tensor], n: int, group=None) -> BlockedChol
     Np = panels[0].shape[0]
     p0 = panels[0]
     # One preallocated (Np, Np) accumulator of the finished panels, written
-    # in place slice by slice; the history products read from it, and the
-    # returned panels are views of it.
+    # in place slice by slice; the history products read from it (or from
+    # its parts), and the returned panels are views of it.
     Ldense = torch.zeros(Np, Np, dtype=p0.dtype, device=p0.device)
+    parts = Split.zeros((Np, Np), precision, p0.device) if reduced(p0, precision) else None
     L_panels: List[Tensor] = []
     linvs: List[Tensor] = []
+    linv_ops = []
     for k in range(P):
         pk = panels[k]
         if k:
-            hist = Ldense[k * B:, : k * B]
-            pk = pk - hist @ hist[:B].T
+            hist = (parts if parts is not None else Ldense)[k * B:, : k * B]
+            pk = pk - matmul_at(hist, hist[:B].T, precision)
         Lkk, Linv = factor_panel(pk[:B])
         linvs.append(Linv)
+        linv_ops.append(operand(Linv, precision))
         Lk = Ldense[k * B:, k * B:(k + 1) * B]
         Lk[:B] = Lkk
         if pk.shape[0] > B:
-            Lk[B:] = pk[B:] @ Linv.T  # the triangular solve as a product
+            # the triangular solve as a product
+            Lk[B:] = matmul_at(pk[B:], linv_ops[-1].T, precision)
+        if parts is not None:
+            parts.put((slice(k * B, None), slice(k * B, (k + 1) * B)), Lk)
         L_panels.append(Lk)
-    return BlockedCholesky(L_panels, torch.stack(linvs), n)
+    splits = None
+    if parts is not None:
+        splits = {precision: ([parts[k * B:, k * B:(k + 1) * B] for k in range(P)], linv_ops)}
+    return BlockedCholesky(L_panels, torch.stack(linvs), n, splits)
 
 
-def blocked_cholesky(K: Tensor, block: int = 512) -> BlockedCholesky:
-    """Blocked Cholesky of a dense SPD K (N, N); N need not divide block."""
+def blocked_cholesky(K: Tensor, block: int = 512, precision: str = "highest") -> BlockedCholesky:
+    """Blocked Cholesky of a dense SPD K (N, N); N need not divide block;
+    the products at ``precision``."""
     n = K.shape[0]
     B = min(block, -(-n // SUB_BLOCK) * SUB_BLOCK)
-    return cholesky_panels(_split_panels(K, B, n), n)
+    return cholesky_panels(_split_panels(K, B, n), n, precision)
 
 
 def panel_offsets(n: int, block: int) -> List[int]:
@@ -341,10 +403,12 @@ def stationary_gram_panels_into(buf: Tensor, X: Tensor, lengthscale, amplitude, 
 stationary_gram_panels.launches = 0
 
 
-def symmetric_matvec_panels(panels: Sequence[Tensor], x: Tensor, n: int) -> Tensor:
+def symmetric_matvec_panels(panels: Sequence[Tensor], x: Tensor, n: int,
+                            precision: str = "highest") -> Tensor:
     """K @ x from the lower-triangle column panels of a symmetric K: panel
     k adds P_k·x_k to rows k·B… and its mirrored upper part P_k[B:]ᵀ·x_below
-    to the rows of block k."""
+    to the rows of block k; the products at ``precision`` (each panel split
+    at each call where they are reduced)."""
     B = panels[0].shape[1]
     Np = panels[0].shape[0]
     squeeze = x.dim() == 1
@@ -356,9 +420,10 @@ def symmetric_matvec_panels(panels: Sequence[Tensor], x: Tensor, n: int) -> Tens
     x = x.to(panels[0].dtype)
     y = torch.zeros_like(x)
     for k, p in enumerate(panels):
-        y[k * B:] += p @ x[k * B:(k + 1) * B]
+        p = operand(p, precision)
+        y[k * B:] += matmul_at(p, x[k * B:(k + 1) * B], precision)
         if p.shape[0] > B:
-            y[k * B:(k + 1) * B] += p[B:].T @ x[(k + 1) * B:]
+            y[k * B:(k + 1) * B] += matmul_at(p[B:].T, x[(k + 1) * B:], precision)
     y = y[:n]
     return y[:, 0] if squeeze else y
 
@@ -378,28 +443,20 @@ def refine_steps(n_panels: int, refine_iters=None) -> int:
 
 
 def gram_cholesky_solve(X: Tensor, Y: Tensor, lengthscale, amplitude, noise,
-                        block: int = 512, refine_iters=None, family: str = "rbf",
-                        group=None) -> Tuple[Tensor, BlockedCholesky]:
-    """K = amp·k(X, X) + noise·I → blocked Cholesky → α = K⁻¹Y, followed by
-    up to ``refine_iters`` steps of iterative refinement α ← α + K⁻¹(Y − Kα)
-    with the residual from the panels (None: 1 below 32 panels, 2 from 32
-    up).  A column keeps a step only where it lowers that column's residual
-    norm: once κ·ε of the dtype passes about 1 the steps diverge, each one
-    multiplying the residual (a float32 Gram at N = 20,000 with noise
-    8.4e-5 on an H100: 6.6e-5, then 1.6e-3 and 4.7e-2), and the solve keeps
-    its best iterate.  On a Gram where every step lowers the residual, α is
-    the plain refinement's, bit for bit.  ``group`` is ignored, as in
-    :func:`cholesky_panels`."""
+                        block: int = 512, precision: str = "highest", refine_iters=None,
+                        family: str = "rbf", group=None) -> Tuple[Tensor, BlockedCholesky]:
+    """K = amp·k(X, X) + noise·I → blocked Cholesky → α = K⁻¹Y, the factor's
+    and the solves' products at ``precision``, followed by up to
+    ``refine_iters`` guarded steps of iterative refinement
+    (:meth:`BlockedCholesky.refined_solve`: the residual at "highest"; None:
+    1 below 32 panels, 2 from 32 up).  ``group`` is ignored, as in
+    :func:`cholesky_panels`.  The Gram's panels take no precision: they are
+    formed elementwise, with no product (JAX's accept one and leave it
+    unused)."""
+    check_precision(precision)
     panels, n = stationary_gram_panels(X, lengthscale, amplitude, noise, block, family)
-    chol = cholesky_panels(panels, n)
+    chol = cholesky_panels(panels, n, precision)
     squeeze = Y.dim() == 1
     Y2 = (Y[:, None] if squeeze else Y).to(panels[0].dtype)
-    alpha = chol.solve(Y2)
-    resid = Y2 - symmetric_matvec_panels(panels, alpha, n)
-    for _ in range(refine_steps(len(panels), refine_iters)):
-        step = alpha + chol.solve(resid)
-        step_resid = Y2 - symmetric_matvec_panels(panels, step, n)
-        keep = torch.linalg.vector_norm(step_resid, dim=0) < torch.linalg.vector_norm(resid, dim=0)
-        alpha = torch.where(keep, step, alpha)
-        resid = torch.where(keep, step_resid, resid)
+    alpha = chol.refined_solve(panels, Y2, refine_steps(len(panels), refine_iters), precision)
     return (alpha[:, 0] if squeeze else alpha), chol

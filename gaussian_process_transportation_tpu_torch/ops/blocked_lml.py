@@ -23,10 +23,14 @@ the factorization:
 
 θ = (log amplitude, log ℓ (one or D), log noise) of the
 C·stationary(+White) family, stationary ∈ {rbf, matern12, matern32,
-matern52}.  The products are ``torch.matmul`` in full float32 (TF32 stays
-off, see the package ``__init__``); the JAX package has a ``precision``
-argument for its TPU passes and the port has none.  On the card the work
-is float32, as the kernels take it; CPU tensors keep their dtype.
+matern52}.  The products run at ``precision`` (``ops.linalg``'s mapping,
+JAX's argument, "highest" by default): full float32 ``torch.matmul`` (TF32
+stays off, see the package ``__init__``), or bfloat16 passes on parts that
+are split once each (the factor's panels and L_kk⁻¹ by
+``cholesky_panels``, L and each finished block row of L⁻¹ here); α's
+residuals and the ααᵀ blocks stay in full float32, as in JAX.  On the card
+the work is float32, as the kernels take it; CPU tensors keep their dtype,
+and there every precision is that dtype's product.
 """
 from __future__ import annotations
 
@@ -42,8 +46,8 @@ from .blocked_chol import (
     refine_steps,
     stationary_from_sqdist,
     stationary_gram_panels,
-    symmetric_matvec_panels,
 )
+from .linalg import Split, check_precision, matmul_at, operand, reduced
 
 __all__ = [
     "blocked_lml_value", "blocked_lml_value_and_grad", "kinv_panels", "make_blocked_lml",
@@ -87,52 +91,70 @@ def _chunk_bounds(start: int, count: int, chunks: int) -> List[int]:
     return [start + round(count * t / C) for t in range(C + 1)]
 
 
-def _tri_inverse_dense(chol: BlockedCholesky, chunks: int) -> Tensor:
-    """L⁻¹ as a dense (Np, Np) lower-triangular matrix: block row i is
+def _tri_inverse_dense(chol: BlockedCholesky, chunks: int, precision: str):
+    """L⁻¹ as a dense (Np, Np) lower-triangular matrix T: block row i is
     −L_ii⁻¹·(L[i, :iB] @ T[:iB, :iB]), the product cut into ``chunks``
-    column ranges that each start at their first nonzero row of T."""
+    column ranges that each start at their first nonzero row of T.
+    Returns T and its product operand at ``precision`` (T itself, or its
+    parts, each block row split once as it is finished)."""
     B, P, Np = chol.block, len(chol.panels), chol.padded_n
     Ld = _dense_lower(chol.panels)
+    L_op = operand(Ld, precision)
+    linvs = chol.operands(precision)[1]
     T = Ld.new_zeros(Np, Np)
+    T_op = Split.zeros((Np, Np), precision, Ld.device) if reduced(Ld, precision) else T
     T[:B, :B] = chol.linvs[0]
-    for i in range(1, P):
-        Lrow = Ld[i * B:(i + 1) * B, : i * B]
-        bounds = _chunk_bounds(0, i, chunks)
-        acc = torch.cat([Lrow[:, c0 * B:] @ T[c0 * B:i * B, c0 * B:c1 * B]
-                         for c0, c1 in zip(bounds[:-1], bounds[1:]) if c1 > c0], dim=1)
-        T[i * B:(i + 1) * B, : i * B] = -(chol.linvs[i] @ acc)
-        T[i * B:(i + 1) * B, i * B:(i + 1) * B] = chol.linvs[i]
-    return T
+    for i in range(P):
+        rows = slice(i * B, (i + 1) * B)
+        if i:
+            Lrow = L_op[rows, : i * B]
+            bounds = _chunk_bounds(0, i, chunks)
+            acc = torch.cat([matmul_at(Lrow[:, c0 * B:], T_op[c0 * B:i * B, c0 * B:c1 * B],
+                                       precision)
+                             for c0, c1 in zip(bounds[:-1], bounds[1:]) if c1 > c0], dim=1)
+            T[rows, : i * B] = -matmul_at(linvs[i], acc, precision)
+            T[rows, rows] = chol.linvs[i]
+        if T_op is not T:
+            T_op.put((rows, slice(0, (i + 1) * B)), T[rows, : (i + 1) * B])
+    return T, T_op
 
 
 def _panels_of(dense: Tensor, B: int) -> List[Tensor]:
     return [dense[s * B:, s * B:(s + 1) * B] for s in range(dense.shape[0] // B)]
 
 
-def tri_inverse_panels(chol: BlockedCholesky, chunks: int = 6) -> List[Tensor]:
+def tri_inverse_panels(chol: BlockedCholesky, precision: str = "highest",
+                       chunks: int = 6) -> List[Tensor]:
     """L⁻¹ as lower-triangle column panels, the layout of ``chol.panels``
-    (views of one dense (Np, Np) buffer)."""
-    return _panels_of(_tri_inverse_dense(chol, chunks), chol.block)
+    (views of one dense (Np, Np) buffer); the products at ``precision``."""
+    check_precision(precision)
+    return _panels_of(_tri_inverse_dense(chol, chunks, precision)[0], chol.block)
 
 
-def _kinv_from_dense(Td: Tensor, B: int, chunks: int) -> List[Tensor]:
-    P = Td.shape[0] // B
+def _kinv_from_dense(T_op, B: int, chunks: int, precision: str) -> List[Tensor]:
+    P = T_op.shape[0] // B
     out = []
     for s in range(P):
         bounds = _chunk_bounds(s, P - s, chunks)
-        out.append(torch.cat([Td[r0 * B:, r0 * B:r1 * B].T @ Td[r0 * B:, s * B:(s + 1) * B]
+        out.append(torch.cat([matmul_at(T_op[r0 * B:, r0 * B:r1 * B].T,
+                                        T_op[r0 * B:, s * B:(s + 1) * B], precision)
                               for r0, r1 in zip(bounds[:-1], bounds[1:]) if r1 > r0], dim=0))
     return out
 
 
-def kinv_panels(chol: BlockedCholesky, tinv: Optional[Sequence[Tensor]] = None,
-                chunks: int = 6) -> List[Tensor]:
+def kinv_panels(chol: BlockedCholesky, precision: str = "highest",
+                tinv: Optional[Sequence[Tensor]] = None, chunks: int = 6) -> List[Tensor]:
     """K⁻¹ = L⁻ᵀL⁻¹ as lower-triangle column panels: column panel s, rows
     [r0·B, r1·B) of a chunk, is T[r0B:, r0B:r1B]ᵀ @ T[r0B:, sB:(s+1)B]
-    (the rows of T above r0·B are zero in those columns).  ``tinv``: the
-    panels of :func:`tri_inverse_panels`, computed here when None."""
-    Td = _tri_inverse_dense(chol, chunks) if tinv is None else _dense_lower(tinv)
-    return _kinv_from_dense(Td, chol.block, chunks)
+    (the rows of T above r0·B are zero in those columns), at ``precision``.
+    ``tinv``: the panels of :func:`tri_inverse_panels`, computed here when
+    None."""
+    check_precision(precision)
+    if tinv is None:
+        T_op = _tri_inverse_dense(chol, chunks, precision)[1]
+    else:
+        T_op = operand(_dense_lower(tinv), precision)
+    return _kinv_from_dense(T_op, chol.block, chunks, precision)
 
 
 def _pad_z(X: Tensor, ls: Tensor, Np: int) -> Tensor:
@@ -147,21 +169,21 @@ def _pad_z(X: Tensor, ls: Tensor, Np: int) -> Tensor:
 
 
 def _lml_forward(X: Tensor, Y2: Tensor, family: str, amp: Tensor, ls: Tensor, noise: Tensor,
-                 jitter: float, block: int, refine_iters: Optional[int]):
-    """Panels → factor → α with refinement → LML; returns (value, chol, α)."""
+                 jitter: float, block: int, refine_iters: Optional[int], precision: str):
+    """Panels → factor → α with guarded refinement
+    (``BlockedCholesky.refined_solve``) → LML; returns (value, chol, α)."""
+    check_precision(precision)
     n, p = X.shape[0], Y2.shape[1]
     panels, _ = stationary_gram_panels(X, ls, amp, noise + jitter, block, family)
-    chol = cholesky_panels(panels, n)
+    chol = cholesky_panels(panels, n, precision)
     Yf = Y2.to(panels[0].dtype)
-    alpha = chol.solve(Yf)
-    for _ in range(refine_steps(len(panels), refine_iters)):
-        alpha = alpha + chol.solve(Yf - symmetric_matvec_panels(panels, alpha, n))
+    alpha = chol.refined_solve(panels, Yf, refine_steps(len(panels), refine_iters), precision)
     val = -0.5 * (Yf * alpha).sum() - p * (0.5 * chol.logdet() + 0.5 * n * _LOG_2PI)
     return val, chol, alpha
 
 
 def _lml_gradient(X: Tensor, family: str, amp: Tensor, ls: Tensor, noise: Tensor,
-                  chol: BlockedCholesky, alpha: Tensor, p_out: int,
+                  chol: BlockedCholesky, alpha: Tensor, p_out: int, precision: str,
                   chunks: int = 6) -> Tuple[Tensor, Tensor, Tensor]:
     """(∂LML/∂log amp, ∂LML/∂log ℓ (D,), ∂LML/∂log σ²) by the trace identity.
 
@@ -170,7 +192,7 @@ def _lml_gradient(X: Tensor, family: str, amp: Tensor, ls: Tensor, noise: Tensor
     is rebuilt elementwise per panel from the padded scaled points."""
     n, D = X.shape
     B, P, Np = chol.block, len(chol.panels), chol.padded_n
-    kinv = kinv_panels(chol, chunks=chunks)
+    kinv = kinv_panels(chol, precision, chunks=chunks)
     Z = _pad_z(X, ls, Np)
     a_p = alpha.to(Z.dtype)
     if Np > n:
@@ -206,29 +228,32 @@ def _hyper(log_amp, log_ls, log_noise, like: Tensor):
 
 
 def blocked_lml_value_and_grad(X: Tensor, Y: Tensor, family: str, log_amp, log_ls, log_noise,
-                               jitter: float = 1e-6, block: int = 512,
+                               jitter: float = 1e-6, block: int = 512, precision: str = "highest",
                                refine_iters: Optional[int] = None):
     """(LML, (∂/∂log amp, ∂/∂log ℓ (D,), ∂/∂log σ²)) of the
     C·stationary(+White) GP on X (N, D), Y (N,) or (N, P), all blocked: about
     3·N³/3 product flops whatever the number of hyperparameters, plus
     O(N²·D) elementwise work.  The ℓ gradient is per input axis even for
-    one shared ℓ (sum it for the shared one).  ``refine_iters`` None takes
+    one shared ℓ (sum it for the shared one).  The products at
+    ``precision``.  ``refine_iters`` None takes
     ``blocked_chol.refine_steps``'s rule
     (1 below 32 panels, 2 from 32)."""
     Y2 = Y[:, None] if Y.dim() == 1 else Y
     amp, ls, noise = _hyper(log_amp, log_ls, log_noise, X)
-    val, chol, alpha = _lml_forward(X, Y2, family, amp, ls, noise, jitter, block, refine_iters)
-    return val, _lml_gradient(X, family, amp, ls, noise, chol, alpha, Y2.shape[1])
+    val, chol, alpha = _lml_forward(X, Y2, family, amp, ls, noise, jitter, block, refine_iters,
+                                    precision)
+    return val, _lml_gradient(X, family, amp, ls, noise, chol, alpha, Y2.shape[1], precision)
 
 
 def blocked_lml_value(X: Tensor, Y: Tensor, family: str, log_amp, log_ls, log_noise,
-                      jitter: float = 1e-6, block: int = 512,
+                      jitter: float = 1e-6, block: int = 512, precision: str = "highest",
                       refine_iters: Optional[int] = None) -> Tensor:
     """The value of :func:`blocked_lml_value_and_grad` alone (the same bits):
     the Gram's panels, the factor and the refined solve, no K⁻¹."""
     Y2 = Y[:, None] if Y.dim() == 1 else Y
     amp, ls, noise = _hyper(log_amp, log_ls, log_noise, X)
-    return _lml_forward(X, Y2, family, amp, ls, noise, jitter, block, refine_iters)[0]
+    return _lml_forward(X, Y2, family, amp, ls, noise, jitter, block, refine_iters,
+                        precision)[0]
 
 
 class _BlockedLML(torch.autograd.Function):
@@ -237,12 +262,12 @@ class _BlockedLML(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, log_amp, log_ls, log_noise, X, Y, config):
-        family, jitter, block, refine_iters = config
+        family, jitter, block, refine_iters, precision = config
         Y2 = Y[:, None] if Y.dim() == 1 else Y
         amp, ls, noise = _hyper(log_amp, log_ls, log_noise, X)
         val, chol, alpha = _lml_forward(X, Y2, family, amp, ls, noise, jitter, block,
-                                        refine_iters)
-        ctx.family, ctx.chol, ctx.p_out = family, chol, Y2.shape[1]
+                                        refine_iters, precision)
+        ctx.family, ctx.chol, ctx.p_out, ctx.precision = family, chol, Y2.shape[1], precision
         ctx.ls_shape, ctx.y_shape = log_ls.shape, Y.shape
         ctx.save_for_backward(log_amp, log_ls, log_noise, X, alpha)
         return val
@@ -252,7 +277,7 @@ class _BlockedLML(torch.autograd.Function):
         log_amp, log_ls, log_noise, X, alpha = ctx.saved_tensors
         amp, ls, noise = _hyper(log_amp, log_ls, log_noise, X)
         g_amp, g_ls, g_noise = _lml_gradient(X, ctx.family, amp, ls, noise, ctx.chol, alpha,
-                                             ctx.p_out)
+                                             ctx.p_out, ctx.precision)
         if log_ls.numel() == 1 and g_ls.shape[0] > 1:  # one ℓ shared by the D axes
             g_ls = g_ls.sum()
         gY = (-alpha * g).reshape(ctx.y_shape)
@@ -261,11 +286,12 @@ class _BlockedLML(torch.autograd.Function):
 
 
 def make_blocked_lml(family: str, jitter: float = 1e-6, block: int = 512,
-                     refine_iters: Optional[int] = None):
+                     precision: str = "highest", refine_iters: Optional[int] = None):
     """``lml(theta, X, Y) -> ()`` whose backward is the closed-form gradient
-    (no autograd through the factorization).  ``theta`` is the dict
+    (no autograd through the factorization), the products at
+    ``precision``.  ``theta`` is the dict
     ``{'log_amp': (), 'log_ls': () or (D,), 'log_noise': ()}`` of tensors."""
-    config = (family, jitter, block, refine_iters)
+    config = (family, jitter, block, refine_iters, check_precision(precision))
 
     def lml(theta, X: Tensor, Y: Tensor) -> Tensor:
         return _BlockedLML.apply(theta["log_amp"], theta["log_ls"], theta["log_noise"], X, Y,

@@ -15,21 +15,13 @@ plain PyTorch:
   factor, the PCG solve, and its relative residual for the caller to gate
   on.
 
-Precision names map onto this card per call, never through process-wide
-flags (``torch.backends.cuda.matmul.*`` and the float32 matmul precision
-stay as the package sets them):
-
-* ``"default"``: bfloat16 operands, the product kept in float32 (one
-  bfloat16 tensor-core pass, as the TPU's single MXU pass);
-* ``"high"``: three bfloat16 passes on a hi/lo split of each operand
-  (hi·hi + hi·lo + lo·hi), products in float32, about 16 bits of each
-  operand, as the TPU's HIGH;
-* ``"highest"``: float32.
-
-They apply to float32 CUDA tensors.  On the CPU, and in float64, every
-product is taken in the operands' dtype, as the JAX package's CPU backend
-ignores the precision; ``emulate_bf16`` rounds the trailing update's panel
-through bfloat16 first, so CPU runs see the card's error profile.
+Precision names are the package's one mapping, ``ops.linalg.matmul_at``:
+``"default"`` one bfloat16 pass, ``"high"`` three on a hi/lo split,
+``"highest"`` float32, for float32 CUDA tensors; on the CPU, and in float64,
+every product is taken in the operands' dtype, as the JAX package's CPU
+backend ignores the precision.  ``emulate_bf16`` rounds the trailing
+update's panel through bfloat16 first, so CPU runs see the card's error
+profile.
 
 The JAX package records this XLA-level blocked factor as slower than the
 built-in Cholesky, so none of these functions is a route of
@@ -45,31 +37,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from .linalg import add_diagonal, cholesky_with_jitter
-
-PRECISIONS = ("default", "high", "highest")
-
-
-def _bf16_mm(a: Tensor, b: Tensor) -> Tensor:
-    """a·b of bfloat16 operands with the product in float32 (CUDA)."""
-    return torch.mm(a, b, out_dtype=torch.float32)
-
-
-def _matmul(a: Tensor, b: Tensor, precision: str = "highest") -> Tensor:
-    """a·b of 2-D tensors at ``precision`` (the module's mapping): the
-    reduced precisions for float32 CUDA operands, the operands' dtype
-    otherwise."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    if precision == "highest" or a.device.type != "cuda" or a.dtype != torch.float32:
-        return a @ b
-    a_hi, b_hi = a.to(torch.bfloat16), b.to(torch.bfloat16)
-    out = _bf16_mm(a_hi, b_hi)
-    if precision == "high":
-        a_lo = (a - a_hi.to(a.dtype)).to(torch.bfloat16)
-        b_lo = (b - b_hi.to(b.dtype)).to(torch.bfloat16)
-        out = out + _bf16_mm(a_hi, b_lo) + _bf16_mm(a_lo, b_hi)
-    return out
+from .linalg import add_diagonal, cholesky_with_jitter, matmul_at
 
 
 def blocked_cholesky(K: Tensor, block: int = 1024, syrk_precision: str = "default",
@@ -97,7 +65,7 @@ def blocked_cholesky(K: Tensor, block: int = 1024, syrk_precision: str = "defaul
         L21 = torch.linalg.solve_triangular(Lkk, A[e:, s:e].T, upper=False).T
         L[e:, s:e] = L21
         P = L21.to(torch.bfloat16).to(L21.dtype) if emulate_bf16 else L21
-        A[e:, e:] -= _matmul(P, P.T, syrk_precision)
+        A[e:, e:] -= matmul_at(P, P.T, syrk_precision)
     return L[:n, :n]
 
 
@@ -112,8 +80,8 @@ def ir_solve(K: Tensor, L: Tensor, B: Tensor, sweeps: int = 3,
     (approximate) lower factor L; returns (x, ‖B − Kx‖_F / ‖B‖_F at x)."""
     x = _cho(L, B)
     for _ in range(sweeps):
-        x = x + _cho(L, B - _matmul(K, x, residual_precision))
-    r = B - _matmul(K, x, residual_precision)
+        x = x + _cho(L, B - matmul_at(K, x, residual_precision))
+    r = B - matmul_at(K, x, residual_precision)
     return x, torch.linalg.norm(r) / torch.clamp(torch.linalg.norm(B), min=1e-30)
 
 
@@ -129,7 +97,7 @@ def pcg_solve(K: Tensor, L: Tensor, B: Tensor, iters: int = 24,
     p = z
     rz = (r * z).sum(0)
     for _ in range(iters):
-        Kp = _matmul(K, p, residual_precision)
+        Kp = matmul_at(K, p, residual_precision)
         denom = (p * Kp).sum(0)
         # the guards' placeholders are 1, not a tiny literal that underflows in f32
         alpha = torch.where(denom > 0, rz / torch.where(denom > 0, denom, 1.0), 0.0)
@@ -140,7 +108,7 @@ def pcg_solve(K: Tensor, L: Tensor, B: Tensor, iters: int = 24,
         beta = torch.where(rz > 0, rz_new / torch.where(rz > 0, rz, 1.0), 0.0)
         p = z + beta * p
         rz = rz_new
-    resid = B - _matmul(K, x, residual_precision)
+    resid = B - matmul_at(K, x, residual_precision)
     rel = (torch.linalg.norm(resid, dim=0)
            / torch.clamp(torch.linalg.norm(B, dim=0), min=1e-30)).max()
     return x, rel

@@ -73,16 +73,18 @@ def hang():
 
 def sharded_cholesky_cases(cases):
     """Per case (X, Y, lengthscale, amplitude, noise, block, family, n_data,
-    b, and optionally ``jax``, a JAX factor's arrays): α, log det and a
-    solve of b through the factor; with ``jax``, the solve and log det
-    through the JAX factor carried into the port."""
+    b, and optionally ``precision`` and ``jax``, a JAX factor's arrays): α,
+    log det and a solve of b through the factor; with ``jax``, the solve
+    and log det through the JAX factor carried into the port."""
     out = []
     for c in cases:
         mesh = _mesh(c["n_data"])
         alpha, chol = sharded_gram_cholesky_solve(c["X"], c["Y"], c["lengthscale"],
                                                   c["amplitude"], c["noise"], mesh,
-                                                  block=c["block"], family=c["family"])
-        rec = dict(alpha=alpha, logdet=chol.logdet(), resolve=chol.solve(c["b"]))
+                                                  block=c["block"], family=c["family"],
+                                                  precision=c.get("precision", "highest"))
+        rec = dict(alpha=alpha, logdet=chol.logdet(),
+                   resolve=chol.solve(c["b"], c.get("precision", "highest")))
         if "jax" in c:
             carried = sharded_cholesky_from_jax(c["jax"], axis_of(mesh, "data").index, mesh,
                                                 dtype=c["X"].dtype, device="cpu")
@@ -93,26 +95,29 @@ def sharded_cholesky_cases(cases):
 
 def sharded_lml_cases(cases):
     """Per case (X, Y, family, log_amp, log_ls, log_noise, block, n_data,
-    and ``kind``): "value_and_grad" gives the value and gradient;
+    and ``kind``, optionally ``precision``): "value_and_grad" gives the
+    value and gradient;
     "autograd" the value and θ's gradients through ``make_sharded_lml``;
     "fit" ``fit_sharded``'s θ and trace (``kernel``, ``maxiter``)."""
     out = []
     for c in cases:
         mesh = _mesh(c["n_data"])
+        precision = c.get("precision", "highest")
         if c["kind"] == "value_and_grad":
             val, g = sharded_lml_value_and_grad(c["X"], c["Y"], c["family"], c["log_amp"],
                                                 c["log_ls"], c["log_noise"], mesh,
-                                                block=c["block"])
+                                                block=c["block"], precision=precision)
             out.append(dict(value=val, grad=g))
         elif c["kind"] == "autograd":
             theta = {k: c[k].clone().requires_grad_(True)
                      for k in ("log_amp", "log_ls", "log_noise")}
-            val = make_sharded_lml(c["family"], mesh, block=c["block"])(theta, c["X"], c["Y"])
+            val = make_sharded_lml(c["family"], mesh, block=c["block"],
+                                   precision=precision)(theta, c["X"], c["Y"])
             val.backward()
             out.append(dict(value=val, grad={k: t.grad for k, t in theta.items()}))
         else:
             _, theta, vals = fit_sharded(c["kernel"], c["X"], c["Y"], mesh, maxiter=c["maxiter"],
-                                         block=c["block"])
+                                         block=c["block"], precision=c.get("precision"))
             out.append(dict(theta=theta, vals=vals))
     return out
 

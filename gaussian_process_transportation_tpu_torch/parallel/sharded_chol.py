@@ -23,8 +23,12 @@ solution comes back replicated.
 
 JAX's ``fori_loop``, ``lax.switch`` and ``lax.cond`` (static shapes for
 one compiled program) become plain loops over the real heights.  The
-matrix products are ``torch.matmul`` in full float32 on the card (TF32 is
-off, see the package ``__init__``); CPU tensors keep their dtype.
+matrix products run at ``precision`` (``ops.linalg``'s mapping, JAX's
+argument, "highest" by default): full float32 on the card (TF32 is off,
+see the package ``__init__``), or bfloat16 passes on parts split once
+each (a step's ``below`` for every trailing update, a slot and its
+L_kk⁻¹ for every solve); CPU tensors keep their dtype, and there every
+precision is that dtype's product.
 ``mesh`` None runs the same algorithm in this process alone.
 """
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 from torch import Tensor
 
 from ..ops.blocked_chol import factor_panel
+from ..ops.linalg import Split, check_precision, matmul_at, operand, split_once
 from ..ops.blocked_lml import _pad_z
 from ..ops.pallas_gram import stationary_gram_plain
 from .mesh import MeshAxis, axis_of
@@ -68,9 +73,10 @@ def _local_gram_panels(Z: Tensor, ax: MeshAxis, block: int, P: int, amp, noise,
     return panels
 
 
-def _factor(work: List[Tensor], ax: MeshAxis, block: int, P: int, Np: int):
+def _factor(work: List[Tensor], ax: MeshAxis, block: int, P: int, Np: int, precision: str):
     """Right-looking factorization of the block-cyclic panels, in place:
-    ``work`` becomes this rank's slots of L; returns them and their L_kk⁻¹."""
+    ``work`` becomes this rank's slots of L; returns them and their L_kk⁻¹.
+    The products at ``precision``, ``below`` split once a step."""
     D, d, B = ax.size, ax.index, block
     linvs = []
     for k in range(P):
@@ -78,7 +84,8 @@ def _factor(work: List[Tensor], ax: MeshAxis, block: int, P: int, Np: int):
         G = work[jk] if owner == d else work[0].new_empty(Np - k * B, B)
         ax.broadcast(G, owner)
         Lkk, Linv = factor_panel(G[:B])
-        below = G[B:] @ Linv.T  # the triangular solve as a product
+        below = matmul_at(G[B:], Linv.T, precision)  # the triangular solve as a product
+        below_op = operand(below, precision)
         if owner == d:
             G[:B].copy_(Lkk)
             G[B:].copy_(below)
@@ -86,8 +93,11 @@ def _factor(work: List[Tensor], ax: MeshAxis, block: int, P: int, Np: int):
         for j in range(len(work)):
             r = (j * D + d - k) * B  # the slot's first row in panel k
             if r > 0:
-                Lb = below[r - B:]
-                work[j].addmm_(Lb, Lb[:B].T, alpha=-1.0)
+                Lb = below_op[r - B:]
+                if isinstance(Lb, Split):
+                    work[j].sub_(matmul_at(Lb, Lb[:B].T, precision))
+                else:
+                    work[j].addmm_(Lb, Lb[:B].T, alpha=-1.0)
     return work, linvs
 
 
@@ -110,6 +120,12 @@ class ShardedBlockedCholesky:
         self.mesh = mesh
         self.axis = axis
         self._ax = axis_of(mesh, axis)
+        self._operands = {}  # precision -> the slots' and L_kk⁻¹'s Splits
+
+    def operands(self, precision: str):
+        """(slots, L_kk⁻¹ list) as they enter products at ``precision``: the
+        tensors, or their parts, split once at the first reduced solve."""
+        return split_once(self._operands, precision, self.panels, self.linvs)
 
     @property
     def n_shards(self) -> int:
@@ -131,16 +147,17 @@ class ShardedBlockedCholesky:
             total = total + torch.where(k * B + rows < self.n, logs, torch.zeros_like(logs)).sum()
         return 2.0 * ax.all_reduce(total)
 
-    def _forward(self, b: Tensor) -> Tensor:
+    def _forward(self, b: Tensor, precision: str) -> Tensor:
         """y = L⁻¹ b for a replicated (Np, nrhs) b; one broadcast a panel."""
         ax, B = self._ax, self.block
+        panels, linvs = self.operands(precision)
         Np, P = b.shape[0], b.shape[0] // B
         rest, y = b.clone(), torch.empty_like(b)
         for k in range(P):
             owner, jk = k % ax.size, k // ax.size
             if owner == ax.index:
-                yk = self.linvs[jk] @ rest[k * B:(k + 1) * B]
-                contrib = torch.cat([yk, self.panels[jk][B:] @ yk])
+                yk = matmul_at(linvs[jk], rest[k * B:(k + 1) * B], precision)
+                contrib = torch.cat([yk, matmul_at(panels[jk][B:], yk, precision)])
             else:
                 contrib = b.new_empty(Np - k * B, b.shape[1])
             ax.broadcast(contrib, owner)
@@ -148,32 +165,35 @@ class ShardedBlockedCholesky:
             rest[(k + 1) * B:] -= contrib[B:]
         return y
 
-    def _backward(self, y: Tensor) -> Tensor:
+    def _backward(self, y: Tensor, precision: str) -> Tensor:
         """x = L⁻ᵀ y, replicated; one broadcast a panel."""
         ax, B = self._ax, self.block
+        panels, linvs = self.operands(precision)
         P = y.shape[0] // B
         x = torch.zeros_like(y)
         for k in reversed(range(P)):
             owner, jk = k % ax.size, k // ax.size
             if owner == ax.index:
-                s = y[k * B:(k + 1) * B] - self.panels[jk][B:].T @ x[(k + 1) * B:]
-                xk = self.linvs[jk].T @ s
+                s = y[k * B:(k + 1) * B] - matmul_at(panels[jk][B:].T, x[(k + 1) * B:],
+                                                     precision)
+                xk = matmul_at(linvs[jk].T, s, precision)
             else:
                 xk = y.new_empty(B, y.shape[1])
             ax.broadcast(xk, owner)
             x[k * B:(k + 1) * B] = xk
         return x
 
-    def solve_padded(self, b: Tensor) -> Tensor:
-        """(L Lᵀ)⁻¹ b for a replicated (Np, nrhs) b, (Np, nrhs)."""
-        return self._backward(self._forward(b))
+    def solve_padded(self, b: Tensor, precision: str = "highest") -> Tensor:
+        """(L Lᵀ)⁻¹ b for a replicated (Np, nrhs) b, (Np, nrhs), the products
+        at ``precision``."""
+        return self._backward(self._forward(b, precision), precision)
 
-    def solve(self, b: Tensor) -> Tensor:
+    def solve(self, b: Tensor, precision: str = "highest") -> Tensor:
         """(L Lᵀ)⁻¹ b for b (n,) or (n, nrhs): distributed blocked
-        substitution, replicated result."""
+        substitution at ``precision``, replicated result."""
         squeeze = b.dim() == 1
         b2 = (b[:, None] if squeeze else b).to(self.panels[0].dtype)
-        x = self.solve_padded(_pad_rows(b2, self.padded_n))[: self.n]
+        x = self.solve_padded(_pad_rows(b2, self.padded_n), precision)[: self.n]
         return x[:, 0] if squeeze else x
 
 
@@ -185,7 +205,7 @@ def _pad_rows(x: Tensor, rows: int) -> Tensor:
 
 
 def _factor_gram(X: Tensor, ls: Tensor, amp, noise, mesh, axis: str, block: int,
-                 family: str) -> Tuple[ShardedBlockedCholesky, Tensor]:
+                 family: str, precision: str) -> Tuple[ShardedBlockedCholesky, Tensor]:
     """The distributed factor of amp·k(X, X) + noise·I; returns it and the
     ℓ-scaled padded points."""
     ax = axis_of(mesh, axis)
@@ -193,7 +213,7 @@ def _factor_gram(X: Tensor, ls: Tensor, amp, noise, mesh, axis: str, block: int,
     Np, P = _plan(n, block, ax.size)
     Z = _pad_z(X, ls, Np)
     work = _local_gram_panels(Z, ax, block, P, amp, noise, family)
-    L, linvs = _factor(work, ax, block, P, Np)
+    L, linvs = _factor(work, ax, block, P, Np, check_precision(precision))
     return ShardedBlockedCholesky(L, linvs, n, block, mesh, axis), Z
 
 
@@ -207,6 +227,7 @@ def sharded_gram_cholesky_solve(
     axis: str = "data",
     block: int = 512,
     family: str = "rbf",
+    precision: str = "highest",
 ) -> Tuple[Tensor, ShardedBlockedCholesky]:
     """K = amp·k(X, X) + noise·I → distributed blocked Cholesky → α = K⁻¹Y.
 
@@ -214,8 +235,10 @@ def sharded_gram_cholesky_solve(
     passes the same.  Each rank builds only its own Gram panels (about
     Np²/(2D) entries), the factorization runs block-cyclically over the
     axis and α comes back on every rank.  The factor is returned for
-    further solves and log det.  On the card X is float32 (kernel #4 takes
-    it); CPU tensors keep their dtype.  ``block`` is a multiple of 128."""
+    further solves and log det.  The factor's and the solve's products run
+    at ``precision``, with no refinement, as JAX's.  On the card X is
+    float32 (kernel #4 takes it); CPU tensors keep their dtype.  ``block``
+    is a multiple of 128."""
     ls = torch.as_tensor(lengthscale, dtype=X.dtype, device=X.device).reshape(-1)
-    chol, _ = _factor_gram(X, ls, amplitude, noise, mesh, axis, block, family)
-    return chol.solve(Y), chol
+    chol, _ = _factor_gram(X, ls, amplitude, noise, mesh, axis, block, family, precision)
+    return chol.solve(Y, precision), chol

@@ -22,7 +22,10 @@ panels; X and Y are replicated.
 
 θ = (log amplitude, log ℓ (one or D), log noise) of the
 C·stationary(+White) family, stationary ∈ {rbf, matern12, matern32,
-matern52}.  ``mesh`` None runs the same algorithm in this process alone.
+matern52}.  The products run at ``precision`` (``ops.linalg``'s mapping,
+"highest" by default, as in JAX), each broadcast panel and each owned slot
+of T split once.  ``mesh`` None runs the same algorithm in this process
+alone.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch
 from torch import Tensor
 
 from ..ops.blocked_lml import _hyper, stationary_dk_dd2
+from ..ops.linalg import Split, check_precision, matmul_at, operand
 from ..ops.pallas_gram import stationary_from_sqdist
 from .mesh import MeshAxis, axis_of
 from .sharded_chol import ShardedBlockedCholesky, _factor_gram, _own, _pad_rows
@@ -42,7 +46,7 @@ __all__ = ["fit_sharded", "make_sharded_lml", "sharded_lml_value", "sharded_lml_
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
-def _tri_inverse(chol: ShardedBlockedCholesky) -> List[Tensor]:
+def _tri_inverse(chol: ShardedBlockedCholesky, precision: str) -> List[Tensor]:
     """T = L⁻¹ in the factor's layout: this rank's column panel s of T is
     (Np − s·B, B), rows s·B… (T is zero above them)."""
     ax, B = chol._ax, chol.block
@@ -61,36 +65,44 @@ def _tri_inverse(chol: ShardedBlockedCholesky) -> List[Tensor]:
             linv = T[0].new_empty(B, B)
         ax.broadcast(Lk, owner)
         ax.broadcast(linv, owner)
+        Lk_op, linv_op = operand(Lk, precision), operand(linv, precision)
         for j, s in enumerate(_own(ax, P)):
             if s > k:
                 break
             r = (k - s) * B  # panel k's rows in T's column panel s
-            yk = linv @ T[j][r:r + B]
+            yk = matmul_at(linv_op, T[j][r:r + B], precision)
             T[j][r:r + B] = yk
             if Lk.shape[0] > B:
-                T[j][r + B:].addmm_(Lk[B:], yk, alpha=-1.0)
+                if isinstance(Lk_op, Split):
+                    T[j][r + B:].sub_(matmul_at(Lk_op[B:], yk, precision))
+                else:
+                    T[j][r + B:].addmm_(Lk[B:], yk, alpha=-1.0)
     return T
 
 
 def _trace_gradient(T: List[Tensor], alpha: Tensor, Z: Tensor, ax: MeshAxis, block: int, n: int,
-                    p_out: int, amp: Tensor, noise: Tensor, family: str) -> Tensor:
+                    p_out: int, amp: Tensor, noise: Tensor, family: str,
+                    precision: str) -> Tensor:
     """(∂/∂log amp, ∂/∂log σ², ∂/∂log ℓ (D,)) as one vector, summed over the
     axis.  ``alpha`` (Np, p) and ``Z`` (Np, D), the ℓ-scaled padded points,
-    are replicated."""
+    are replicated; the K⁻¹ blocks' products at ``precision``."""
     B, (Np, nd) = block, Z.shape
     P = Np // B
     g = Z.new_zeros(2 + nd)
     idx = torch.arange(B, device=Z.device)
+    T_ops = [operand(t, precision) for t in T]
     for s in range(P):
         owner, js = s % ax.size, s // ax.size
         Ts = T[js] if owner == ax.index else T[0].new_empty(Np - s * B, B)
         ax.broadcast(Ts, owner)
+        Ts_op = T_ops[js] if owner == ax.index else operand(Ts, precision)
         a_s, cols = alpha[s * B:(s + 1) * B], Z[s * B:(s + 1) * B]
         for j, i in enumerate(_own(ax, P)):
             if i < s:
                 continue
             r = (i - s) * B
-            kinv = T[j].T @ Ts[r:]  # K⁻¹(i, s): rows of panel i, columns of panel s
+            # K⁻¹(i, s): rows of panel i, columns of panel s
+            kinv = matmul_at(T_ops[j].T, Ts_op[r:], precision)
             a_i = alpha[i * B:(i + 1) * B]
             real = ((i * B + idx)[:, None] < n) & ((s * B + idx)[None, :] < n)
             W = 0.5 * (a_i @ a_s.T - p_out * kinv) * (1.0 if i == s else 2.0)
@@ -106,38 +118,42 @@ def _trace_gradient(T: List[Tensor], alpha: Tensor, Z: Tensor, ax: MeshAxis, blo
 
 
 def _value(X: Tensor, Y2: Tensor, family: str, amp: Tensor, ls: Tensor, noise: Tensor,
-           jitter: float, mesh, axis: str, block: int):
+           jitter: float, mesh, axis: str, block: int, precision: str):
     """Panels → distributed factor → α → LML; (value, factor, α (Np, p), Z)."""
     n, p = X.shape[0], Y2.shape[1]
-    chol, Z = _factor_gram(X, ls, amp, noise + jitter, mesh, axis, block, family)
+    chol, Z = _factor_gram(X, ls, amp, noise + jitter, mesh, axis, block, family, precision)
     Yp = _pad_rows(Y2.to(Z.dtype), chol.padded_n)
-    alpha = chol.solve_padded(Yp)
+    alpha = chol.solve_padded(Yp, precision)
     val = -0.5 * (Yp * alpha).sum() - p * (0.5 * chol.logdet() + 0.5 * n * _LOG_2PI)
     return val, chol, alpha, Z
 
 
 def sharded_lml_value_and_grad(X: Tensor, Y: Tensor, family: str, log_amp, log_ls, log_noise,
                                mesh, axis: str = "data", block: int = 512,
-                               jitter: float = 1e-6):
+                               jitter: float = 1e-6, precision: str = "highest"):
     """(LML, (∂/∂log amp, ∂/∂log ℓ (D,), ∂/∂log σ²)), distributed over
     ``axis``: X (n, D) and Y (n,) or (n, p) replicated, every rank of the
     axis calls it and gets the same result.  The ℓ gradient is per input
-    axis even for one shared ℓ (sum it for the shared one)."""
+    axis even for one shared ℓ (sum it for the shared one).  The products
+    at ``precision``."""
     Y2 = Y[:, None] if Y.dim() == 1 else Y
     amp, ls, noise = _hyper(log_amp, log_ls, log_noise, X)
-    val, chol, alpha, Z = _value(X, Y2, family, amp, ls, noise, jitter, mesh, axis, block)
-    g = _trace_gradient(_tri_inverse(chol), alpha, Z, chol._ax, block, X.shape[0], Y2.shape[1],
-                        amp, noise, family)
+    val, chol, alpha, Z = _value(X, Y2, family, amp, ls, noise, jitter, mesh, axis, block,
+                                 check_precision(precision))
+    g = _trace_gradient(_tri_inverse(chol, precision), alpha, Z, chol._ax, block, X.shape[0],
+                        Y2.shape[1], amp, noise, family, precision)
     return val, (g[0], g[2:], g[1])
 
 
 def sharded_lml_value(X: Tensor, Y: Tensor, family: str, log_amp, log_ls, log_noise, mesh,
-                      axis: str = "data", block: int = 512, jitter: float = 1e-6) -> Tensor:
+                      axis: str = "data", block: int = 512, jitter: float = 1e-6,
+                      precision: str = "highest") -> Tensor:
     """The value of :func:`sharded_lml_value_and_grad` alone (the same
     bits): the factor, α and log det, no L⁻¹."""
     Y2 = Y[:, None] if Y.dim() == 1 else Y
     amp, ls, noise = _hyper(log_amp, log_ls, log_noise, X)
-    return _value(X, Y2, family, amp, ls, noise, jitter, mesh, axis, block)[0]
+    return _value(X, Y2, family, amp, ls, noise, jitter, mesh, axis, block,
+                  check_precision(precision))[0]
 
 
 class _ShardedLML(torch.autograd.Function):
@@ -148,12 +164,13 @@ class _ShardedLML(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, log_amp, log_ls, log_noise, X, Y, config):
-        family, mesh, axis, block, jitter = config
+        family, mesh, axis, block, jitter, precision = config
         Y2 = Y[:, None] if Y.dim() == 1 else Y
         amp, ls, noise = _hyper(log_amp, log_ls, log_noise, X)
-        val, chol, alpha, Z = _value(X, Y2, family, amp, ls, noise, jitter, mesh, axis, block)
-        g = _trace_gradient(_tri_inverse(chol), alpha, Z, chol._ax, block, X.shape[0],
-                            Y2.shape[1], amp, noise, family)
+        val, chol, alpha, Z = _value(X, Y2, family, amp, ls, noise, jitter, mesh, axis, block,
+                                     precision)
+        g = _trace_gradient(_tri_inverse(chol, precision), alpha, Z, chol._ax, block,
+                            X.shape[0], Y2.shape[1], amp, noise, family, precision)
         ctx.ls_shape, ctx.y_shape = log_ls.shape, Y.shape
         ctx.save_for_backward(g, alpha[: X.shape[0]], log_amp, log_ls, log_noise)
         return val
@@ -169,13 +186,13 @@ class _ShardedLML(torch.autograd.Function):
 
 
 def make_sharded_lml(family: str, mesh, axis: str = "data", block: int = 512,
-                     jitter: float = 1e-6):
+                     jitter: float = 1e-6, precision: str = "highest"):
     """``lml(theta, X, Y) -> ()`` with the closed-form gradient, distributed:
     ``make_blocked_lml``'s contract (``theta`` the dict of ``log_amp``,
     ``log_ls`` () or (D,), ``log_noise``), every rank of ``axis`` calling
     it.  The forward computes the gradient as well (JAX's custom VJP
     recomputes it; either way one factorization an evaluation)."""
-    config = (family, mesh, axis, block, jitter)
+    config = (family, mesh, axis, block, jitter, check_precision(precision))
 
     def lml(theta, X: Tensor, Y: Tensor) -> Tensor:
         return _ShardedLML.apply(theta["log_amp"], theta["log_ls"], theta["log_noise"], X, Y,
@@ -185,7 +202,7 @@ def make_sharded_lml(family: str, mesh, axis: str = "data", block: int = 512,
 
 
 def fit_sharded(kernel, X: Tensor, Y: Tensor, mesh, axis: str = "data", maxiter: int = 30,
-                block: int = 512, jitter: float = 1e-10):
+                block: int = 512, jitter: float = 1e-10, precision=None):
     """Distributed hyperparameter fit; returns (the fitted kernel, θ as the
     dict of ``log_amp``, ``log_ls`` (D,), ``log_noise``, the negative LML
     at the start of each iteration (maxiter,)).  Conditioning at the
@@ -201,7 +218,8 @@ def fit_sharded(kernel, X: Tensor, Y: Tensor, mesh, axis: str = "data", maxiter:
     does not factor), an iteration's first gradient with its non-finite
     entries set to 0, rows with NaN targets dropped.  Every rank computes
     the same values bit for bit, so every rank takes the same steps and
-    reads the same end of each line search.  The fitted kernel is
+    reads the same end of each line search.  ``precision`` None is
+    "highest", the JAX package's choice on every platform but a TPU.  The fitted kernel is
     Constant·base + White at the fitted values with the input nodes'
     bounds."""
     from ..kernels import Constant, Matern, RBF, White
@@ -231,7 +249,8 @@ def fit_sharded(kernel, X: Tensor, Y: Tensor, mesh, axis: str = "data", maxiter:
                     torch.log(torch.clamp(noise0, min=1e-8)).reshape(1)])[:, None]
     rows = [log_bounds(const_node)] + [log_bounds(base_node)] * D + [log_bounds(white_node)]
     lo, hi = torch.tensor(rows, **f32).T[:, :, None]
-    lml_kw = dict(mesh=mesh, axis=axis, block=block, jitter=_eff_jitter(torch.float32, jitter))
+    lml_kw = dict(mesh=mesh, axis=axis, block=block, jitter=_eff_jitter(torch.float32, jitter),
+                  precision=check_precision("highest" if precision is None else precision))
 
     def nll_and_grad(x: Tensor):
         th = x[:, 0]

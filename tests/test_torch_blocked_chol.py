@@ -287,7 +287,7 @@ def test_refine_iters_auto_rule(monkeypatch, panels, threshold, solves):
     calls = []
     real = tbc.BlockedCholesky.solve
     monkeypatch.setattr(tbc.BlockedCholesky, "solve",
-                        lambda self, b: calls.append(1) or real(self, b))
+                        lambda self, b, *args: calls.append(1) or real(self, b, *args))
     X = np.random.default_rng(10).standard_normal((128 * panels - 5, 2))
     tbc.gram_cholesky_solve(torch.as_tensor(X), torch.as_tensor(X), 1.0, 1.0, 0.1, block=128)
     assert len(calls) == solves
@@ -315,11 +315,11 @@ def test_refinement_keeps_a_step_only_where_it_lowers_the_residual(monkeypatch, 
     noise = 0.05
     real = tbc.cholesky_panels
     if factor == "diverging":
-        def shifted(panels, n, group=None):
+        def shifted(panels, n, precision="highest", group=None):
             moved = [p.clone() for p in panels]
             for p in moved:
                 p[:128].diagonal().sub_(0.9 * noise)
-            return real(moved, n)
+            return real(moved, n, precision)
         monkeypatch.setattr(tbc, "cholesky_panels", shifted)
     steps = 1 if factor == "exact" else 3
     alpha, chol = tbc.gram_cholesky_solve(X, Y, 1.0, 1.0, noise, block=128, refine_iters=steps)
@@ -354,3 +354,121 @@ def test_cpu_tensors_never_launch_the_kernel(monkeypatch):
     monkeypatch.setattr(tbc.factor_panel, "launches", 0)
     tbc.blocked_cholesky(torch.as_tensor(_spd(300)), block=128)
     assert tbc.factor_panel.launches == 0
+
+
+# ---- precision= (ops.linalg's mapping) ---------------------------------------
+
+PRECISIONS = ("default", "high")
+
+
+def _solve_case(dtype, n=300):
+    rng = np.random.default_rng(20)
+    X = torch.as_tensor(rng.standard_normal((n, 3)), dtype=dtype)
+    Y = torch.as_tensor(rng.standard_normal((n, 2)), dtype=dtype)
+    return X, Y, torch.tensor([1.5, 0.8, 1.2], dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_every_precision_is_highest_bit_for_bit_on_the_cpu(precision, dtype):
+    """As the JAX package's CPU backend ignores its precision: the solve,
+    the factor, its solves and the panel matvec equal "highest"'s bits."""
+    X, Y, ls = _solve_case(dtype)
+    a_hi, ch_hi = tbc.gram_cholesky_solve(X, Y, ls, 2.0, 0.1, block=128)
+    a_p, ch_p = tbc.gram_cholesky_solve(X, Y, ls, 2.0, 0.1, block=128, precision=precision)
+    assert torch.equal(a_p, a_hi) and torch.equal(ch_p.dense(), ch_hi.dense())
+    assert torch.equal(ch_hi.solve(Y, precision), ch_hi.solve(Y))
+    assert torch.equal(ch_hi.solve_lower(Y, precision), ch_hi.solve_lower(Y))
+    K = torch.as_tensor(_spd(300, seed=21), dtype=dtype)
+    assert torch.equal(tbc.blocked_cholesky(K, 128, precision).dense(),
+                       tbc.blocked_cholesky(K, 128).dense())
+    panels = tbc._split_panels(K, 128, 300)
+    assert torch.equal(tbc.symmetric_matvec_panels(panels, Y, 300, precision),
+                       tbc.symmetric_matvec_panels(panels, Y, 300))
+
+
+def test_an_unknown_precision_is_refused():
+    X, Y, ls = _solve_case(torch.float32)
+    with pytest.raises(ValueError, match="precision"):
+        tbc.gram_cholesky_solve(X, Y, ls, 2.0, 0.1, block=128, precision="HIGH")
+    ch = tbc.blocked_cholesky(torch.as_tensor(_spd(256, seed=22)), 128)
+    for call in (lambda: ch.solve(torch.ones(256, 1, dtype=torch.float64), "fast"),
+                 lambda: tbc.blocked_cholesky(torch.eye(256), 128, "fast"),
+                 lambda: tbc.symmetric_matvec_panels(ch.panels, torch.ones(256, 1), 256, "x")):
+        with pytest.raises(ValueError, match="precision"):
+            call()
+
+
+def test_the_hi_lo_split_is_16x_closer_than_one_pass():
+    """The card's "high" arithmetic (bf16 parts, float32 products), run on
+    CPU tensors through the helper: its relative error at 512² is at least
+    16x below one bfloat16 pass's."""
+    from gaussian_process_transportation_tpu_torch.ops import linalg as tlin
+
+    g = torch.Generator().manual_seed(23)
+    a, b = (torch.randn(512, 512, generator=g) for _ in range(2))
+    c64 = a.double() @ b.double()
+    err = {}
+    for p in PRECISIONS:
+        c = tlin.split_product(tlin.Split.of(a, p), tlin.Split.of(b, p))
+        err[p] = ((c.double() - c64).abs().max() / c64.abs().max()).item()
+    assert err["high"] * 16 <= err["default"]
+    assert err["high"] < 2.0**-14
+
+
+def test_jax_at_high_on_the_cpu_is_the_ports_high():
+    """JAX's solve and factor called with Precision.HIGH (its panel kernel in
+    interpret mode) against the port's "high", at the float32 tolerances of
+    the "highest" comparisons above."""
+    import jax
+
+    X, Y, ls = _solve_case(torch.float32)
+    HIGH = jax.lax.Precision.HIGH
+    ja, _ = jbc.gram_cholesky_solve(jnp.asarray(X.numpy()), jnp.asarray(Y.numpy()),
+                                    jnp.asarray(ls.numpy()), 2.0, 0.1, block=128,
+                                    precision=HIGH, interpret=True)
+    ta, _ = tbc.gram_cholesky_solve(X, Y, ls, 2.0, 0.1, block=128, precision="high")
+    assert _rel(ta, ja) < 2e-4
+    K = _spd(500, seed=24).astype(np.float32)
+    want = jbc.blocked_cholesky(jnp.asarray(K), block=128, precision=HIGH, interpret=True)
+    got = tbc.blocked_cholesky(torch.as_tensor(K), 128, "high")
+    assert _rel(got.dense(), want.dense()) < 1e-5
+    b = np.random.default_rng(25).standard_normal((500, 3)).astype(np.float32)
+    assert _rel(got.solve(torch.as_tensor(b), "high"), want.solve(jnp.asarray(b), HIGH)) < 1e-4
+
+
+def _emulate_reduced(monkeypatch, *modules):
+    """Takes the card's reduced-precision route for float32 CPU tensors too:
+    the factor split into bfloat16 parts as it goes, the products of the
+    parts widened to float32 (exact, as the card's tensor cores)."""
+    from gaussian_process_transportation_tpu_torch.ops import linalg as tlin
+
+    def reduced(a, precision):
+        return tlin.check_precision(precision) != "highest" and a.dtype == torch.float32
+
+    for m in (tlin,) + modules:
+        monkeypatch.setattr(m, "reduced", reduced)
+
+
+def test_the_split_route_solves_to_the_working_precision(monkeypatch):
+    """The split route of cholesky_panels and its solves, emulated on the
+    CPU at 600 points (five panels): at "high" the refined α is as near the
+    float64 solve as "highest"'s (2e-4) and its factor within 1e-4 of the
+    float64 factor; "default" (one pass) is farther from it or, as here,
+    loses definiteness (NaN, as on the card at phase 24's Gram), and a
+    "high" factor solves at "default" too."""
+    _emulate_reduced(monkeypatch, tbc)
+    X, Y, ls = _solve_case(torch.float32, 600)
+    a64 = np.linalg.solve(_dense_gram(X.double().numpy(), ls.double().numpy(), 2.0, "rbf")
+                          + 0.1 * np.eye(600), Y.double().numpy())
+    L64 = np.linalg.cholesky(_dense_gram(X.double().numpy(), ls.double().numpy(), 2.0, "rbf")
+                             + 0.1 * np.eye(600))
+    errs = {}
+    for p in ("highest", "high", "default"):
+        a, ch = tbc.gram_cholesky_solve(X, Y, ls, 2.0, 0.1, block=128, precision=p)
+        errs[p] = (_rel(a, a64), _rel(ch.dense(), L64))
+        assert (p == "highest") == (ch._operands == {})
+    assert errs["high"][0] < 2e-4 and errs["high"][1] < 1e-4
+    assert np.isnan(errs["default"][1]) or errs["default"][1] > 4 * errs["high"][1]
+    _, ch = tbc.gram_cholesky_solve(X, Y, ls, 2.0, 0.1, block=128, precision="high")
+    assert _rel(ch.solve(Y, "default"), a64) < 5e-2 and set(ch._operands) == {"high", "default"}

@@ -914,3 +914,49 @@ def test_gp_ds_rollout_step_reads_nothing_back(device, monkeypatch):
                                          "matern52")
     got = tpg.fused_gp_predict_mean_var(Xq, X, gp.alpha, gp.K_inv, ls, amp, prior, "matern52")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_the_high_precision_route_on_the_card(device, monkeypatch):
+    """precision="high" on float32 CUDA tensors (three bfloat16 passes on
+    parts split once, ops.linalg's mapping), n = 1000 in panels of 128: the
+    solve's α within 2e-4 of the f64 solve (its refinement step takes the
+    residual in float32; the bound of the CPU split-route test); the
+    blocked LML at "high" against the CPU's float32 one, the value to 1e-4
+    of its magnitude plus the N·P terms and each gradient entry to 1e-3 of
+    the largest (the CPU emulation's tolerances); the sharded solve in one
+    process, which has no refinement (as JAX's), within chip_smoke's bound
+    for the N=10240 solve's α, SOLVE_REL_TOL (phase 34's unrefined "high"
+    solve reads within it); 1 Gram launch and 8 factor_panel calls a
+    solve."""
+    from gaussian_process_transportation_tpu_torch.ops import blocked_lml as tbll
+    from gaussian_process_transportation_tpu_torch.parallel.sharded_chol import (
+        sharded_gram_cholesky_solve,
+    )
+
+    monkeypatch.setattr(tbc.factor_panel, "launches", 0)
+    monkeypatch.setattr(tbc.stationary_gram_panels, "launches", 0)
+    rng = np.random.default_rng(15)
+    X = rng.standard_normal((1000, 3)).astype(np.float32)
+    Y = (np.sin(X[:, :2]) + 0.1 * rng.standard_normal((1000, 2))).astype(np.float32)
+    Xd, Yd = torch.as_tensor(X, device=device), torch.as_tensor(Y, device=device)
+    ls = torch.ones(3, device=device)
+    alpha, chol = tbc.gram_cholesky_solve(Xd, Yd, ls, 2.0, 0.1, block=128, precision="high")
+    torch.cuda.synchronize()
+    assert tbc.stationary_gram_panels.launches == 1 and tbc.factor_panel.launches == 8
+    assert "high" in chol._operands
+    X64 = torch.as_tensor(X, dtype=torch.float64)
+    K64 = tpg.stationary_gram_plain(X64, X64, torch.ones(3, dtype=torch.float64), 2.0, "rbf")
+    a64 = torch.linalg.solve(K64 + 0.1 * torch.eye(1000, dtype=torch.float64),
+                             torch.as_tensor(Y, dtype=torch.float64))
+    rel = lambda a: ((a.double().cpu() - a64).abs().max() / a64.abs().max()).item()
+    assert rel(alpha) < 2e-4
+    args = ("rbf", 0.3, torch.tensor([0.1, -0.2, 0.4]), -3.0)
+    v_c, g_c = tbll.blocked_lml_value_and_grad(torch.as_tensor(X), torch.as_tensor(Y), *args,
+                                               block=128)
+    v_d, g_d = tbll.blocked_lml_value_and_grad(Xd, Yd, *args, block=128, precision="high")
+    assert abs(v_d.item() - v_c.item()) <= 1e-4 * (abs(v_c.item()) + 2000)
+    got = torch.cat([g_d[0].reshape(1), g_d[1], g_d[2].reshape(1)]).cpu()
+    want = torch.cat([g_c[0].reshape(1), g_c[1], g_c[2].reshape(1)])
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+    a_s, _ = sharded_gram_cholesky_solve(Xd, Yd, ls, 2.0, 0.1, None, block=128, precision="high")
+    assert rel(a_s) < chip_smoke.SOLVE_REL_TOL

@@ -282,3 +282,28 @@ ROUTE_CASES = [
 @pytest.mark.parametrize("args,want", ROUTE_CASES)
 def test_fused_predict_route(args, want):
     assert tgp.fused_predict_route(*args) == want
+
+
+def test_epistemic_std_is_clamped_at_zero():
+    """A float32 GP of 400 points with noise 1e-6: near the training points
+    the variance's float32 cancellation takes it below the noise level, so
+    sqrt(var) − sqrt(noise) is negative at some of them (as the JAX
+    package returns it); the port's epistemic std is that difference
+    clamped at 0, bit for bit, and no farther from float64 anywhere."""
+    rng = np.random.default_rng(0)
+    X = torch.as_tensor(rng.uniform(-3, 3, (400, 2)), dtype=torch.float32)
+    Y = torch.sin(X[:, :1]) * torch.cos(X[:, 1:])
+
+    def gp_of(dtype):
+        k = (TK.Constant(1.0) * TK.RBF(torch.tensor([0.7, 0.7], dtype=dtype))
+             + TK.White(1e-6))
+        return tgp.condition(k, X.to(dtype), Y.to(dtype),
+                             jitter=tgp._eff_jitter(torch.float32, 1e-10))
+
+    gp32, gp64 = gp_of(torch.float32), gp_of(torch.float64)
+    _, total = tgp.predict(gp32, X[:200], return_std=True)
+    raw = total - math.sqrt(1e-6)
+    _, std = tgp.predict(gp32, X[:200], return_std=True, epistemic_only=True)
+    _, std64 = tgp.predict(gp64, X[:200].double(), return_std=True, epistemic_only=True)
+    assert bool((raw < 0).any()) and torch.equal(std, torch.clamp(raw, min=0.0))
+    assert bool(((std.double() - std64).abs() <= (raw.double() - std64).abs()).all())

@@ -128,3 +128,37 @@ def test_fit_blocked_moves_from_the_large_n_start():
     tk = TK.Constant(2.0) * TK.RBF(torch.ones(3)) + TK.White(0.1)
     gp = tgp.fit_blocked(tk, torch.as_tensor(X), torch.as_tensor(Y), maxiter=10, block=B)
     assert _lml64(gp.kernel, X, Y) > _lml64(tk, X, Y) + 100.0
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_every_precision_fits_as_highest_on_the_cpu(precision):
+    """precision None is "highest" (JAX's choice off a TPU); on CPU tensors
+    every precision takes "highest"'s steps bit for bit, as JAX's CPU
+    backend ignores it."""
+    X, Y, jk = _case()
+    fit = lambda p: tgp.fit_blocked(kernel_from_tree(jk, torch.float32, "cpu"),
+                                    torch.as_tensor(X), torch.as_tensor(Y), maxiter=EARLY,
+                                    block=B, precision=p)
+    want = fit(None)
+    got = fit(precision)
+    assert torch.equal(got.kernel.theta, want.kernel.theta)
+    assert torch.equal(got.kernel.theta, fit("highest").kernel.theta)
+    assert torch.equal(got.alpha, want.alpha)
+
+
+def test_jax_at_high_takes_the_ports_high_steps():
+    """JAX's fit_blocked with Precision.HIGH against the port's "high", as
+    test_fit_blocked_takes_jaxs_first_steps holds "highest"; an unknown
+    name is refused."""
+    import jax
+
+    X, Y, jk = _case()
+    port = tgp.fit_blocked(kernel_from_tree(jk, torch.float32, "cpu"), torch.as_tensor(X),
+                           torch.as_tensor(Y), maxiter=EARLY, block=B, precision="high")
+    ref = jgp.fit_blocked(jk, jnp.asarray(X), jnp.asarray(Y), maxiter=EARLY, block=B,
+                          precision=jax.lax.Precision.HIGH, interpret=True)
+    want = kernel_from_tree(ref.kernel, device="cpu").theta.numpy()
+    np.testing.assert_allclose(port.kernel.theta.double().numpy(), want, rtol=0, atol=1e-3)
+    with pytest.raises(ValueError, match="precision"):
+        tgp.fit_blocked(kernel_from_tree(jk, torch.float32, "cpu"), torch.as_tensor(X),
+                        torch.as_tensor(Y), maxiter=1, block=B, precision="HIGH")

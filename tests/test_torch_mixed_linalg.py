@@ -14,6 +14,7 @@ from gaussian_process_transportation_tpu.ops import mixed_linalg as jmx
 from gaussian_process_transportation_tpu.ops.linalg import add_diagonal as jadd
 from gaussian_process_transportation_tpu_torch import ops as tops
 from gaussian_process_transportation_tpu_torch.convert import kernel_from_tree
+from gaussian_process_transportation_tpu_torch.ops import linalg as tlin
 from gaussian_process_transportation_tpu_torch.ops import mixed_linalg as tmx
 from gaussian_process_transportation_tpu_torch.ops.linalg import cho_solve_lower
 
@@ -116,11 +117,11 @@ def test_precisions_and_their_cpu_meaning():
     name is refused."""
     a = torch.randn(40, 30, generator=torch.Generator().manual_seed(0))
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
-    for p in tmx.PRECISIONS:
-        torch.testing.assert_close(tmx._matmul(a, a.T, p), a @ a.T, rtol=0, atol=0)
+    for p in tlin.PRECISIONS:
+        torch.testing.assert_close(tlin.matmul_at(a, a.T, p), a @ a.T, rtol=0, atol=0)
     assert (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()) == flags
     with pytest.raises(ValueError, match="precision"):
-        tmx._matmul(a, a.T, "fast")
+        tlin.matmul_at(a, a.T, "fast")
 
 
 def test_a_factor_that_is_not_definite_reads_nan():

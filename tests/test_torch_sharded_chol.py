@@ -78,6 +78,12 @@ def cases(jax_ref):
             for dtype in (torch.float32, torch.float64):
                 keys.append((n, family, n_data, dtype))
                 cases.append(_case(n, family, n_data, dtype))
+    # the (600, rbf) cases at the reduced precisions, which CPU tensors ignore
+    for precision in ("default", "high"):
+        for n_data in DATA:
+            for dtype in (torch.float32, torch.float64):
+                keys.append((600, "rbf", n_data, dtype, precision))
+                cases.append(dict(_case(600, "rbf", n_data, dtype), precision=precision))
     # the JAX factor (f32, D = 4) carried into the four ranks' port factors
     keys.append("carried")
     cases.append(_case(*JAX_CASE, JAX_D, torch.float64, jax_ref["factor"]))
@@ -125,3 +131,40 @@ def test_a_jax_factor_solves_through_the_ports_collectives(cases, jax_ref):
     for r in cases["carried"]:
         assert _rel(r["jax_solve"], ref["solve"]) < 1e-5
         assert abs(r["jax_logdet"].item() - ref["logdet"]) < 1e-6 * abs(ref["logdet"])
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_every_precision_is_highest_bit_for_bit_on_the_cpu(cases, precision):
+    """As JAX's CPU backend ignores its precision: α, log det and a solve
+    through the factor at ``precision`` are "highest"'s bits on every rank."""
+    for n_data in DATA:
+        for dtype in (torch.float32, torch.float64):
+            for o, w in zip(cases[(600, "rbf", n_data, dtype, precision)],
+                            cases[(600, "rbf", n_data, dtype)]):
+                assert all(torch.equal(o[k], w[k]) for k in ("alpha", "logdet", "resolve"))
+
+
+def test_the_split_route_in_one_process(monkeypatch):
+    """The card's split route of the sharded factor and solve (a step's
+    ``below`` split once for every trailing update, the slots and L_kk⁻¹
+    once for the solves), emulated on the CPU in one process at N = 600:
+    "high" α within 1e-3 of numpy's float64 solve (it has no refinement,
+    as JAX's; "highest" reads 5e-4 against it above), its log det within
+    1e-4; an unknown name is refused."""
+    from gaussian_process_transportation_tpu_torch.ops import linalg as tlin
+
+    def reduced(a, precision):
+        return tlin.check_precision(precision) != "highest" and a.dtype == torch.float32
+
+    monkeypatch.setattr(tlin, "reduced", reduced)
+    X, Y, b = _inputs(600)
+    a64, ld64, K = _f64_golden(X, Y, "rbf")
+    c = _case(600, "rbf", 1, torch.float32)
+    alpha, chol = sharded_gram_cholesky_solve(c["X"], c["Y"], c["lengthscale"], AMP, NOISE,
+                                              None, block=B, precision="high")
+    assert _rel(alpha, a64) < 1e-3
+    assert abs(chol.logdet().item() - ld64) < 1e-4 * abs(ld64)
+    assert _rel(chol.solve(c["b"], "high"), np.linalg.solve(K, b)) < 1e-3
+    with pytest.raises(ValueError, match="precision"):
+        sharded_gram_cholesky_solve(c["X"], c["Y"], c["lengthscale"], AMP, NOISE, None,
+                                    block=B, precision="HIGH")

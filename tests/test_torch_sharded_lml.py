@@ -101,6 +101,16 @@ def ranks():
         cases.append(dict(kind="fit", X=torch.as_tensor(X, dtype=torch.float32),
                           Y=torch.as_tensor(Y, dtype=torch.float32), kernel=_fit_kernel(),
                           block=B, n_data=2, maxiter=iters))
+    # the same cases at the reduced precisions, which CPU tensors ignore
+    for precision in ("default", "high"):
+        for n_data in (1, 2):
+            keys.append(("vg", n_data, torch.float32, precision))
+            cases.append(dict(cases[keys.index(("vg", n_data, torch.float32))],
+                              precision=precision))
+        keys.append(("autograd", precision))
+        cases.append(dict(cases[keys.index("autograd")], precision=precision))
+        keys.append(("fit_early", precision))
+        cases.append(dict(cases[keys.index("fit_early")], precision=precision))
     outs = _launch.launch(_programs.sharded_lml_cases, (cases,), nprocs=WORLD)
     return {k: [o[i] for o in outs] for i, k in enumerate(keys)}
 
@@ -199,3 +209,54 @@ def test_fit_sharded_takes_jaxs_first_steps(ranks, jax_fits):
     for o in outs:
         np.testing.assert_allclose(_theta_vec(o["theta"]).numpy(), want_theta, rtol=0, atol=1e-3)
         np.testing.assert_allclose(o["vals"].double().numpy(), want_vals, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_every_precision_is_highest_bit_for_bit_on_the_cpu(ranks, precision):
+    """As JAX's CPU backend ignores its precision: on every rank the value,
+    the gradient, make_sharded_lml's backward and fit_sharded's steps at
+    ``precision`` are "highest"'s bits."""
+    for n_data in (1, 2):
+        for o, w in zip(ranks[("vg", n_data, torch.float32, precision)],
+                        ranks[("vg", n_data, torch.float32)]):
+            assert torch.equal(o["value"], w["value"]) and all(map(torch.equal, o["grad"],
+                                                                   w["grad"]))
+    for o, w in zip(ranks[("autograd", precision)], ranks["autograd"]):
+        assert torch.equal(o["value"], w["value"])
+        assert all(torch.equal(o["grad"][k], w["grad"][k]) for k in w["grad"])
+    for o, w in zip(ranks[("fit_early", precision)], ranks["fit_early"]):
+        assert all(torch.equal(o["theta"][k], w["theta"][k]) for k in w["theta"])
+        assert torch.equal(o["vals"], w["vals"])
+
+
+def test_the_split_route_in_one_process(monkeypatch):
+    """The card's split route of the sharded LML (each broadcast panel and
+    owned slot of T split once), emulated on the CPU in one process: at
+    "high" the value within 1e-4 of (|v| + N·P) and the gradient within
+    1e-3 of its largest entry of the float64 LML (the tolerances of
+    test_torch_blocked_lml.py's split route); an unknown name is refused."""
+    from gaussian_process_transportation_tpu_torch.ops import linalg as tlin
+    from gaussian_process_transportation_tpu_torch.parallel.sharded_lml import (
+        sharded_lml_value_and_grad,
+    )
+
+    X, Y = _inputs()
+    t64 = _theta(torch.float64)
+    ref = _flat(*blocked_lml_value_and_grad(torch.as_tensor(X), torch.as_tensor(Y), FAMILY,
+                                            t64["log_amp"], t64["log_ls"], t64["log_noise"],
+                                            jitter=1e-6, block=B, refine_iters=0))
+
+    def reduced(a, precision):
+        return tlin.check_precision(precision) != "highest" and a.dtype == torch.float32
+
+    monkeypatch.setattr(tlin, "reduced", reduced)
+    t = _theta(torch.float32)
+    v, g = _flat(*sharded_lml_value_and_grad(
+        torch.as_tensor(X, dtype=torch.float32), torch.as_tensor(Y, dtype=torch.float32), FAMILY,
+        t["log_amp"], t["log_ls"], t["log_noise"], None, block=B, precision="high"))
+    assert abs(v - ref[0]) <= 1e-4 * (abs(ref[0]) + Y.size)
+    np.testing.assert_allclose(g, ref[1], rtol=0, atol=1e-3 * np.abs(ref[1]).max())
+    with pytest.raises(ValueError, match="precision"):
+        sharded_lml_value_and_grad(torch.as_tensor(X), torch.as_tensor(Y), FAMILY,
+                                   t64["log_amp"], t64["log_ls"], t64["log_noise"], None,
+                                   block=B, precision="HIGH")

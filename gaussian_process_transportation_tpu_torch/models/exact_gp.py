@@ -33,6 +33,7 @@ from ..ops import fused_lml, pallas_gram
 from ..ops.blocked_chol import BlockedCholesky, gram_cholesky_solve
 from ..ops.linalg import (add_diagonal, check_precision, cho_solve_lower, log_det_from_chol,
                           tri_solve_lower)
+from ..utils.logging_utils import span, spans_on, tally
 from ._lbfgs import lbfgs_minimize, negated_lml
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -564,11 +565,24 @@ def _lbfgs_elast(
     ``value_and_grad_b``).  ``value_b`` must give the values
     ``value_and_grad_b`` gives, bit for bit, or the path changes.  No host
     read.  Returns (x, value).  The JAX package runs it for
-    ``fit_ensemble_fused`` only, as the port does."""
+    ``fit_ensemble_fused`` only, as the port does.
+
+    While spans are on (``utils.logging_utils``) each iteration's
+    direction, search and update are spans on the host's clock alone (on an
+    H100 host a span with CUDA events took ~40 µs, one without ~3 µs, and
+    a fit of 30 iterations opens 91), and two
+    tallies go to ``collect()``: ``exact_gp.lbfgs.candidate_lanes``, the
+    lanes times the candidates, and ``exact_gp.lbfgs.useful_candidate_lanes``,
+    the lane-candidates evaluated before the lane met the Armijo test, the
+    one that met it included (a lane that has met it evaluates the same
+    point again).  A lane that met it at candidate j keeps t = 2⁻ʲ, one
+    that never did ends at 2^-max_backtrack, so the steps' exponents give
+    the count after the loop, with no read inside it."""
     if value_b is None:
         def value_b(x):
             return value_and_grad_b(x)[0]
     T, L = x0.shape
+    steps = [] if spans_on() else None  # each iteration's t, for the tally
 
     def dot(a, b):
         return (a * b).sum(0)
@@ -577,47 +591,58 @@ def _lbfgs_elast(
         return torch.minimum(torch.maximum(x, lower), upper)
 
     x = x0
-    v, g = value_and_grad_b(x0)
-    S = x0.new_zeros((m, T, L))
-    Yh = x0.new_zeros((m, T, L))
-    rho = x0.new_zeros((m, L))
+    with span("exact_gp.lbfgs.update"):
+        v, g = value_and_grad_b(x0)
+        S = x0.new_zeros((m, T, L))
+        Yh = x0.new_zeros((m, T, L))
+        rho = x0.new_zeros((m, L))
     for _ in range(maxiter):
-        q = g
-        alphas = []
-        for kk in range(m):
-            a = rho[kk] * dot(S[kk], q)
-            q = q - a[None, :] * Yh[kk]
-            alphas.append(a)
-        gamma = torch.where(rho[0] > 0.0,
-                            dot(S[0], Yh[0]) / torch.clamp(dot(Yh[0], Yh[0]), min=1e-30),
-                            torch.ones_like(rho[0]))
-        r = gamma[None, :] * q
-        for kk in reversed(range(m)):
-            b = rho[kk] * dot(Yh[kk], r)
-            r = r + S[kk] * (alphas[kk] - b)[None, :]
-        d = -r
-        d = torch.where((dot(d, g) < 0.0)[None, :], d, -g)  # else steepest descent
-        dg = torch.clamp(dot(d, g), max=-1e-30)
-        t = x0.new_ones(L)
-        for _ in range(max_backtrack):
-            v_try = value_b(clip(x + t[None, :] * d))
-            ok = v_try <= v + armijo_c * t * dg
-            t = torch.where(ok, t, 0.5 * t)
-        x_new = clip(x + t[None, :] * d)
-        v_new, g_new = value_and_grad_b(x_new)
-        # keep only steps that decreased (the last halving was not checked)
-        good = v_new <= v
-        x_new = torch.where(good[None, :], x_new, x)
-        g_new = torch.where(good[None, :], g_new, g)
-        v_new = torch.where(good, v_new, v)
-        s, yv = x_new - x, g_new - g
-        sy = dot(s, yv)
-        rho_new = torch.where(sy > 1e-12, 1.0 / torch.where(sy > 1e-12, sy, torch.ones_like(sy)),
-                              torch.zeros_like(sy))
-        S = torch.cat([s[None], S[:-1]], 0)
-        Yh = torch.cat([yv[None], Yh[:-1]], 0)
-        rho = torch.cat([rho_new[None], rho[:-1]], 0)
-        x, v, g = x_new, v_new, g_new
+        with span("exact_gp.lbfgs.direction"):
+            q = g
+            alphas = []
+            for kk in range(m):
+                a = rho[kk] * dot(S[kk], q)
+                q = q - a[None, :] * Yh[kk]
+                alphas.append(a)
+            gamma = torch.where(rho[0] > 0.0,
+                                dot(S[0], Yh[0]) / torch.clamp(dot(Yh[0], Yh[0]), min=1e-30),
+                                torch.ones_like(rho[0]))
+            r = gamma[None, :] * q
+            for kk in reversed(range(m)):
+                b = rho[kk] * dot(Yh[kk], r)
+                r = r + S[kk] * (alphas[kk] - b)[None, :]
+            d = -r
+            d = torch.where((dot(d, g) < 0.0)[None, :], d, -g)  # else steepest descent
+            dg = torch.clamp(dot(d, g), max=-1e-30)
+        with span("exact_gp.lbfgs.search"):
+            t = x0.new_ones(L)
+            for _ in range(max_backtrack):
+                v_try = value_b(clip(x + t[None, :] * d))
+                ok = v_try <= v + armijo_c * t * dg
+                t = torch.where(ok, t, 0.5 * t)
+            if steps is not None:
+                steps.append(t)
+        with span("exact_gp.lbfgs.update"):
+            x_new = clip(x + t[None, :] * d)
+            v_new, g_new = value_and_grad_b(x_new)
+            # keep only steps that decreased (the last halving was not checked)
+            good = v_new <= v
+            x_new = torch.where(good[None, :], x_new, x)
+            g_new = torch.where(good[None, :], g_new, g)
+            v_new = torch.where(good, v_new, v)
+            s, yv = x_new - x, g_new - g
+            sy = dot(s, yv)
+            rho_new = torch.where(sy > 1e-12,
+                                  1.0 / torch.where(sy > 1e-12, sy, torch.ones_like(sy)),
+                                  torch.zeros_like(sy))
+            S = torch.cat([s[None], S[:-1]], 0)
+            Yh = torch.cat([yv[None], Yh[:-1]], 0)
+            rho = torch.cat([rho_new[None], rho[:-1]], 0)
+            x, v, g = x_new, v_new, g_new
+    if steps:  # t = 2^-j has frexp's exponent 1 - j: j + 1 candidates, at most max_backtrack
+        useful = torch.clamp(2 - torch.frexp(torch.stack(steps)).exponent, max=max_backtrack)
+        tally("exact_gp.lbfgs.useful_candidate_lanes", useful.sum())  # held until collect()
+        tally("exact_gp.lbfgs.candidate_lanes", useful.numel() * max_backtrack)
     return x, v
 
 
@@ -643,52 +668,53 @@ def fit_ensemble_fused(
     seed 0 when None).  Work is in float32, as in the kernel.  Returns
     (thetas (E, n_theta) in ``kernel.theta`` order, LML (E,)).  Needs the
     C·stationary(+White) family and n ≤ 32."""
-    layout = small_lml_theta_layout(kernel)
-    if layout is None:
-        raise ValueError("fit_ensemble_fused needs the C·stationary(+White) family")
-    family, n_ls, has_noise, perm_np = layout
-    E, n, D = Xe.shape
-    Ye3 = Ye[:, :, None] if Ye.dim() == 2 else Ye
-    device = Xe.device
-    perm = torch.as_tensor(perm_np, device=device)
-    inv_perm = torch.as_tensor(np.argsort(perm_np), device=device)
-    f32 = dict(dtype=torch.float32, device=device)
-    bounds = kernel.theta_bounds.to(**f32)
-    lo, hi = bounds[:, 0], bounds[:, 1]
-    T = lo.shape[0]
-    R = n_restarts + 1
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    u = torch.rand((E, n_restarts, T), generator=generator, **f32)
-    starts = torch.cat([kernel.theta.to(**f32).expand(E, 1, T), lo + u * (hi - lo)], 1)
-    x0 = starts.reshape(E * R, T)[:, perm].T.contiguous()  # (T, L), member-major lanes
+    with span("exact_gp.fit_ensemble", Xe.device):
+        layout = small_lml_theta_layout(kernel)
+        if layout is None:
+            raise ValueError("fit_ensemble_fused needs the C·stationary(+White) family")
+        family, n_ls, has_noise, perm_np = layout
+        E, n, D = Xe.shape
+        Ye3 = Ye[:, :, None] if Ye.dim() == 2 else Ye
+        device = Xe.device
+        perm = torch.as_tensor(perm_np, device=device)
+        inv_perm = torch.as_tensor(np.argsort(perm_np), device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        bounds = kernel.theta_bounds.to(**f32)
+        lo, hi = bounds[:, 0], bounds[:, 1]
+        T = lo.shape[0]
+        R = n_restarts + 1
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        u = torch.rand((E, n_restarts, T), generator=generator, **f32)
+        starts = torch.cat([kernel.theta.to(**f32).expand(E, 1, T), lo + u * (hi - lo)], 1)
+        x0 = starts.reshape(E * R, T)[:, perm].T.contiguous()  # (T, L), member-major lanes
 
-    Xe_t = Xe.to(torch.float32).repeat_interleave(R, 0).contiguous()
-    Ye_t = Ye3.to(torch.float32).repeat_interleave(R, 0).contiguous()
+        Xe_t = Xe.to(torch.float32).repeat_interleave(R, 0).contiguous()
+        Ye_t = Ye3.to(torch.float32).repeat_interleave(R, 0).contiguous()
 
-    lml_kw = dict(family=family, n_ls=n_ls, has_noise=has_noise, jitter=jitter)
+        lml_kw = dict(family=family, n_ls=n_ls, has_noise=has_noise, jitter=jitter)
 
-    def nll(val):
-        v = -val
-        bad = ~torch.isfinite(v)
-        return torch.where(bad, torch.full_like(v, 1e25), v), bad
+        def nll(val):
+            v = -val
+            bad = ~torch.isfinite(v)
+            return torch.where(bad, torch.full_like(v, 1e25), v), bad
 
-    def nll_b(th):
-        val, grad = fused_lml.small_lml_value_grad_md(Xe_t, Ye_t, th.contiguous(), **lml_kw)
-        v, bad = nll(val)
-        g = torch.where(torch.isfinite(grad) & ~bad[None, :], -grad, torch.zeros_like(grad))
-        return v, g
+        def nll_b(th):
+            val, grad = fused_lml.small_lml_value_grad_md(Xe_t, Ye_t, th.contiguous(), **lml_kw)
+            v, bad = nll(val)
+            g = torch.where(torch.isfinite(grad) & ~bad[None, :], -grad, torch.zeros_like(grad))
+            return v, g
 
-    def nll_value_b(th):  # the line search's candidates: the same values, no gradient
-        return nll(fused_lml._small_lml_value_md(Xe_t, Ye_t, th.contiguous(), **lml_kw))[0]
+        def nll_value_b(th):  # the line search's candidates: the same values, no gradient
+            return nll(fused_lml._small_lml_value_md(Xe_t, Ye_t, th.contiguous(), **lml_kw))[0]
 
-    x, v = _lbfgs_elast(nll_b, x0, lo[perm][:, None], hi[perm][:, None], maxiter,
-                        value_b=nll_value_b)
-    v_er = v.reshape(E, R)
-    best = v_er.argmin(1)
-    x_er = x.T.reshape(E, R, T)
-    th_best = x_er[torch.arange(E, device=device), best]
-    return th_best[:, inv_perm], -v_er[torch.arange(E, device=device), best]
+        x, v = _lbfgs_elast(nll_b, x0, lo[perm][:, None], hi[perm][:, None], maxiter,
+                            value_b=nll_value_b)
+        v_er = v.reshape(E, R)
+        best = v_er.argmin(1)
+        x_er = x.T.reshape(E, R, T)
+        th_best = x_er[torch.arange(E, device=device), best]
+        return th_best[:, inv_perm], -v_er[torch.arange(E, device=device), best]
 
 
 def fit_jit(

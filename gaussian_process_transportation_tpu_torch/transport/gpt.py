@@ -43,6 +43,7 @@ from ..ops import quaternion as quat
 from ..ops.batched_linalg import spd_inverse_elast_auto
 from ..ops.fused_lml import MAX_N as FUSED_LML_MAX_N
 from ..ops.linalg import tri_solve_lower
+from ..utils.logging_utils import span
 from .core import PolicyTransport
 
 
@@ -158,54 +159,58 @@ def transport_apply(
     Without a cached K⁻¹ the variances come from forward substitution with
     the GP's factor, dense or blocked; the blocked one takes the Jacobian's
     D directions as one (N, D·Q) right-hand side."""
-    kernel = gp.kernel
-    pos = affine_core.predict(aff, traj)  # (..., Q, D)
-    Jg = aff.scale[..., None, None] * aff.rotation  # J_γ = s·R, (..., D, D)
+    dev = traj.device
+    with span("gpt.apply", dev):
+        kernel = gp.kernel
+        with span("gpt.apply.posterior", dev):
+            pos = affine_core.predict(aff, traj)  # (..., Q, D)
+            Jg = aff.scale[..., None, None] * aff.rotation  # J_γ = s·R, (..., D, D)
 
-    # posterior mean and epistemic std
-    kT = kernel(gp.X, pos)  # (..., N, Q)
-    meanT = gp.alpha.transpose(-1, -2) @ kT  # (..., P, Q)
-    if gp.K_inv is not None:
-        var = kernel.diag(pos) - ((gp.K_inv @ kT) * kT).sum(-2)  # (..., Q)
-    else:
-        V = gp_core._solve_lower_any(gp, kT)  # (..., N, Q)
-        var = kernel.diag(pos) - (V * V).sum(-2)
-    std_q = torch.sqrt(torch.clamp(var, min=0.0)) - gp_core._noise_std(kernel, var)
-    traj_new = pos + meanT.transpose(-1, -2)
-    std = std_q[..., None].expand(traj_new.shape)
+            # posterior mean and epistemic std
+            kT = kernel(gp.X, pos)  # (..., N, Q)
+            meanT = gp.alpha.transpose(-1, -2) @ kT  # (..., P, Q)
+            if gp.K_inv is not None:
+                var = kernel.diag(pos) - ((gp.K_inv @ kT) * kT).sum(-2)  # (..., Q)
+            else:
+                V = gp_core._solve_lower_any(gp, kT)  # (..., N, Q)
+                var = kernel.diag(pos) - (V * V).sum(-2)
+            std_q = torch.sqrt(torch.clamp(var, min=0.0)) - gp_core._noise_std(kernel, var)
+            traj_new = pos + meanT.transpose(-1, -2)
+            std = std_q[..., None].expand(traj_new.shape)
 
-    # Jacobian posterior
-    dkT = kernel.dxT(pos, gp.X)  # (..., D, N, Q)
-    JpsiT = torch.einsum("...np,...dnq->...pdq", gp.alpha, dkT)  # (..., P, D, Q)
-    if gp.K_inv is not None:
-        quadT = ((gp.K_inv[..., None, :, :] @ dkT) * dkT).sum(-2)  # (..., D, Q)
-    elif gp.chol is not None:
-        D_, N_, Q_ = dkT.shape
-        Vd = gp.chol.solve_lower(dkT.transpose(0, 1).reshape(N_, D_ * Q_))  # (N, D·Q)
-        quadT = (Vd * Vd).reshape(N_, D_, Q_).sum(0)
-    else:
-        Vd = tri_solve_lower(gp.L[..., None, :, :], dkT)  # (..., D, N, Q)
-        quadT = (Vd * Vd).sum(-2)
-    JvarT = kernel.dxdz_diag(pos).transpose(-1, -2) - quadT  # (..., D, Q)
+        with span("gpt.apply.jacobian", dev):
+            # Jacobian posterior
+            dkT = kernel.dxT(pos, gp.X)  # (..., D, N, Q)
+            JpsiT = torch.einsum("...np,...dnq->...pdq", gp.alpha, dkT)  # (..., P, D, Q)
+            if gp.K_inv is not None:
+                quadT = ((gp.K_inv[..., None, :, :] @ dkT) * dkT).sum(-2)  # (..., D, Q)
+            elif gp.chol is not None:
+                D_, N_, Q_ = dkT.shape
+                Vd = gp.chol.solve_lower(dkT.transpose(0, 1).reshape(N_, D_ * Q_))  # (N, D·Q)
+                quadT = (Vd * Vd).reshape(N_, D_, Q_).sum(0)
+            else:
+                Vd = tri_solve_lower(gp.L[..., None, :, :], dkT)  # (..., D, N, Q)
+                quadT = (Vd * Vd).sum(-2)
+            JvarT = kernel.dxdz_diag(pos).transpose(-1, -2) - quadT  # (..., D, Q)
 
-    # J_Φ = J_γ + J_Ψ J_γ, and the diffeomorphism diagnostic min|det J_Φ|
-    JphiT = Jg[..., None] + torch.einsum("...peq,...ed->...pdq", JpsiT, Jg)
-    Jphi = JphiT.movedim(-1, -3)  # (..., Q, P, D)
-    min_abs_det = _det_small(Jphi).abs().amin(dim=-1)
+        with span("gpt.apply.pushforward", dev):
+            # J_Φ = J_γ + J_Ψ J_γ, and the diffeomorphism diagnostic min|det J_Φ|
+            JphiT = Jg[..., None] + torch.einsum("...peq,...ed->...pdq", JpsiT, Jg)
+            Jphi = JphiT.movedim(-1, -3)  # (..., Q, P, D)
+            min_abs_det = _det_small(Jphi).abs().amin(dim=-1)
 
-    # velocity and velocity-variance push-forward
-    wT = Jg @ delta.transpose(-1, -2)  # (..., D, Q) = (J_γ v)ᵀ
-    delta_newT = wT + torch.einsum("...pdq,...dq->...pq", JpsiT, wT)
-    dvar_q = (JvarT * wT**2).sum(-2)  # (..., Q), the same for every output
-    delta_var = dvar_q[..., None].expand(traj_new.shape)
+            # velocity and velocity-variance push-forward
+            wT = Jg @ delta.transpose(-1, -2)  # (..., D, Q) = (J_γ v)ᵀ
+            delta_newT = wT + torch.einsum("...pdq,...dq->...pq", JpsiT, wT)
+            dvar_q = (JvarT * wT**2).sum(-2)  # (..., Q), the same for every output
+            delta_var = dvar_q[..., None].expand(traj_new.shape)
 
-    ori_new = None
-    if ori is not None:
-        if Jphi.shape[-2:] != (3, 3):
-            raise ValueError(
-                f"Orientation transport requires a 3-D map; J_Φ is {tuple(Jphi.shape[-2:])}"
-            )
-        ori_new = quat.multiply(quat.from_rotation_matrix_iter(Jphi), ori)
+            ori_new = None
+            if ori is not None:
+                if Jphi.shape[-2:] != (3, 3):
+                    raise ValueError("Orientation transport requires a 3-D map; "
+                                     f"J_Φ is {tuple(Jphi.shape[-2:])}")
+                ori_new = quat.multiply(quat.from_rotation_matrix_iter(Jphi), ori)
 
     return TransportResult(traj_new, std, delta_newT.transpose(-1, -2), delta_var,
                            min_abs_det, ori_new)
@@ -247,6 +252,62 @@ BLOCKED_MIN_N = 2500
 BLOCKED_PANEL = 512
 
 
+def _affine_batched(source_distribution: Tensor, target_distributions: Tensor,
+                    do_scale: bool, do_rotation: bool):
+    """The batched Kabsch fit of the source onto each of E targets, the
+    aligned sources (E, n, d) and the residuals the GP conditions on."""
+    with span("gpt.affine", target_distributions.device):
+        aff_b = affine_core.fit_batched(
+            source_distribution, target_distributions, do_scale=do_scale, do_rotation=do_rotation
+        )
+        src_al = affine_core.predict(aff_b, source_distribution)  # (E, n, d)
+        return aff_b, src_al, target_distributions - src_al
+
+
+def _condition_batched(kernel: K.Kernel, src_al: Tensor, delta_b: Tensor,
+                       jitter: float) -> gp_core.ExactGP:
+    """E residual GPs of n ≤ 64 points each (a kernel with per-member
+    hyperparameters or one shared): the E Grams with the jitter, one
+    Cholesky/inverse launch over all of them, and α = K⁻¹Δ."""
+    n = src_al.shape[-2]
+    with span("gpt.condition", src_al.device):
+        eff = gp_core._eff_jitter(src_al.dtype, jitter)
+        K_b = kernel(src_al) + eff * torch.eye(n, dtype=src_al.dtype, device=src_al.device)
+        L_e, Kinv_e = spd_inverse_elast_auto(K_b.permute(1, 2, 0).contiguous())  # (n, n, E)
+        Kinv_b = Kinv_e.permute(2, 0, 1)
+        return gp_core.ExactGP(
+            kernel=kernel, X=src_al, Y=delta_b, alpha=Kinv_b @ delta_b, L=L_e.permute(2, 0, 1),
+            K_inv=Kinv_b, jitter=jitter,
+        )
+
+
+def _transport_members(kernel, source_distribution, target_distributions, traj, delta,
+                       do_scale, do_rotation, jitter, ori) -> TransportResult:
+    """``fit_and_transport_batched`` above ``BATCHED_MAX_N``: one member at
+    a time, through ``condition_blocked`` from ``BLOCKED_MIN_N`` with a
+    stationary kernel, else through ``fit_and_transport``."""
+    n = source_distribution.shape[0]
+    blocked = n >= BLOCKED_MIN_N and gp_core.stationary_family_params(kernel) is not None
+
+    def member(tgt):
+        if not blocked:
+            return fit_and_transport(
+                kernel, source_distribution, tgt, traj, delta,
+                do_scale=do_scale, do_rotation=do_rotation, jitter=jitter, ori=ori,
+            )
+        aff = affine_core.fit(source_distribution, tgt,
+                              do_scale=do_scale, do_rotation=do_rotation)
+        src_al = affine_core.predict(aff, source_distribution)
+        gp = gp_core.condition_blocked(kernel, src_al, tgt - src_al, jitter=jitter,
+                                       block=BLOCKED_PANEL)
+        return transport_apply(aff, gp, traj, delta, ori=ori)
+
+    results = [member(tgt) for tgt in target_distributions]
+    return TransportResult(*(
+        None if field[0] is None else torch.stack(field) for field in zip(*results)
+    ))
+
+
 def fit_and_transport_batched(
     kernel: K.Kernel,
     source_distribution: Tensor,
@@ -271,44 +332,14 @@ def fit_and_transport_batched(
     panel on the card) and ``transport_apply`` without K⁻¹, below that
     through the dense ``fit_and_transport``."""
     n, d = source_distribution.shape
-    if n > BATCHED_MAX_N:
-        blocked = n >= BLOCKED_MIN_N and gp_core.stationary_family_params(kernel) is not None
-
-        def member(tgt):
-            if not blocked:
-                return fit_and_transport(
-                    kernel, source_distribution, tgt, traj, delta,
-                    do_scale=do_scale, do_rotation=do_rotation, jitter=jitter, ori=ori,
-                )
-            aff = affine_core.fit(source_distribution, tgt,
-                                  do_scale=do_scale, do_rotation=do_rotation)
-            src_al = affine_core.predict(aff, source_distribution)
-            gp = gp_core.condition_blocked(kernel, src_al, tgt - src_al, jitter=jitter,
-                                           block=BLOCKED_PANEL)
-            return transport_apply(aff, gp, traj, delta, ori=ori)
-
-        results = [member(tgt) for tgt in target_distributions]
-        return TransportResult(*(
-            None if field[0] is None else torch.stack(field) for field in zip(*results)
-        ))
-
-    aff_b = affine_core.fit_batched(
-        source_distribution, target_distributions, do_scale=do_scale, do_rotation=do_rotation
-    )
-    src_al = affine_core.predict(aff_b, source_distribution)  # (E, n, d)
-    delta_b = target_distributions - src_al
-
-    eff = gp_core._eff_jitter(src_al.dtype, jitter)
-    K_b = kernel(src_al) + eff * torch.eye(n, dtype=src_al.dtype, device=src_al.device)
-    L_e, Kinv_e = spd_inverse_elast_auto(K_b.permute(1, 2, 0).contiguous())  # (n, n, E)
-    L_b = L_e.permute(2, 0, 1)
-    Kinv_b = Kinv_e.permute(2, 0, 1)
-    alpha_b = Kinv_b @ delta_b
-
-    gp = gp_core.ExactGP(
-        kernel=kernel, X=src_al, Y=delta_b, alpha=alpha_b, L=L_b, K_inv=Kinv_b, jitter=jitter
-    )
-    return transport_apply(aff_b, gp, traj, delta, ori=ori)
+    with span("gpt.transport_batched", target_distributions.device):
+        if n > BATCHED_MAX_N:
+            return _transport_members(kernel, source_distribution, target_distributions, traj,
+                                      delta, do_scale, do_rotation, jitter, ori)
+        aff_b, src_al, delta_b = _affine_batched(source_distribution, target_distributions,
+                                                 do_scale, do_rotation)
+        gp = _condition_batched(kernel, src_al, delta_b, jitter)
+        return transport_apply(aff_b, gp, traj, delta, ori=ori)
 
 
 def fit_and_transport_batched_opt(
@@ -341,22 +372,10 @@ def fit_and_transport_batched_opt(
         raise ValueError(
             "fit_and_transport_batched_opt needs n <= 32 distribution points (the fused "
             "small-LML fit)")
-    aff_b = affine_core.fit_batched(
-        source_distribution, target_distributions, do_scale=do_scale, do_rotation=do_rotation
-    )
-    src_al = affine_core.predict(aff_b, source_distribution)  # (E, n, d)
-    delta_b = target_distributions - src_al
-
-    thetas, _ = gp_core.fit_ensemble_fused(kernel, src_al, delta_b, n_restarts=n_restarts,
-                                           generator=generator, jitter=jitter, maxiter=maxiter)
-    kernels_b = kernel.with_theta(thetas)
-
-    eff = gp_core._eff_jitter(src_al.dtype, jitter)
-    K_b = kernels_b(src_al) + eff * torch.eye(n, dtype=src_al.dtype, device=src_al.device)
-    L_e, Kinv_e = spd_inverse_elast_auto(K_b.permute(1, 2, 0).contiguous())  # (n, n, E)
-    Kinv_b = Kinv_e.permute(2, 0, 1)
-    gp = gp_core.ExactGP(
-        kernel=kernels_b, X=src_al, Y=delta_b, alpha=Kinv_b @ delta_b, L=L_e.permute(2, 0, 1),
-        K_inv=Kinv_b, jitter=jitter,
-    )
-    return transport_apply(aff_b, gp, traj, delta, ori=ori)
+    with span("gpt.transport_batched_opt", target_distributions.device):
+        aff_b, src_al, delta_b = _affine_batched(source_distribution, target_distributions,
+                                                 do_scale, do_rotation)
+        thetas, _ = gp_core.fit_ensemble_fused(kernel, src_al, delta_b, n_restarts=n_restarts,
+                                               generator=generator, jitter=jitter, maxiter=maxiter)
+        gp = _condition_batched(kernel.with_theta(thetas), src_al, delta_b, jitter)
+        return transport_apply(aff_b, gp, traj, delta, ori=ori)

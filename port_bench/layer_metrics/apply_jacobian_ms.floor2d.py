@@ -1,0 +1,10 @@
+"""Milliseconds a call in the program's span ``gpt.apply.jacobian`` (the
+cross-Gram's derivative, J_Ψ, its quadratic form and variance), by its CUDA
+events over the window's calls."""
+from port_bench import program_spans
+
+program_spans.start()
+
+
+def read(t):
+    return program_spans.ms_per_call(t, "gpt.apply.jacobian")

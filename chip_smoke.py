@@ -17,7 +17,7 @@ Phases, one line each on stdout:
 
 1. the card's name and power limit, as nvidia-smi reports them;
 2. the build of the ``spd_inverse_elast`` kernel from ``csrc/`` (seconds;
-   all three kernel sources start building together here, one nvcc each);
+   every kernel source starts building here, one nvcc each);
 3. ``spd_inverse_elast_fused`` against its plain PyTorch twin on the card,
    n in {1, 8, 16, 20, 24, 32, 33, 64} (every instance of the kernel, each
    case printed with the instance it took), E the bench size and a ragged
@@ -25,10 +25,17 @@ Phases, one line each on stdout:
    f64 case to 1e-10, two runs at the bench shape bitwise equal;
 4. the ensemble transport ``fit_and_transport_batched`` at the bench size
    (E=16384 targets of n=20 points, a Q=400 demo, C(10)*RBF(4)+White(0.01),
-   f32): finite fields, exactly one kernel launch, and three members
-   against the port's own f64 run on the CPU to err/max|X| < 1e-3;
+   f32): finite fields, exactly one launch of #1 and one of the fused
+   apply #8 (``transport_apply_rbf``, its build and ptxas line first), and
+   three members against the port's own f64 run on the CPU to err/max|X| <
+   1e-3; then #8 alone on that call's state, each field against its twin's
+   float64 evaluation within ``APPLY_REL`` times the float32 twin's own
+   error plus ``APPLY_FLOOR``, and the variances' quadratic forms through
+   the cached K⁻¹ (the plain route's) rejected by that bound;
 5. times of phase 3's kernel and twin and of phase 4's path (median of 5
-   CUDA-event timed runs after a warm-up), and peak device memory;
+   CUDA-event timed runs after a warm-up), and peak device memory (#8's
+   kernel and twin are timed with the others in phase 11, beside their
+   bound from ``port_bench/counts.py::apply``);
 6. the builds of ``factor_panel``, ``stationary_gram`` and ``fused_lml``
    (seconds; ptxas registers and spills of every kernel instance, those of
    ``spd_inverse_elast`` too, and the fused-LML instances' registers and
@@ -313,7 +320,7 @@ F32_ATOL, F32_INV_TOL, F64_ATOL, TRAJ_TOL = 2e-5, 1e-4, 1e-10, 1e-3
 KERNEL_CASES = [(n, E) for n in (1, 8, 16, 20, 24, 32, 33, 64) for E in (E_MAIN, E_MAIN + 37)]
 REPS = 5
 CUPTI_TRIES = 4  # profiler sessions tried before a time falls back (traced_rows)
-SOURCES = ("spd_inverse_elast", "factor_panel", "stationary_gram", "fused_lml")
+SOURCES = ("spd_inverse_elast", "factor_panel", "stationary_gram", "fused_lml", "transport_apply")
 
 N_SOLVE, D_SOLVE, BLOCK = 10240, 3, 512
 SOLVE_REL_TOL = 5e-3  # the N=10240 solve's alpha against f64, relative to max|alpha|
@@ -479,6 +486,117 @@ def member_errors(res, kernel64_of, S, X, dX, targets, members):
     if max(rel.values()) >= TRAJ_TOL:
         raise AssertionError(f"bench transport differs from the f64 CPU run: {rel}")
     return rel
+
+
+# ---- phases 4-5: the fused transport apply (#8) -----------------------------
+
+APPLY_FIELDS = ("traj", "std", "delta", "delta_var", "min_abs_det")
+# #8 against its twin's float64 evaluation of the same float32 inputs: each
+# field's error at most APPLY_REL times the float32 twin's own, plus
+# APPLY_FLOOR (relative; the sums of α·k and α·∂k over n ≤ 64 terms cancel as
+# far as the GP's conditioning makes them, in either evaluation order).
+# Phase 4 shows that the bound rejects the quadratic forms taken through the
+# cached K⁻¹ (kᵀK⁻¹k, the plain route's form) in place of ‖L⁻¹k‖².
+APPLY_REL, APPLY_FLOOR = 4.0, 1e-5
+APPLY_CHUNK = 2048  # members a twin call: the twin holds (members, n, Q, 1 + D)
+
+
+def apply_bench_state(device, E=E_MAIN):
+    """Phase 4's state as the batched route forms it (γ, the E GPs from the
+    Cholesky kernel, L and K⁻¹ carried) and its demo, float32."""
+    from gaussian_process_transportation_tpu_torch.transport import gpt
+
+    f32 = dict(dtype=torch.float32, device=device)
+    X, dX, S, S1 = (torch.as_tensor(a, **f32) for a in make_workload())
+    targets = S1[None] + torch.linspace(0.0, 1.0, E, **f32)[:, None, None]
+    aff, src_al, y = gpt._affine_batched(S, targets, False, True)
+    return aff, gpt._condition_batched(bench_kernel(**f32), src_al, y, 1e-10), X, dX
+
+
+def apply_args(aff, gp, traj, delta):
+    """``transport_apply_rbf``'s arguments for the batched route's state
+    ``aff``, ``gp`` (E members, L carried) and a demo ``traj``, ``delta``."""
+    from gaussian_process_transportation_tpu_torch.models import exact_gp as gp_core
+
+    return (gp.X, gp.alpha, gp.L, aff.rotation, aff.scale, aff.source_centroid,
+            aff.target_centroid, traj, delta, *gp_core.rbf_hyperparameters(gp.kernel))
+
+
+def apply_errors(got, want, amplitude, noise):
+    """Each field's worst |difference| over the reference's largest |value|;
+    the std as the variance it is the root of, max(var, 0) = (std + √noise)²,
+    over the prior amp + noise (the root's slope is unbounded at 0)."""
+    amp, noise = (torch.as_tensor(v, device=got[0].device, dtype=torch.float64).reshape(-1, 1)
+                  for v in (amplitude, noise))
+    var = lambda std: (std.double() + noise.sqrt()) ** 2
+    errs = {}
+    for name, g, w in zip(APPLY_FIELDS, got, want):
+        if name == "std":
+            errs[name] = ((var(g) - var(w)).abs() / (amp + noise)).max().item()
+        else:
+            w = w.double()
+            errs[name] = ((g.double() - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+    return errs
+
+
+def apply_twin(args, cast=lambda a: a):
+    """``transport_apply_rbf_plain`` of ``apply_args``' ``args``, each tensor
+    through ``cast``, APPLY_CHUNK members at a time."""
+    from gaussian_process_transportation_tpu_torch.ops import transport_apply as tfa
+
+    E = args[0].shape[0]
+
+    def members(a, i, part):  # the member tensors and per-member θ, cut to part
+        per = i < 7 or (torch.is_tensor(a) and (a.dim() == 2 if i == 10 else a.numel() == E > 1))
+        return a[part] if per else a
+
+    parts = [tfa.transport_apply_rbf_plain(*(cast(members(a, i, slice(e, e + APPLY_CHUNK)))
+                                             for i, a in enumerate(args)))
+             for e in range(0, E, APPLY_CHUNK)]
+    return [torch.cat(f) for f in zip(*parts)]
+
+
+def apply_k_inv_form(aff, gp, traj, delta):
+    """The fields of ``transport_apply``'s plain route through the cached K⁻¹
+    (the GP without its factor L), shaped as ``transport_apply_rbf``'s."""
+    from dataclasses import replace
+
+    from gaussian_process_transportation_tpu_torch.transport import gpt
+
+    r = gpt.transport_apply(aff, replace(gp, L=None), traj, delta)
+    return r.traj, r.std[..., 0], r.delta, r.delta_var[..., 0], r.min_abs_det
+
+
+def apply_check_errors(aff, gp, traj, delta, got=None):
+    """(#8's errors, the float32 twin's errors) per field against the twin's
+    float64 evaluation of the same float32 inputs (``apply_errors``).
+    ``got`` stands in for #8's fields where given (a planted fault)."""
+    from gaussian_process_transportation_tpu_torch.models import exact_gp as gp_core
+    from gaussian_process_transportation_tpu_torch.ops import transport_apply as tfa
+
+    args = apply_args(aff, gp, traj, delta)
+    if got is None:
+        got = tfa.transport_apply_rbf(*args)
+    ref = apply_twin(args, lambda a: a.double() if torch.is_tensor(a) else a)
+    amp, _, noise = gp_core.rbf_hyperparameters(gp.kernel)
+    return apply_errors(got, ref, amp, noise), apply_errors(apply_twin(args), ref, amp, noise)
+
+
+def apply_within(errs, twin_errs):
+    """Whether every field's error is within APPLY_REL times the twin's
+    plus APPLY_FLOOR."""
+    return all(errs[k] <= APPLY_REL * twin_errs[k] + APPLY_FLOOR for k in errs)
+
+
+def check_apply(aff, gp, traj, delta):
+    """``apply_check_errors`` of #8, raising where they are not
+    ``apply_within`` the bound."""
+    errs, twin_errs = apply_check_errors(aff, gp, traj, delta)
+    if not apply_within(errs, twin_errs):
+        raise AssertionError(f"transport_apply_rbf against the twin's float64 evaluation: "
+                             f"{errs}, the float32 twin's {twin_errs} (bound {APPLY_REL} x the "
+                             f"twin's + {APPLY_FLOOR})")
+    return errs, twin_errs
 
 
 def bench_kernel(**dev):
@@ -718,11 +836,12 @@ def counted():
     from gaussian_process_transportation_tpu_torch.ops.pallas_gram import (
         fused_gp_predict_mean, fused_gp_predict_mean_var, stationary_gram,
     )
+    from gaussian_process_transportation_tpu_torch.ops.transport_apply import transport_apply_rbf
 
     return {f.__name__: f for f in (spd_inverse_elast_fused, factor_panel, stationary_gram,
                                     stationary_gram_panels, fused_gp_predict_mean,
                                     fused_gp_predict_mean_var, small_lml_value_grad,
-                                    small_lml_value_grad_md)}
+                                    small_lml_value_grad_md, transport_apply_rbf)}
 
 
 def drive(path):
@@ -2524,7 +2643,7 @@ MULTICHIP_RECORD = "MULTICHIP_r05.json"  # the JAX package's dryrun on eight dev
 # the dryrun's launches a rank at DRYRUN_RANKS (E = 512 on 4 'ens' ranks: one
 # batched call each; 2 chains a rank, 1 + (10 + 10)·4 leapfrog evaluations;
 # N = 2048 in blocks of 128: every rank factors all 16 diagonal blocks)
-DRYRUN_LAUNCHES = {"transport": {"spd_inverse_elast_fused": 1},
+DRYRUN_LAUNCHES = {"transport": {"spd_inverse_elast_fused": 1, "transport_apply_rbf": 1},
                    "hmc": {"small_lml_value_grad": 81},
                    "cholesky": {"factor_panel": 16}, "lml": {"factor_panel": 16}}
 
@@ -2569,7 +2688,8 @@ def phase32(device, tag, ref):
         want = ref["main_path"]()
         got, counts["transport"] = drive(ens_path)
         expect_launches("transport_ensemble", counts["transport"], {
-            "spd_inverse_elast_fused": 1, "factor_panel": 0, "stationary_gram_panels": 0})
+            "spd_inverse_elast_fused": 1, "transport_apply_rbf": 1, "factor_panel": 0,
+            "stationary_gram_panels": 0})
         for name in want._fields:
             w = getattr(want, name)
             if w is not None and not torch.equal(getattr(got, name), w):
@@ -2813,7 +2933,8 @@ def phase34(device, tag, a64, solve_bound):
     (rate_t, det_t), counts["transport"] = drive(
         lambda: tb.bench_ours(X, dX, S, S1, iters=iters, reps=reps, device=device))
     calls = 1 + iters * reps
-    expect_launches("bench_ours", counts["transport"], {"spd_inverse_elast_fused": calls})
+    expect_launches("bench_ours", counts["transport"], {"spd_inverse_elast_fused": calls,
+                                                        "transport_apply_rbf": calls})
     per_call["transport"] = counts["transport"]["spd_inverse_elast_fused"] / calls
     res = tb.transport_fn(X, dX, S, S1, device=device)()
     targets = res.traj.new_tensor(S1)[None] + torch.linspace(0.0, 1.0, E_MAIN,
@@ -2921,10 +3042,12 @@ def main() -> None:
     from gaussian_process_transportation_tpu_torch.ops import batched_linalg as bl
     from gaussian_process_transportation_tpu_torch.ops import blocked_chol as bc
     from gaussian_process_transportation_tpu_torch.ops import pallas_gram as pg
+    from gaussian_process_transportation_tpu_torch.ops import transport_apply as tfa
     from gaussian_process_transportation_tpu_torch.ops.batched_linalg import (
         spd_inverse_elast, spd_inverse_elast_fused,
     )
     from gaussian_process_transportation_tpu_torch.transport import gpt
+    from port_bench import counts as bench_counts
 
     if any(m == "jax" or m.startswith(("jax.", TPU_PKG + ".")) or m == TPU_PKG
            for m in sys.modules):
@@ -2968,7 +3091,13 @@ def main() -> None:
         + f"; all within tolerance; two runs at n={N_MAIN} E={E_MAIN} bitwise equal {tag}",
         flush=True)
 
-    # 4. ensemble transport
+    # 4. ensemble transport, its apply in one launch of #8 (built in phase 2)
+    apply_lib, apply_build_s = builds["transport_apply"].result()
+    _cuda.library("transport_apply")
+    apply_log = apply_lib.with_suffix(".log").read_text()
+    print(apply_log, file=sys.stderr)
+    print(f"build: transport_apply in {apply_build_s:.2f} s, beside the others "
+          f"({apply_lib.name}; ptxas: {ptxas_summary(apply_log)}) {tag}", flush=True)
     X, dX, S, S1 = make_workload()
     f32 = dict(dtype=torch.float32, device=device)
     kernel = K.Constant(10.0) * K.RBF(4.0 * torch.ones(2, **f32)) + K.White(0.01)
@@ -2985,7 +3114,8 @@ def main() -> None:
     launches = counts4["spd_inverse_elast_fused"]
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     expect_launches("ensemble transport", counts4, {
-        "spd_inverse_elast_fused": 1, "factor_panel": 0, "stationary_gram_panels": 0})
+        "spd_inverse_elast_fused": 1, "transport_apply_rbf": 1, "factor_panel": 0,
+        "stationary_gram_panels": 0})
     fields = {name: getattr(res, name) for name in res._fields if getattr(res, name) is not None}
     for name, value in fields.items():
         if not torch.isfinite(value).all():
@@ -3002,6 +3132,21 @@ def main() -> None:
           + ", ".join(f"{k}: {v:.3g}" for k, v in rel.items())
           + f" (< {TRAJ_TOL}) {tag}", flush=True)
     del res
+
+    # #8 alone on the main path's state: each field against the twin's
+    # float64 evaluation, and the K⁻¹ form of the variances rejected
+    state4 = apply_bench_state(device)
+    apply_err, apply_twin_err = check_apply(*state4)
+    k_inv_err, _ = apply_check_errors(*state4, got=apply_k_inv_form(*state4))
+    if apply_within(k_inv_err, apply_twin_err):
+        raise AssertionError(f"the apply check passed the K⁻¹ form of the variances: {k_inv_err}")
+    apply_bound = {k: APPLY_REL * v + APPLY_FLOOR for k, v in apply_twin_err.items()}
+    print(f"fused apply #8 (transport_apply_rbf) E={E_MAIN} n={N_MAIN} Q={Q_MAIN} D=2 against "
+          f"the twin's float64 evaluation, error/bound: "
+          + ", ".join(f"{k} {apply_err[k]:.3g}/{apply_bound[k]:.3g}" for k in APPLY_FIELDS)
+          + "; the K⁻¹ form rejected: "
+          + ", ".join(f"{k} {k_inv_err[k]:.3g}" for k in ("std", "delta_var")) + f" {tag}",
+          flush=True)
 
     # 5. times
     K_main = spd_batch(N_MAIN, E_MAIN)
@@ -3024,6 +3169,16 @@ def main() -> None:
         torch.cuda.synchronize()
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30), file=sys.stderr)
     n, E = N_MAIN, E_MAIN
+    args8 = apply_args(*state4)
+    kernels_json["transport_apply_rbf"] = dict(
+        source=f"{PKG}/csrc/transport_apply.cu",
+        replaces="none: the JAX package left apply to XLA", launches=counts4["transport_apply_rbf"],
+        max_abs_err=max(apply_err.values()),
+        # float32 operations set the least time at this shape (port_bench/counts.py)
+        bound=(bench_counts.apply(E_MAIN, N_MAIN, Q_MAIN, 2, 2) * 1e3, "operations"),
+        shape=f"E={E_MAIN} n={N_MAIN} Q={Q_MAIN} D=2", ptxas=ptxas_summary(apply_log),
+        calls=(lambda: tfa.transport_apply_rbf(*args8),
+               lambda: tfa.transport_apply_rbf_plain(*args8), None))
     kernels_json["spd_inverse_elast_fused"] = dict(
         source=f"{PKG}/csrc/spd_inverse_elast.cu",
         replaces=f"{TPU_PKG}/ops/batched_linalg.py:80", launches=launches, max_abs_err=main_err,
@@ -3510,7 +3665,7 @@ def main() -> None:
     want13 = 1 + MAXITER * (6 + 1)  # _lbfgs_elast's max_backtrack = 6
     expect_launches("fit_and_transport_batched_opt", counts13, {
         "small_lml_value_grad_md": want13, VALUE_ONLY: MAXITER * 6, "spd_inverse_elast_fused": 1,
-        "small_lml_value_grad": 0})
+        "transport_apply_rbf": 1, "small_lml_value_grad": 0})
     for name in ("traj", "std", "delta", "delta_var", "min_abs_det"):
         if not torch.isfinite(getattr(res13, name)).all():
             raise AssertionError(f"fit_and_transport_batched_opt field {name} has non-finite values")
@@ -4316,6 +4471,11 @@ def main() -> None:
         gp_ds_vector_field_launches=counts30["fused_gp_predict_mean_var"])
     kernels_json["small_lml_value_grad_md"].update(
         launches=counts13["small_lml_value_grad_md"], value_only_launches=counts13[VALUE_ONLY])
+    # #8's launches in the later transports (phases 13, 32 and 33)
+    kernels_json["transport_apply_rbf"].setdefault("extra", {}).update(
+        refit_launches=counts13["transport_apply_rbf"],
+        transport_ensemble_launches=counts32["transport"]["transport_apply_rbf"],
+        dryrun_transport_launches_per_rank=counts33["transport"]["transport_apply_rbf"])
     # the multi-device paths' launches (phase 32 in one rank; phase 33 a rank)
     kernels_json["spd_inverse_elast_fused"].setdefault("extra", {}).update(
         transport_ensemble_launches=counts32["transport"]["spd_inverse_elast_fused"],

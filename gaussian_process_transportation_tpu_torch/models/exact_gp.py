@@ -172,6 +172,20 @@ def rbf_family_params(kernel: Kernel):
     return params[1], params[2]
 
 
+def rbf_hyperparameters(kernel: Kernel):
+    """(amplitude, lengthscale, noise) of a C·RBF(+White) kernel, each as
+    the kernel holds it: a number or a tensor, shared or per member (the
+    amplitude 1.0 without a Constant, the noise 0.0 without a White).  None
+    for any other kernel, a Matérn of ν = ∞ included."""
+    if stationary_family_params(kernel) is None:
+        return None
+    const, base, _ = _family_nodes(kernel)
+    if type(base) is not RBF:
+        return None
+    amplitude = 1.0 if const is None else const.constant_value
+    return amplitude, base.lengthscale, white_noise_level(kernel)
+
+
 _MATERN_FAMILY = {0.5: "matern12", 1.5: "matern32", 2.5: "matern52", math.inf: "rbf"}
 
 

@@ -55,8 +55,10 @@ def _wrappers():
     from ..ops.batched_linalg import spd_inverse_elast_fused
     from ..ops.blocked_chol import factor_panel, stationary_gram_panels
     from ..ops.fused_lml import small_lml_value_grad
+    from ..ops.transport_apply import transport_apply_rbf
 
-    return (spd_inverse_elast_fused, small_lml_value_grad, factor_panel, stationary_gram_panels)
+    return (spd_inverse_elast_fused, small_lml_value_grad, factor_panel, stationary_gram_panels,
+            transport_apply_rbf)
 
 
 def _counted(fn, device):

@@ -42,8 +42,9 @@ from ..models.gp_regressor import GaussianProcess
 from ..ops import quaternion as quat
 from ..ops.batched_linalg import spd_inverse_elast_auto
 from ..ops.fused_lml import MAX_N as FUSED_LML_MAX_N
+from ..ops import transport_apply as fused_apply
 from ..ops.linalg import tri_solve_lower
-from ..utils.logging_utils import span
+from ..utils.logging_utils import span, spans_on, tally
 from .core import PolicyTransport
 
 
@@ -125,20 +126,51 @@ def fit_pipeline(
     return aff, gp
 
 
-def _det_small(M: Tensor) -> Tensor:
-    """det over the leading axes of (..., D, D), closed form for D ≤ 3."""
-    d = M.shape[-1]
-    if d == 1:
-        return M[..., 0, 0]
-    if d == 2:
-        return M[..., 0, 0] * M[..., 1, 1] - M[..., 0, 1] * M[..., 1, 0]
-    if d == 3:
-        return (
-            M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
-            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
-            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0])
-        )
-    return torch.linalg.det(M)
+def fused_apply_inputs(aff: AffineParams, gp: gp_core.ExactGP, traj: Tensor, delta: Tensor,
+                       ori: Optional[Tensor] = None) -> bool:
+    """Whether ``transport_apply``'s inputs are those the fused kernel
+    (``ops/transport_apply.py``) takes, on whatever device: float32
+    throughout on one device; a GP with its factor L and a cached K⁻¹ (the
+    batched route) of 1 ≤ n ≤ 64 points with D ∈ {2, 3}
+    coordinates and one leading member axis or none, matched by the affine
+    fit's fields; a demo (Q, D) with Q ≥ 1 and no orientations; a
+    C·RBF(+White) kernel, ARD or isotropic, shared or per member."""
+    X = gp.X
+    if ori is not None or gp.K_inv is None or gp.L is None or X.dim() not in (2, 3):
+        return False
+    lead, (n, D) = tuple(X.shape[:-2]), X.shape[-2:]
+    if (not 1 <= n <= fused_apply.MAX_N or D not in fused_apply.DIMS
+            or traj.dim() != 2 or traj.shape[0] < 1 or traj.shape[1] != D
+            or delta.shape != traj.shape):
+        return False
+    shapes = ((gp.alpha, (n, D)), (gp.L, (n, n)), (gp.K_inv, (n, n)), (aff.rotation, (D, D)),
+              (aff.scale, ()), (aff.source_centroid, (D,)), (aff.target_centroid, (D,)))
+    if any(tuple(t.shape) != lead + tail for t, tail in shapes):
+        return False
+    if any(t.dtype != torch.float32 or t.device != traj.device
+           for t in (X, traj, delta, *(t for t, _ in shapes))):
+        return False
+    hyper = gp_core.rbf_hyperparameters(gp.kernel)
+    E = lead[0] if lead else 1
+    return hyper is not None and fused_apply.hyperparameters_fit(*hyper, E, D, traj.device)
+
+
+def _transport_apply_fused(aff: AffineParams, gp: gp_core.ExactGP, traj: Tensor,
+                           delta: Tensor) -> TransportResult:
+    """``transport_apply`` in one launch of the fused kernel."""
+    amplitude, lengthscale, noise = gp_core.rbf_hyperparameters(gp.kernel)
+    one = gp.X.dim() == 2  # no member axis: a member of one
+
+    def members(t):
+        return t[None] if one else t
+
+    out = fused_apply.transport_apply_rbf(
+        members(gp.X), members(gp.alpha), members(gp.L), members(aff.rotation),
+        members(aff.scale), members(aff.source_centroid), members(aff.target_centroid), traj,
+        delta, amplitude, lengthscale, noise)
+    traj_new, std_q, delta_new, dvar_q, min_abs_det = (t[0] for t in out) if one else out
+    return TransportResult(traj_new, std_q[..., None].expand(traj_new.shape), delta_new,
+                           dvar_q[..., None].expand(traj_new.shape), min_abs_det)
 
 
 def transport_apply(
@@ -154,13 +186,27 @@ def transport_apply(
     closest rotation to J_Φ.  ``aff`` and ``gp`` may carry a leading
     ensemble axis; the results then do too.
 
-    Intermediates are query-last, (…, N, Q) and (…, D, N, Q), so the
-    contractions against K⁻¹ and α are batched matmuls over Q columns.
-    Without a cached K⁻¹ the variances come from forward substitution with
-    the GP's factor, dense or blocked; the blocked one takes the Jacobian's
-    D directions as one (N, D·Q) right-hand side."""
+    CUDA inputs that :func:`fused_apply_inputs` takes (the batched small-n
+    route under C·RBF(+White), float32, no orientations) go through one
+    launch of the fused kernel (``ops/transport_apply.py``), which keeps
+    every intermediate on the chip.  Every other input takes the plain
+    route below.
+
+    On the plain route intermediates are query-last, (…, N, Q) and
+    (…, D, N, Q), so the contractions against K⁻¹ and α are batched matmuls
+    over Q columns.  Without a cached K⁻¹ the variances come from forward
+    substitution with the GP's factor, dense or blocked; the blocked one
+    takes the Jacobian's D directions as one (N, D·Q) right-hand side."""
     dev = traj.device
     with span("gpt.apply", dev):
+        fused = dev.type == "cuda" and fused_apply_inputs(aff, gp, traj, delta, ori)
+        if spans_on():
+            members = gp.X[..., 0, 0].numel()
+            tally("gpt.apply.members", members)
+            tally("gpt.apply.fused_members", members if fused else 0)
+        if fused:
+            with span("gpt.apply.fused", dev):
+                return _transport_apply_fused(aff, gp, traj, delta)
         kernel = gp.kernel
         with span("gpt.apply.posterior", dev):
             pos = affine_core.predict(aff, traj)  # (..., Q, D)
@@ -197,7 +243,7 @@ def transport_apply(
             # J_Φ = J_γ + J_Ψ J_γ, and the diffeomorphism diagnostic min|det J_Φ|
             JphiT = Jg[..., None] + torch.einsum("...peq,...ed->...pdq", JpsiT, Jg)
             Jphi = JphiT.movedim(-1, -3)  # (..., Q, P, D)
-            min_abs_det = _det_small(Jphi).abs().amin(dim=-1)
+            min_abs_det = fused_apply.det_small(Jphi).abs().amin(dim=-1)
 
             # velocity and velocity-variance push-forward
             wT = Jg @ delta.transpose(-1, -2)  # (..., D, Q) = (J_γ v)ᵀ

@@ -7,6 +7,8 @@ the CPU.  They skip where no CUDA card is present.  On a machine with a card and
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -960,3 +962,122 @@ def test_the_high_precision_route_on_the_card(device, monkeypatch):
     assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
     a_s, _ = sharded_gram_cholesky_solve(Xd, Yd, ls, 2.0, 0.1, None, block=128, precision="high")
     assert rel(a_s) < chip_smoke.SOLVE_REL_TOL
+
+
+# ---- the fused transport apply: ops/transport_apply.py, csrc/transport_apply.cu ----
+
+from gaussian_process_transportation_tpu_torch.ops import transport_apply as tfa  # noqa: E402
+
+
+def _apply_case(device, E, n, Q, D, theta="shared", seed=0):
+    """The batched route's float32 state on the card (γ, the E GPs from the
+    Cholesky kernel) under C(10)·RBF(4)+White(0.01), its θ shared or moved
+    per member, and a demo of Q points: the floor curves in 2-D, a 3-D curve."""
+    rng = np.random.default_rng(seed + 100 * n + 10 * D + E)
+    t, s = np.linspace(0, 1, Q), np.linspace(0, 1, n)
+    if D == 2:
+        X, S = np.stack([10 * t, 5 * np.sin(3 * t)], 1), np.stack([10 * s, -2 + 0 * s], 1)
+    else:
+        X = np.stack([4 * t, np.sin(3 * t), 0.5 * np.cos(2 * t)], 1)
+        S = np.stack([4 * s, np.sin(4 * s), np.cos(3 * s)], 1)
+    T = S[None] + 0.3 * rng.standard_normal((E, n, D)) + 0.2
+    dX = np.zeros_like(X)
+    dX[:-1] = np.diff(X, axis=0)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    kern = K.Constant(10.0) * K.RBF(4.0 * torch.ones(D, device=device)) + K.White(0.01)
+    if theta == "per_member":
+        kern = kern.with_theta(kern.theta[None] + 0.2 * f(rng.standard_normal((E, 4 if D == 2 else 5))))
+    aff, src_al, y = gpt._affine_batched(f(S), f(T), False, True)
+    return aff, gpt._condition_batched(kern, src_al, y, 1e-10), f(X), f(dX)
+
+
+@pytest.mark.parametrize("theta", ["shared", "per_member"])
+@pytest.mark.parametrize("E,Q", [(1, 1), (1, 129), (3, 1), (3, 129), (3, 400)])
+@pytest.mark.parametrize("n", [1, 20, 24, 25, 33, 64])
+@pytest.mark.parametrize("D", [2, 3])
+def test_fused_apply_matches_twin(device, D, n, E, Q, theta, monkeypatch):
+    monkeypatch.setattr(tfa.transport_apply_rbf, "launches", 0)
+    chip_smoke.check_apply(*_apply_case(device, E, n, Q, D, theta))
+    assert tfa.transport_apply_rbf.launches == 1
+
+
+@pytest.mark.parametrize("theta", ["shared", "per_member"])
+@pytest.mark.parametrize("n", [20, 64])
+@pytest.mark.parametrize("D", [2, 3])
+def test_fused_apply_matches_twin_at_the_floor_ensemble(device, D, n, theta):
+    """E = 16,384 members, Q = 400: the floor cell's size, 2,048 blocks."""
+    chip_smoke.check_apply(*_apply_case(device, 16384, n, 400, D, theta))
+
+
+def test_transport_apply_takes_one_fused_launch_with_no_host_sync(device, monkeypatch):
+    """The floor's inputs: one launch an apply, no synchronising call
+    (sync debug mode "error"), the fields' shapes and views, and min|det J_Φ|
+    within the floor cell's limit (0.003) of the plain route's (the same GP
+    without L, which the fused route needs: today's route through K⁻¹)."""
+    monkeypatch.setattr(tfa.transport_apply_rbf, "launches", 0)
+    aff, gp, X, dX = _apply_case(device, 2048, 20, 400, 2)
+    assert gpt.fused_apply_inputs(aff, gp, X, dX)
+    gpt.transport_apply(aff, gp, X, dX)  # built and loaded before the debug mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = gpt.transport_apply(aff, gp, X, dX)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    plain = gpt.transport_apply(aff, replace(gp, L=None), X, dX)  # the plain route, by K⁻¹
+    torch.cuda.synchronize()
+    assert tfa.transport_apply_rbf.launches == 2
+    for name in ("traj", "std", "delta", "delta_var", "min_abs_det"):
+        assert getattr(res, name).shape == getattr(plain, name).shape, name
+    assert res.std.stride()[-1] == 0 and res.delta_var.stride()[-1] == 0
+    rel = ((res.min_abs_det - plain.min_abs_det).abs() / plain.min_abs_det.abs()).max().item()
+    assert rel <= 0.003
+
+
+def test_one_member_without_an_axis_takes_the_fused_launch(device, monkeypatch):
+    monkeypatch.setattr(tfa.transport_apply_rbf, "launches", 0)
+    aff, gp, X, dX = _apply_case(device, 1, 20, 50, 2)
+    S = gp.X[0]
+    aff1, gp1 = gpt.fit_pipeline(gp.kernel, S, S + 0.1 * torch.sin(S))
+    res = gpt.transport_apply(aff1, gp1, X, dX)
+    plain = gpt.transport_apply(aff1, replace(gp1, L=None), X, dX)
+    torch.cuda.synchronize()
+    assert tfa.transport_apply_rbf.launches == 1
+    assert res.traj.shape == (50, 2) and res.min_abs_det.shape == ()
+    assert (res.traj - plain.traj).abs().max().item() <= 1e-4 * plain.traj.abs().max().item()
+
+
+def test_members_past_64_points_launch_nothing(device, monkeypatch):
+    """n = 65: the batched entry's per-member route, each apply plain."""
+    monkeypatch.setattr(tfa.transport_apply_rbf, "launches", 0)
+    aff, gp, X, dX = _apply_case(device, 2, 20, 40, 2)
+    s = torch.linspace(0, 1, 65, device=device)
+    S = torch.stack([10 * s, -2 + 0.3 * torch.sin(7 * s)], 1)
+    T = torch.stack([S + 0.1 * torch.sin(S), S - 0.1])
+    res = gpt.fit_and_transport_batched(gp.kernel, S, T, X, dX)
+    torch.cuda.synchronize()
+    assert tfa.transport_apply_rbf.launches == 0 and torch.isfinite(res.traj).all()
+
+
+@pytest.mark.parametrize("case", ["ori", "float64", "sum_of_rbfs"])
+def test_inputs_outside_the_fused_kernel_launch_nothing(device, case, monkeypatch):
+    monkeypatch.setattr(tfa.transport_apply_rbf, "launches", 0)
+    D = 3 if case == "ori" else 2
+    aff, gp, X, dX = _apply_case(device, 4, 20, 40, D)
+    ori = None
+    if case == "ori":
+        ori = torch.nn.functional.normalize(torch.randn(40, 4, device=device), dim=-1)
+    if case == "float64":
+        gp = gpt.gp_core.ExactGP(
+            kernel=K.Constant(10.0) * K.RBF(4.0 * torch.ones(2, dtype=torch.float64, device=device))
+            + K.White(0.01), X=gp.X.double(), Y=gp.Y.double(), alpha=gp.alpha.double(),
+            L=gp.L.double(), K_inv=gp.K_inv.double())
+        aff = type(aff)(*(t.double() for t in (aff.rotation, aff.scale, aff.source_centroid,
+                                               aff.target_centroid)))
+        X, dX = X.double(), dX.double()
+    if case == "sum_of_rbfs":
+        gp = gpt.gp_core.ExactGP(kernel=K.RBF(torch.ones(2, device=device)) + K.RBF(2.0), X=gp.X,
+                                 Y=gp.Y, alpha=gp.alpha, L=gp.L, K_inv=gp.K_inv)
+    res = gpt.transport_apply(aff, gp, X, dX, ori=ori)
+    torch.cuda.synchronize()
+    assert tfa.transport_apply_rbf.launches == 0 and torch.isfinite(res.traj).all()

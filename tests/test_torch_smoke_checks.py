@@ -238,3 +238,21 @@ def test_the_forest_reference_applies_the_card_runs_fitted_map():
     want = chip_smoke.apply_learned(tr, X, dX)
     got = chip_smoke.apply_learned(chip_smoke.forest_on_cpu(want), X, dX)
     assert max(chip_smoke.field_errors(got, want).values()) == 0.0
+
+
+def test_apply_check_passes_the_twin_at_the_bench_members():
+    """``check_apply`` on the CPU, where ``transport_apply_rbf`` takes the
+    twin: phase 4's members read their own float32 error."""
+    errs, twin_errs = chip_smoke.check_apply(*chip_smoke.apply_bench_state("cpu", E=4))
+    assert errs == twin_errs and max(errs.values()) < chip_smoke.APPLY_FLOOR
+
+
+def test_apply_check_rejects_the_k_inv_form():
+    """The quadratic forms through the cached K⁻¹ (the plain route's) read
+    above the bound at phase 4's members, by more than twice."""
+    state = chip_smoke.apply_bench_state("cpu", E=4)
+    errs, twin_errs = chip_smoke.apply_check_errors(
+        *state, got=chip_smoke.apply_k_inv_form(*state))
+    assert not chip_smoke.apply_within(errs, twin_errs)
+    bound = {k: chip_smoke.APPLY_REL * twin_errs[k] + chip_smoke.APPLY_FLOOR for k in errs}
+    assert max(errs[k] / bound[k] for k in ("std", "delta_var")) > 2

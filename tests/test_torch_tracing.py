@@ -82,8 +82,11 @@ def test_entries_give_the_span_tree_once_per_call(entry):
         assert edges == Counter(tree)
     for r, own in zip(recs, got.self_ms()):
         assert r.start_ns <= r.end_ns and own >= 0.0 and r.device_ms is None, r
+    # apply's tallies: two calls of E members, none fused on the CPU
+    assert got.tallies["gpt.apply.members"] == 2 * E
+    assert got.tallies["gpt.apply.fused_members"] == 0
     if entry == "batched":
-        assert got.tallies == {}
+        assert set(got.tallies) == {"gpt.apply.members", "gpt.apply.fused_members"}
     else:  # two calls of E members × 7 starts, 6 candidates a step
         lanes = 2 * E * 7 * 6 * MAXITER
         assert got.tallies["exact_gp.lbfgs.candidate_lanes"] == lanes
